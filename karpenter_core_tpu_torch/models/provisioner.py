@@ -1,0 +1,2510 @@
+"""The device provisioning solver in PyTorch — the port's flagship model.
+
+Port of ``karpenter_core_tpu/models/provisioner.py`` (its main-path slice):
+a drop-in counterpart of the greedy host scheduler
+(controllers/provisioning/scheduling/scheduler.py) with the same inputs
+(nodepools, instance-type catalog, existing nodes, pending pods) and the
+same Results, but the FFD loop runs on the device as a class-batched scan
+(``ops/cuda_ffd.py``, the hand CUDA kernel, or its plain version
+``ops/ffd.py``) after feasibility is precomputed as tensor ops
+(``ops/masks.py``).
+
+Pipeline per solve:
+ 1. host: pods → equivalence classes, sorted cpu/memory-descending
+ 2. host: snapshot encode over a closed-world vocab (solver/snapshot.py)
+ 3. device: class×IT / class×template compatibility + fresh-node viability
+ 4. device: FFD scan over classes → per-slot take counts, summed per class
+ 5. host: decode — merge each slot's class groups through the exact host
+    algebra, yielding the same InFlightNodeClaim objects the greedy path
+    produces
+ 6. host: relaxation outer loop re-runs 1-5 for still-unschedulable pods
+
+Every tensor shape, pad and bucket matches the JAX package's, so each
+device plane compares one to one with the reference's. NodePool limits
+are enforced at claim creation (provision()), exactly as there.
+
+Outside this slice, and raising ``NotImplementedError`` that names the
+ROADMAP item that ports it: ``solver_mode="relax"`` (A.9), ``devices != 1``
+(A.13), gangs and non-zero priority tiers (A.8, which also brings the
+rack-topology gangs of A.10), and cross-problem batching (A.7).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from karpenter_core_tpu_torch.api import labels as apilabels
+from karpenter_core_tpu_torch.api.nodepool import NodePool
+from karpenter_core_tpu_torch.api.objects import Pod
+from karpenter_core_tpu_torch.cloudprovider.types import InstanceType
+from karpenter_core_tpu_torch.controllers.provisioning.scheduling.inflight import (
+    ExistingNodeSim,
+    IncompatibleError,
+    InFlightNodeClaim,
+    SimNode,
+)
+from karpenter_core_tpu_torch.controllers.provisioning.scheduling.nodeclaimtemplate import (
+    NodeClaimTemplate,
+    filter_instance_types,
+)
+from karpenter_core_tpu_torch.controllers.provisioning.scheduling.preferences import (
+    Preferences,
+)
+from karpenter_core_tpu_torch.controllers.provisioning.scheduling.queue import (
+    by_cpu_and_memory_descending,
+)
+from karpenter_core_tpu_torch.controllers.provisioning.scheduling.scheduler import (
+    Results,
+    _daemon_compatible,
+    node_daemon_pods,
+    place_pod,
+)
+from karpenter_core_tpu_torch.controllers.provisioning.scheduling.topology import (
+    TYPE_ANTI_AFFINITY,
+    TYPE_SPREAD,
+    Topology,
+    domain_universe,
+)
+from karpenter_core_tpu_torch.ops import cuda_ffd
+from karpenter_core_tpu_torch.ops import masks as mops
+from karpenter_core_tpu_torch.ops import topoplan
+from karpenter_core_tpu_torch.ops.ffd import (
+    BIG,
+    RANK_NONE,
+    ClassStep,
+    FFDStatics,
+    SlotState,
+    aggregate_takes,
+    ffd_solve,
+)
+from karpenter_core_tpu_torch.scheduling import Requirement, Requirements
+from karpenter_core_tpu_torch.solver import gangs as gangmod
+from karpenter_core_tpu_torch.solver.snapshot import PodClass, group_pods
+from karpenter_core_tpu_torch.solver.vocab import (
+    EntityMasks,
+    GT_NONE,
+    LT_NONE,
+    decode_requirements,
+)
+from karpenter_core_tpu_torch.utils import resources as resutil
+from karpenter_core_tpu_torch.utils.device import resolve_device
+
+KERNEL_BACKENDS = ("cuda", "reference")
+_NARROW = {
+    np.dtype(np.int64): np.int32,
+    np.dtype(np.uint64): np.uint32,
+    np.dtype(np.float64): np.float32,
+}
+
+# Densification deferral knobs (see _decode_topo): fresh topology slots at
+# or below DENSIFY_THRESHOLD x median pod count drain through the host
+# repair path, capped at DENSIFY_CAP of the fresh slots AND at
+# DENSIFY_POD_BUDGET total pods per solve (the repair is ~ms/pod of host
+# algebra, so the budget bounds the decode-time cost at any scale).
+# Deliberately conservative: the pass exists to recover genuinely sparse
+# tail slots. Uniform thinness (every slot near the median, the cfg3-5k
+# +5% equilibrium of class-batched packing) is NOT repairable this way —
+# sweeping thresholds showed median-wide deferral either re-creates the
+# same slots (spread/anti constraints force fresh hosts) or devolves into
+# a full host re-solve at ~ms/pod.
+DENSIFY_THRESHOLD = 0.5
+DENSIFY_CAP = 0.125
+DENSIFY_POD_BUDGET = 256
+
+
+def _neutralize(masks: EntityMasks) -> EntityMasks:
+    """Apply the neutral-where-undefined invariant required by ffd_step."""
+    d = masks.defines
+    return EntityMasks(
+        mask=np.where(d[:, :, None], masks.mask, True),
+        defines=d,
+        concrete=np.where(d, masks.concrete, False),
+        negative=np.where(d, masks.negative, True),
+        gt=masks.gt,
+        lt=masks.lt,
+    )
+
+
+def _tolerates_taints(tolerations, taints) -> bool:
+    return all(any(tol.tolerates(t) for tol in tolerations) for t in taints)
+
+
+def _bucket(n: int, lo: int = 8) -> int:
+    """Next power of two (>= lo): device-array axes pad to bucketed sizes,
+    the JAX package's exact shapes (where buckets keep its jit cache warm),
+    so every plane compares one to one with the reference's."""
+    return max(lo, 1 << max(n - 1, 1).bit_length())
+
+
+def _bucket_steps(n: int, lo: int = 8) -> int:
+    """Half-octave bucket (… 8, 12, 16, 24, 32 …) for the SCAN STEP axis
+    only. Scan length costs wall-clock linearly — a diverse 50k topology
+    mix lands ~11.5k steps, and a pure power-of-two pad burns 40% of the
+    kernel on inert steps — so the step axis takes half octaves for a <=33%
+    (avg ~17%) pad ceiling. Tensor axes keep the pure power-of-two buckets:
+    their padding costs memory, not scan iterations."""
+    p = _bucket(n, lo)
+    half = (p // 4) * 3
+    if half >= lo and n <= half:
+        return half
+    return p
+
+
+def _pad_cols(t: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero/False-pad a device [rows, cols] tensor to n columns."""
+    if t.shape[1] >= n:
+        return t
+    out = torch.zeros((t.shape[0], n), dtype=t.dtype, device=t.device)
+    out[:, : t.shape[1]] = t
+    return out
+
+
+def _pad(a: np.ndarray, targets: dict, fill) -> np.ndarray:
+    """Pad axes of a to targets {axis: size} with a constant fill."""
+    widths = [(0, 0)] * a.ndim
+    for axis, size in targets.items():
+        widths[axis] = (0, max(size - a.shape[axis], 0))
+    if all(w == (0, 0) for w in widths):
+        return a
+    return np.pad(a, widths, constant_values=fill)
+
+
+class _SlotOverflow(Exception):
+    """More slots needed than max_slots — caller doubles and retries."""
+
+
+# one slot per pod is the true worst case; 1M slots is far past any
+# realistic solve and bounds the doubling loop
+_SLOT_HARD_CAP = 1 << 20
+
+
+@dataclass
+class _Prepared:
+    vocab: object
+    resource_names: List[str]
+    catalog: List[InstanceType]
+    class_masks: EntityMasks
+    class_requests: np.ndarray  # [C, R]
+    classes: List[PodClass]
+    templates: List[NodeClaimTemplate]
+    # DEVICE-RESIDENT until the post-scan fetch (tensors at BUCKETED
+    # shapes): class_it [Cp, Tp], tmpl_ok [Cp, Sp], new_template/kstar [Cp]
+    # (ops/masks.fresh_viability outputs). _solve_once swaps class_it for
+    # the fetched numpy [Cp, T] right before decode — the only host reader.
+    class_it: object
+    tmpl_ok: object
+    new_template: object
+    kstar: object
+    statics: FFDStatics
+    init_state: SlotState
+    exist_taint_ok: np.ndarray  # [C, N]
+    existing_sims: List[ExistingNodeSim]
+    n_slots: int
+    topo: Topology
+    plan: topoplan.TopoPlan
+    smask: np.ndarray  # [C, K, V] strict (pod_domains) value masks
+    # float64 decode twins, quantized to the device's integer units
+    # (unclamped — float64 is exact to 2^53): every decode refit runs in
+    # the SAME arithmetic regime as the kernel, so slots the kernel packed
+    # exactly full are never rejected over raw-float drift (repeated raw
+    # adds drift ~1e-13 at exact boundaries, and whole slots would defer
+    # to the per-pod host path).
+    # Ceil-requests/floor-capacity stays conservative vs true decimal
+    # quantities (k8s resource.Quantity is fixed-point, resources.go:28-66).
+    it_alloc64q: np.ndarray  # [pad_T, R] float64 (floor-quantized)
+    class_requests64q: np.ndarray  # [C, R] float64 (ceil-quantized)
+    tmpl_overhead64q: np.ndarray  # [pad_S, R] float64 (ceil-quantized)
+    off_avail_np: np.ndarray  # [pad_T, Z, CT] bool
+    tmpl_it_np: np.ndarray  # [pad_S, pad_T] bool
+    tmpl_mask_np: np.ndarray  # [pad_S, K, V] bool
+    zone_kid: int
+    ct_kid: int
+    n_zones: int
+    n_cts: int
+    level_iters: int = 32
+    # prepared-state reuse plumbing: Cp is the bucketed class axis
+    # the decision planes aggregate to; _batch is the prepared-cache entry
+    # the per-class tensors came from (ClassStep device arrays are cached
+    # on it by _class_steps); step_class is the device [Jp] step->class
+    # index driving the on-device takes aggregation.
+    n_classes_padded: int = 8
+    _batch: dict = field(default_factory=dict)
+    step_class: object = None
+
+
+# ---------------------------------------------------------------------------
+# the kernel-dispatch seam
+#
+# DeviceScheduler.solve runs as a generator that YIELDS one _KernelRequest
+# per device dispatch; a dispatcher answers each request with (final
+# SlotState, takes-by-class, unplaced-by-class, seconds). The solo
+# dispatcher (_drive_solo) is the only one of this slice; cross-problem
+# batching (ROADMAP A.7) adds a second one over the same seam.
+
+
+@dataclass
+class _KernelRequest:
+    """One device dispatch of the FFD scan, reified so a dispatcher outside the
+    generator can answer it."""
+
+    init_state: SlotState
+    steps: ClassStep
+    statics: FFDStatics
+    level_iters: int
+    step_class: torch.Tensor  # [Jp] step -> class index
+    num_classes: int  # Cp, the bucketed class axis
+    n_slots: int
+    # "cuda": the hand kernel (ops/cuda_ffd.py); "reference": the plain
+    # torch scan (ops/ffd.py), the kernel's oracle
+    backend: str = "cuda"
+
+
+def _run_kernel_solo(req: _KernelRequest):
+    """Answer one request; the trailing element is the dispatch seconds
+    (host enqueue time on the card — the fetch that follows waits for the
+    device)."""
+    t0 = time.perf_counter()
+    if req.backend == "cuda":
+        state, takes, unplaced = cuda_ffd.cuda_ffd_solve(
+            req.init_state, req.steps, req.statics,
+            level_iters=req.level_iters,
+        )
+    else:
+        state, takes, unplaced = ffd_solve(
+            req.init_state, req.steps, req.statics,
+            level_iters=req.level_iters,
+        )
+    takes_bc, unplaced_bc = aggregate_takes(
+        takes, unplaced, req.step_class, num_classes=req.num_classes
+    )
+    return state, takes_bc, unplaced_bc, time.perf_counter() - t0
+
+
+def _drive_solo(gen):
+    """Run one problem's solve generator to completion with direct kernel
+    dispatches — the single-problem production path."""
+    out = None
+    while True:
+        try:
+            req = gen.send(out)
+        except StopIteration as stop:
+            return stop.value
+        out = _run_kernel_solo(req)
+
+class DeviceScheduler:
+    """Same construction surface as the greedy Scheduler, device solve."""
+
+    def __init__(
+        self,
+        nodepools: List[NodePool],
+        instance_types: Dict[str, List[InstanceType]],
+        existing_nodes: Optional[List[SimNode]] = None,
+        daemonset_pods: Optional[List[Pod]] = None,
+        max_slots: int = 256,
+        topology: Optional[Topology] = None,
+        unavailable_offerings: "frozenset | set" = frozenset(),
+        devices: int = 1,
+        verify: bool = True,
+        recorder=None,
+        solver_mode: str = "ffd",
+        kernel_backend: str = "cuda",
+        device="cuda",
+    ):
+        # "ffd" is the classic first-fit-decreasing backend; the
+        # convex-relaxation backend ("relax") is ported by ROADMAP A.9
+        if solver_mode == "relax":
+            raise NotImplementedError(
+                "solver_mode='relax' is ported by ROADMAP item A.9"
+            )
+        if solver_mode != "ffd":
+            raise ValueError(f"unknown solver mode {solver_mode!r}")
+        self.solver_mode = solver_mode
+        # kernel backend: "cuda" answers the FFD-scan dispatches with the
+        # hand kernel (ops/cuda_ffd.py); "reference" with its plain torch
+        # version (ops/ffd.py) — the oracle the tests and the chip smoke
+        # compare against. On CPU tensors the kernel wrapper itself runs
+        # the plain version.
+        if kernel_backend not in KERNEL_BACKENDS:
+            raise ValueError(f"unknown kernel backend {kernel_backend!r}")
+        self.kernel_backend = kernel_backend
+        # explicit device, no fallback: CUDA without a GPU raises here
+        self.device = resolve_device(device)
+        # ICE'd offerings project onto the catalog exactly like the greedy
+        # path (apply_unavailable), so the host-side machinery — template
+        # prefilter, decode refit, host fallback, price ordering — all see
+        # the stockout; the device side additionally masks the offerings
+        # tensor (off_avail in _prepare_with_vocab) so in-kernel zone/ct
+        # viability excludes the stocked-out rows
+        from karpenter_core_tpu_torch.cloudprovider.types import apply_unavailable
+
+        instance_types = apply_unavailable(instance_types, unavailable_offerings)
+        self.unavailable_offerings = frozenset(unavailable_offerings)
+        # one device: the slot-axis sharding over several GPUs is ported by
+        # ROADMAP A.13
+        if devices != 1:
+            raise NotImplementedError(
+                f"devices={devices}: multi-GPU solves are ported by ROADMAP"
+                " item A.13"
+            )
+        self.devices = 1
+        # a supplied Topology carries cluster context (existing pods,
+        # exclusions); its groups are rebuilt fresh each solve round, so only
+        # the constructor inputs are kept
+        self._topology_context = topology
+        self.nodepools = sorted(nodepools, key=lambda n: (-n.spec.weight, n.name))
+        self.instance_types = instance_types
+        # initialized nodes first, then by name (scheduler.go:344-354) —
+        # must match the greedy oracle's fill order
+        self.existing_nodes = sorted(
+            existing_nodes or [], key=lambda n: (not n.initialized, n.name)
+        )
+        self.daemonset_pods = list(daemonset_pods or [])
+        self.max_slots = max_slots
+        # NodePool limits minus existing usage (scheduler.go:85-88,336-340)
+        self.remaining_resources: Dict[str, dict] = {
+            np_.name: dict(np_.spec.limits)
+            for np_ in self.nodepools
+            if np_.spec.limits
+        }
+        for node in self.existing_nodes:
+            if node.nodepool_name in self.remaining_resources:
+                self.remaining_resources[node.nodepool_name] = resutil.subtract(
+                    self.remaining_resources[node.nodepool_name],
+                    node.capacity or node.available,
+                )
+        self.domains_universe = domain_universe(
+            nodepools, instance_types, self.existing_nodes
+        )
+
+        tolerate_pns = any(
+            t.effect == "PreferNoSchedule"
+            for np_ in self.nodepools
+            for t in np_.spec.template.taints
+        )
+        self.preferences = Preferences(tolerate_pns)
+
+        self.templates: List[NodeClaimTemplate] = []
+        for np_ in self.nodepools:
+            nct = NodeClaimTemplate.from_nodepool(np_)
+            nct.instance_type_options = filter_instance_types(
+                instance_types.get(np_.name, []), nct.requirements, {}
+            ).remaining
+            if nct.instance_type_options:
+                self.templates.append(nct)
+
+        # daemon overhead per template (scheduler.go:358-364)
+        self.daemon_overhead = [
+            resutil.requests_for_pods(
+                *[p for p in self.daemonset_pods if _daemon_compatible(nct, p)]
+            )
+            for nct in self.templates
+        ]
+
+        # -- prepared-state caches (incremental re-solve) ------------------
+        # Everything encoded over a frozen vocab is a pure function of
+        # (vocab fingerprint, entity): catalog/template/existing-node
+        # tensors cache per fingerprint (_fp_cache), per-class rows cache
+        # per (fingerprint, class signature) (_row_cache), and the fully
+        # stacked class batch — including the device-resident ClassStep —
+        # caches per (fingerprint, slot count, topology-plan digest, class
+        # signature+count tuple) (_batch_cache). Relaxation rounds union
+        # the prior round's vocab (_round_frozen) so spec-shrinking relaxes
+        # keep the fingerprint and rebuild only the classes they mutated.
+        self._catalog = None
+        self._exist_label_reqs = None
+        self._universe = None
+        self._base_resources = None
+        self._fp_ids: Dict[tuple, int] = {}
+        self._fp_cache: Dict[int, dict] = {}
+        self._row_cache: Dict[tuple, dict] = {}
+        self._batch_cache: Dict[tuple, dict] = {}
+        self._round_frozen = None
+        # adaptive slot-axis sizing: warm solves start at a bucket sized
+        # from the previous solve's observed usage instead of max_slots
+        self._slots_hint: Optional[int] = None
+        self._h2d_bytes = 0
+        self._h2d_dev_bytes = 0
+        self.last_phase_stats: Dict[str, float] = {}
+        # host-side result verification (solver/verify.py): an independent
+        # O(pods) constraint re-check over the final Results — the trust
+        # anchor between the device kernels and NodeClaim creation. A
+        # rejected result degrades THIS solve to the greedy host path
+        # (metrics + Warning event via the recorder when one is wired).
+        self.verify = verify
+        self.recorder = recorder
+        # built lazily ONCE: the verifier's setup (domain universe,
+        # per-pool catalog name sets) is invariant for this scheduler's
+        # lifetime — only the topology context swaps per request
+        self._verifier = None
+
+    _FP_CACHE_CAP = 4
+    _BATCH_CACHE_CAP = 4
+    # entry-count bound on the per-class row cache: each row carries two
+    # [K,V] bool planes plus small vectors (~10-20KB at production K/V),
+    # so 20k entries stays in the low hundreds of MB — far above any real
+    # class-mix working set (the diverse 50k bench lands ~6k classes) but
+    # safely below sidecar OOM territory under label-churn signatures
+    _ROW_CACHE_CAP = 20_000
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        """Host->device copy with byte accounting for the phase breakdown.
+        64-bit host arrays land as 32-bit tensors, as JAX's default dtype
+        canonicalization lands them in the reference."""
+        a = np.asarray(a)
+        self._h2d_bytes += a.nbytes
+        self._h2d_dev_bytes += a.nbytes
+        if a.dtype in _NARROW:
+            a = a.astype(_NARROW[a.dtype])
+        return torch.tensor(np.array(a, order="C"), device=self.device)
+
+    def _scalar(self, value, dtype=torch.int32) -> torch.Tensor:
+        return torch.tensor(value, dtype=dtype, device=self.device)
+
+    def solve(self, pods: List[Pod]) -> Results:
+        """Device solve + host decode + relaxation outer loop.
+
+        Each relaxation round re-solves the FULL pod set (relaxations mutate
+        only previously-failed pods' specs), so placements from earlier rounds
+        are never dropped — the same world-re-solve the reference reaches via
+        requeue-on-relax (scheduler.go:251-258).
+
+        Implemented as a driven generator (_solve_gen): the generator runs
+        every host phase and YIELDS at each kernel dispatch, which the solo
+        dispatcher answers."""
+        return _drive_solo(self._solve_gen(pods))
+
+    def _solve_gen(self, pods: List[Pod]):
+        all_pods = list(pods)
+        errors: Dict[str, str] = {}
+        claims: List[InFlightNodeClaim] = []
+        # fresh per-solve copy: place_pod subtracts from it as fallback
+        # claims open, and a reused scheduler must not accumulate rounds
+        self._round_remaining = {
+            k: dict(v) for k, v in self.remaining_resources.items()
+        }
+        existing_sims: List[ExistingNodeSim] = []
+        E = len(self.existing_nodes)
+        base_slots = self.max_slots
+        while base_slots < E:
+            base_slots *= 2
+        # Adaptive slot axis: every kernel plane is [N, ...], so running a
+        # 235-node solve at the caller's 4096-slot ceiling wastes ~16x the
+        # per-step HBM traffic on slots that can never take. Warm solves
+        # start at a bucket sized from the last solve's observed usage
+        # (2x headroom); an overflow costs one cheap small-N scan and
+        # retries larger, so the packing is identical — padding slots are
+        # inert by construction (kind=0 never takes; tested by the
+        # slot-axis-invariance parity test).
+        if self._slots_hint:
+            max_slots = min(
+                base_slots,
+                max(_bucket(max(2 * self._slots_hint, E + 1)), 64),
+            )
+        else:
+            max_slots = base_slots
+        self._round_frozen = None  # vocab union seed is per solve() call
+        self.last_phase_stats = stats = {
+            "plan_s": 0.0, "prepare_s": 0.0, "kernel_s": 0.0,
+            "decode_s": 0.0, "fetch_bytes": 0, "h2d_bytes": 0,
+            "rounds": 0, "slots": max_slots, "used_slots": 0,
+            "prep_cache_hits": 0, "prep_cache_misses": 0,
+            # per-device h2d/fetch bytes, equal to the totals on one device
+            "n_devices": self.devices,
+            "h2d_dev_bytes": 0, "fetch_dev_bytes": 0,
+            # which backend served this solve (bench/ops attribution)
+            "solver_mode": self.solver_mode,
+            # ... and which kernel backend answered its scan dispatches
+            "kernel_backend": self.kernel_backend,
+        }
+
+        from karpenter_core_tpu_torch.metrics import wiring as m
+
+        # relaxation terminates naturally: each relax() strips one soft term
+        # (preferences.go:38-57); the greedy oracle loops the same way
+        first_round = True
+        while True:
+            if not first_round:
+                m.SOLVER_RELAX_ROUNDS.inc()
+            first_round = False
+            stats["rounds"] += 1
+            stats["slots"] = max_slots
+            # per-round solve duration = this round's OWN phase work
+            # (plan/prepare/kernel/decode deltas), not wall across the
+            # yield, so a batching dispatcher cannot charge other problems'
+            # work to this one
+            r0 = {
+                k: stats[k]
+                for k in ("plan_s", "prepare_s", "kernel_s", "decode_s")
+            }
+            result = yield from self._solve_once_gen(all_pods, max_slots)
+            m.SOLVER_SOLVE_DURATION.observe(
+                sum(stats[k] - r0[k] for k in r0)
+            )
+            if result is None:  # slot overflow — retry larger
+                if max_slots >= _SLOT_HARD_CAP:
+                    errors = {
+                        p.uid: f"solver slot overflow at {max_slots} slots"
+                        for p in all_pods
+                    }
+                    return Results(
+                        new_node_claims=[], existing_nodes=[], pod_errors=errors
+                    )
+                if max_slots < base_slots:
+                    # the adaptive shrink guessed low — jump back toward
+                    # the configured ceiling fast (x4) before the classic
+                    # doubling takes over past it
+                    max_slots = min(max_slots * 4, base_slots)
+                else:
+                    max_slots *= 2
+                continue
+            claims, existing_sims, failed, evictions = result
+            errors = {p.uid: msg for p, msg in failed}
+            if not failed:
+                break
+            relaxed_any = False
+            for p, _msg in failed:
+                if self.preferences.relax(p):
+                    relaxed_any = True
+            if not relaxed_any:
+                break
+        if stats["used_slots"]:
+            # decay, don't snap: a burst of small solves (prewarm, quiet
+            # cluster) must not drop the hint so far a normal batch pays a
+            # ladder of overflow retries
+            prev = self._slots_hint or 0
+            self._slots_hint = max(int(stats["used_slots"]), prev // 2)
+
+        for c in claims:
+            c.finalize_scheduling()
+        results = Results(
+            new_node_claims=claims,
+            existing_nodes=existing_sims,
+            pod_errors=errors,
+            evictions=evictions,
+        )
+        if self.verify:
+            from karpenter_core_tpu_torch.solver import verify as verifymod
+
+            t0 = time.perf_counter()
+            if self._verifier is None:
+                self._verifier = verifymod.ResultVerifier(
+                    self.nodepools,
+                    self.instance_types,
+                    existing_nodes=self.existing_nodes,
+                    daemonset_pods=self.daemonset_pods,
+                    topology=self._topology_context,
+                    unavailable_offerings=self.unavailable_offerings,
+                )
+            else:
+                # a cached scheduler (solverd reuse) swaps contexts per
+                # request; everything else the verifier holds is invariant
+                self._verifier.topology = self._topology_context
+            violations = self._verifier.verify(results, all_pods)
+            stats["verify_s"] = time.perf_counter() - t0
+            if violations:
+                verifymod.reject(violations, "inproc", self.recorder)
+                return self._verified_fallback(all_pods)
+        return results
+
+    def _verified_fallback(self, pods: List[Pod]) -> Results:
+        """A device result failed verification: re-solve on the host
+        greedy path over the same inputs (the RemoteScheduler degradation
+        twin, one layer down). Correctness beats speed exactly once — the
+        rejection metric says the device tier needs attention. Problems
+        carrying priorities/gangs degrade through the tiered-greedy-with-
+        preemption wrapper (solver/gangs.host_gang_solve), so degraded
+        means slower, never semantically different."""
+        from karpenter_core_tpu_torch.controllers.provisioning.scheduling.scheduler import (
+            Scheduler,
+        )
+
+        def make_scheduler():
+            return Scheduler(
+                self.nodepools,
+                self.instance_types,
+                existing_nodes=self.existing_nodes,
+                daemonset_pods=self.daemonset_pods,
+                topology=self._topology_context,
+                unavailable_offerings=self.unavailable_offerings,
+            )
+
+        return gangmod.degraded_solve(
+            make_scheduler, pods, self.existing_nodes
+        )
+
+    # ------------------------------------------------------------------
+
+    def _solve_once_gen(self, pods: List[Pod], max_slots: int):
+        """One solve round as a generator: host prepare, then a single
+        ``yield`` of a _KernelRequest at the device dispatch (the dispatcher
+        sends back (state, takes_bc, unplaced_bc)), then fetch + decode.
+        Returns None on slot overflow (caller retries larger)."""
+        if not self.templates and not self.existing_nodes:
+            # no viable templates and no existing capacity: everything fails
+            return [], [], [(p, "no nodepool matched pod") for p in pods], {}
+
+        stats = self.last_phase_stats
+        self._h2d_bytes = 0
+        self._h2d_dev_bytes = 0
+        t0 = time.perf_counter()
+        # one Topology per solve round; every pod's groups are (re)built so
+        # relaxed specs take effect (topology.go NewTopology:60-86)
+        ctx = self._topology_context
+        topo = Topology(
+            domains={
+                k: set(v)
+                for k, v in (
+                    ctx.domains if ctx is not None else self.domains_universe
+                ).items()
+            },
+            existing_pods=ctx.existing_pods if ctx is not None else None,
+            excluded_pod_uids=ctx.excluded_pods if ctx is not None else (),
+        )
+        topo.ensure_inverse_initialized()
+        for p in pods:
+            # constraint-free pods build no groups; skipping the call is the
+            # 50k-path win (update() itself is a no-op for them)
+            if p.topology_spread_constraints or p.affinity is not None:
+                topo.update(p)
+
+        # the topology planner decides which constraint shapes run in-kernel
+        # (device count state) and which fall back to the host algebra
+        classes = self._sorted_classes(pods, topo)
+        plan = topoplan.plan_topology(classes, topo)
+        self._composition_cache: Dict[tuple, tuple] = {}
+        stats["plan_s"] += time.perf_counter() - t0
+
+        from karpenter_core_tpu_torch.metrics import wiring as m
+
+        t0 = time.perf_counter()
+        try:
+            with m.SOLVER_PREPARE_DURATION.time():
+                prep = self._prepare_with_vocab(plan, max_slots, topo)
+                steps = self._class_steps(prep)
+        except _SlotOverflow:
+            return None
+        stats["prepare_s"] += time.perf_counter() - t0
+        stats["h2d_bytes"] += self._h2d_bytes
+        stats["h2d_dev_bytes"] += self._h2d_dev_bytes
+
+        # the device dispatch is the generator's yield point: the dispatcher
+        # answers with the FFD scan + the per-class aggregate. The kernel
+        # works on its own copy of init_state; _Prepared rebuilds it per
+        # round, so mark it spent. The dispatcher reports the dispatch seconds;
+        # the fetches below are ours.
+        state, takes_bc, unplaced_bc, kernel_share_s = yield _KernelRequest(
+            init_state=prep.init_state,
+            steps=steps,
+            statics=prep.statics,
+            level_iters=prep.level_iters,
+            step_class=prep.step_class,
+            num_classes=prep.n_classes_padded,
+            n_slots=prep.n_slots,
+            backend=self.kernel_backend,
+        )
+        prep.init_state = None
+        t0 = time.perf_counter()
+        # the per-step takes were summed to per-class decision planes on
+        # the device by the dispatcher; fetch the two head scalars (one sync)
+        # to learn how many slots the solve touched — every remaining plane
+        # is sliced to that bucketed window before the bulk fetch, so the
+        # device->host transfer scales with nodes PACKED, not max_slots
+        head_t = torch.stack(
+            [state.overflow.to(torch.int32), state.next_free]
+        ).cpu()
+        head = {"overflow": int(head_t[0]), "next_free": int(head_t[1])}
+        if bool(head["overflow"]):
+            kdt = kernel_share_s + (time.perf_counter() - t0)
+            m.SOLVER_KERNEL_DURATION.observe(kdt)
+            stats["kernel_s"] += kdt
+            return None
+
+        evictions: Dict[str, List[str]] = {}
+        N = prep.n_slots
+        used = max(int(head["next_free"]), len(prep.existing_sims), 1)
+        stats["used_slots"] = max(stats["used_slots"], used)
+        ub = min(N, _bucket(used))
+
+        def win(a):  # bucketed used-slot window on the slot axis
+            return a[:ub] if ub < N else a
+
+        fetch = dict(
+            takes_bc=takes_bc[:, :ub] if ub < N else takes_bc,
+            unplaced_bc=unplaced_bc,
+            template=win(state.template),
+        )
+        if plan.has_device_topology():
+            fetch.update(
+                valmask=win(state.valmask),
+                defines=win(state.defines),
+                complement=win(state.complement),
+                gt=win(state.gt),
+                lt=win(state.lt),
+                itmask=win(state.itmask),
+                hcount=win(state.hcount),
+                zcount=state.zcount,
+            )
+        else:
+            # only the topology-free decode reads class_it host-side
+            # (_decode_composition); it rides the single post-scan fetch
+            fetch["class_it"] = prep.class_it
+        out = {k: v.cpu().numpy() for k, v in fetch.items()}
+        kdt = kernel_share_s + (time.perf_counter() - t0)
+        m.SOLVER_KERNEL_DURATION.observe(kdt)
+        stats["kernel_s"] += kdt
+        fetched = sum(np.asarray(v).nbytes for v in out.values()) + 16
+        stats["fetch_bytes"] += fetched  # + the head scalars
+        # one device: the per-device share is the whole fetch
+        stats["fetch_dev_bytes"] += fetched
+        m.SOLVER_FETCH_BYTES.inc(by=fetched)
+        # slice bucketed device shapes back to the natural sizes decode
+        # (and the topoplan arrays) index with
+        C = len(prep.classes)
+        sh = self._pad_shapes
+        out["takes_bc"] = np.asarray(out["takes_bc"])[:C]
+        out["unplaced_bc"] = np.asarray(out["unplaced_bc"])[:C]
+        if plan.has_device_topology():
+            out["valmask"] = np.asarray(out["valmask"])[:, : sh["K"], : sh["V"]]
+            out["defines"] = np.asarray(out["defines"])[:, : sh["K"]]
+            out["complement"] = np.asarray(out["complement"])[:, : sh["K"]]
+            out["gt"] = np.asarray(out["gt"])[:, : sh["K"]]
+            out["lt"] = np.asarray(out["lt"])[:, : sh["K"]]
+            out["itmask"] = np.asarray(out["itmask"])[:, : sh["T"]]
+            out["hcount"] = np.asarray(out["hcount"])[:, : sh["Gh"]]
+            out["zcount"] = np.asarray(out["zcount"])[: sh["Gz"], : sh["V"]]
+        else:
+            prep.class_it = np.asarray(out["class_it"])[:, : sh["T"]]
+        t0 = time.perf_counter()
+        with m.SOLVER_DECODE_DURATION.time():
+            claims, existing_sims, failed = self._decode(prep, out)
+        stats["decode_s"] += time.perf_counter() - t0
+
+        # ineligible topology classes: host loop over the post-device cluster
+        t0 = time.perf_counter()
+        fallback_pods = [p for cls in plan.fallback_classes for p in cls.pods]
+        if fallback_pods:
+            m.SOLVER_HOST_FALLBACK_PODS.inc(
+                {"cause": "ineligible"}, by=len(fallback_pods)
+            )
+        fallback_requests = {
+            p.uid: resutil.requests_for_pods(p) for p in fallback_pods
+        }
+        for p in by_cpu_and_memory_descending(fallback_pods, fallback_requests):
+            err = self._host_fallback_add(
+                p, claims, existing_sims, topo, fallback_requests[p.uid]
+            )
+            if err is not None:
+                failed.append((p, err))
+        stats["decode_s"] += time.perf_counter() - t0
+        return claims, existing_sims, failed, evictions
+
+    # ------------------------------------------------------------------
+
+    def _sorted_classes(self, pods: List[Pod], topo: Topology) -> List[PodClass]:
+        # labels/pod-affinity join the class key only when a topology group
+        # could observe them (see _spec_signature)
+        label_aware = bool(topo.topologies or topo.inverse_topologies)
+        classes = group_pods(pods, label_aware=label_aware)
+        # class order = pod queue order lifted to classes (queue.go:76-112)
+        classes.sort(
+            key=lambda c: (
+                -c.requests.get("cpu", 0.0),
+                -c.requests.get("memory", 0.0),
+                min(p.metadata.creation_timestamp for p in c.pods),
+            )
+        )
+        if label_aware:
+            # Host-floor-first ordering — a deliberate, measured improvement
+            # over the reference's pure size order (queue.go:76-112).
+            # Hostname-keyed anti-affinity/spread classes need DISTINCT
+            # hosts (min floats at zero while fresh nodes are creatable,
+            # topologygroup.go:235-238): the slot floor they force is
+            # max(per-group demand), independent of WHEN they run — but run
+            # mid-scan (size order), early such classes find few existing
+            # slots and open fresh ones the oracle's pod-interleaved walk
+            # avoids. Running them FIRST establishes the host floor with
+            # the minimum slot count, and the capacity-driven classes then
+            # fill those slots instead of opening their own: the diverse
+            # 5k topology mix drops 127 -> 91 nodes (greedy oracle: 121),
+            # the 50k mix 314 -> 235 (greedy: 315). Stable within ranks,
+            # so size order is preserved among peers.
+            # Promote ONLY classes whose owned groups are exclusively
+            # hostname anti-affinity/spread: a promoted class must not
+            # depend on other classes' placements. A class that also owns a
+            # pod-AFFINITY group (or any label-keyed group) placed ahead of
+            # its target would find zero count>0 domains and fail pods the
+            # size order places.
+            def rank(cls: PodClass) -> int:
+                owned = topo._owned.get(cls.pods[0].uid, ())
+                if not owned:
+                    return 2
+                best = 2
+                for g in owned:
+                    if g.key != apilabels.LABEL_HOSTNAME:
+                        return 2
+                    if g.type == TYPE_ANTI_AFFINITY:
+                        best = min(best, 0)
+                    elif g.type == TYPE_SPREAD:
+                        best = min(best, 1)
+                    else:  # hostname-keyed affinity still depends on targets
+                        return 2
+                return best
+
+            classes.sort(key=rank)
+        # gangs and priority tiers reorder the classes and add device
+        # passes (gang rollback, preemption) that this slice does not carry
+        if any(c.tier != 0 or c.gang is not None for c in classes):
+            raise NotImplementedError(
+                "pods with gangs or non-zero priority tiers are ported by"
+                " ROADMAP item A.8"
+            )
+        return classes
+
+    def _prepare(
+        self, pods: List[Pod], max_slots: int, topo: Topology
+    ) -> _Prepared:
+        """Topology-free prepare entry, outside a solve round (the
+        consolidation sweep's, ROADMAP A.6; callers guarantee no
+        topology-coupled pods)."""
+        # direct prepares are not relaxation rounds: don't union a previous
+        # solve()'s vocab into this closed world
+        self._round_frozen = None
+        plan = topoplan.plan_topology(self._sorted_classes(pods, topo), topo)
+        return self._prepare_with_vocab(plan, max_slots, topo)
+
+    # -- prepared-state construction (cached; see __init__) ---------------
+
+    def _exist_reqs(self) -> List[Requirements]:
+        if self._exist_label_reqs is None:
+            self._exist_label_reqs = [
+                Requirements.from_labels(n.labels) for n in self.existing_nodes
+            ]
+        return self._exist_label_reqs
+
+    def _vocab_universe(self):
+        """Scheduler-lifetime label universe: (base key->values from
+        templates + existing-node labels + offerings, IT-requirement
+        key->values kept separate — catalog instance types contribute
+        VALUES only for keys some other entity mentions; see the
+        closed-world argument in solver/vocab.py and the exactness note on
+        the original inline build)."""
+        if self._universe is None:
+            base: Dict[str, set] = {}
+
+            def obs(reqs):
+                # pure set-union accumulation;
+                # the interning below (_build_vocab) sorts before minting ids
+                for key, req in reqs.items():
+                    base.setdefault(key, set()).update(req.values)
+
+            for t in self.templates:
+                obs(t.requirements)
+            for r in self._exist_reqs():
+                obs(r)
+            for it in self._catalog_union():
+                for off in it.offerings:
+                    obs(off.requirements)
+            it_vals: Dict[str, set] = {}
+            for it in self._catalog_union():
+                # pure set-union accumulation;
+                # _build_vocab sorts before minting ids
+                for key, req in it.requirements.items():
+                    it_vals.setdefault(key, set()).update(req.values)
+            self._universe = (base, it_vals)
+        return self._universe
+
+    def _build_vocab(self, classes: List[PodClass], plan: topoplan.TopoPlan):
+        """Canonical closed-world vocab for one solve round.
+
+        Keys and values intern in SORTED order, so two rounds with the
+        same label universe produce identical id assignments — the
+        fingerprint equality the prepared-state caches key on. Relaxation
+        rounds union the previous round's vocab (_round_frozen): a relax
+        only strips preferred terms, so the union IS the round-1 vocab and
+        every cached tensor survives the re-solve."""
+        from karpenter_core_tpu_torch.solver.vocab import Vocab
+
+        base, it_vals = self._vocab_universe()
+        # all three loops below are pure
+        # set-union accumulation into `merged`; the interning loop at the
+        # bottom sorts keys AND values before minting any id, so iteration
+        # order here cannot reach the fingerprint
+        merged = {k: set(v) for k, v in base.items()}
+        for cls in classes:
+            for key, req in cls.requirements.items():  # set union, id-free
+                merged.setdefault(key, set()).update(req.values)
+        # catalog ITs contribute values only for keys mentioned by a
+        # non-catalog entity (class/template/node/offering)
+        mentioned = set(merged)
+        for key, vals in it_vals.items():  # set union, id-free
+            tgt = merged.setdefault(key, set())
+            if key in mentioned:
+                tgt.update(vals)
+        # topology-domain universe joins the closed world (the kernel's
+        # admissibility masks index the label-group keys' value rows)
+        for dg in plan.label_groups:
+            merged.setdefault(dg.key, set()).update(dg.group.domains)
+        if self._round_frozen is not None:
+            for key, names in zip(
+                self._round_frozen.key_names, self._round_frozen.value_names
+            ):
+                merged.setdefault(key, set()).update(names)
+        v = Vocab()
+        for key in sorted(merged):
+            v.key_id(key)
+            for val in sorted(merged[key]):
+                v.value_id(key, val)
+        return v.finalize()
+
+    def _resource_axis(self, classes: List[PodClass]) -> List[str]:
+        """Resource axis: the 4 well-known names, then the catalog/daemon
+        extras, then any class-only extras — each block sorted so the axis
+        (and with it the fingerprint) is stable under drifting pod mixes.
+        Daemon overhead joins every fresh claim's requests, so its resource
+        names must be on the axis or the vectorized fit check would
+        silently drop them."""
+        if self._base_resources is None:
+            names = dict.fromkeys(["cpu", "memory", "pods", "ephemeral-storage"])
+            extra = set()
+            for it in self._catalog_union():
+                extra.update(it.allocatable())
+            for o in self.daemon_overhead:
+                extra.update(o)
+            for n in sorted(extra):
+                if n not in names:
+                    names[n] = None
+            self._base_resources = list(names)
+        names = dict.fromkeys(self._base_resources)
+        extra = set()
+        for c in classes:
+            extra.update(c.requests)
+        for n in sorted(extra):
+            if n not in names:
+                names[n] = None
+        return list(names)
+
+    def _stat_inc(self, key: str) -> None:
+        st = self.last_phase_stats
+        if key in st:
+            st[key] += 1
+
+    def _fp_entry(self, frozen, resource_names: List[str]) -> Tuple[dict, int]:
+        """Catalog/template/existing-node tensors for one closed world,
+        cached per (vocab fingerprint, resource axis, existing-node set).
+        Nothing here depends on the pod mix: steady-state solves and every
+        relaxation round reuse both the host planes and the
+        device-resident copies (zero re-encode, zero re-transfer)."""
+        fp = (
+            frozen.fingerprint(),
+            tuple(resource_names),
+            tuple(n.name for n in self.existing_nodes),
+            tuple(id(n) for n in self.existing_nodes),
+        )
+        if len(self._fp_ids) > 64:  # interner bound (fp tuples are large)
+            self._fp_ids.clear()
+            self._fp_cache.clear()
+            self._row_cache.clear()
+            self._batch_cache.clear()
+        fpid = self._fp_ids.setdefault(fp, len(self._fp_ids))
+        e = self._fp_cache.get(fpid)
+        if e is not None:
+            return e, fpid
+
+        catalog = self._catalog_union()
+        T, S, E = len(catalog), len(self.templates), len(self.existing_nodes)
+        # T == 0 (existing-capacity-only solve) keeps a dummy never-viable
+        # IT axis so reductions over T stay well-formed; same for the
+        # template axis S (gathers on a zero-size axis are invalid)
+        pad_T, pad_S = max(T, 1), max(S, 1)
+        K, V = frozen.K, frozen.V
+        R = len(resource_names)
+
+        well_known = np.array(
+            [k in apilabels.WELL_KNOWN_LABELS for k in frozen.key_names],
+            dtype=bool,
+        )
+
+        # Integer-unit quantization: the device planes hold integer-valued
+        # float32 (milli-units for cpu and counts, Mi for memory-like
+        # resources), so every in-kernel sum/difference/division is EXACT
+        # below 2^24 and exact-boundary fits are neither rejected (the old
+        # K_MARGIN shaved floor((alloc-req)/r) by one at exact fits,
+        # opening a fresh node where the greedy oracle's float64 math packs
+        # the last pod) nor spuriously accepted. Requests round UP,
+        # capacity rounds DOWN — the device stays conservative at sub-unit
+        # granularity and the float64 decode refit repairs any residual
+        # optimism. cpu is the only fractional k8s resource
+        # (milli-granular); memory and hugepages quantize to Mi (exact up
+        # to 2^24 Mi = 16 TiB per slot sum), ephemeral-storage to Gi
+        # (NVMe-dense nodes reach tens of TB; Gi keeps them far under
+        # 2^24); everything else (pods, integral extended resources) keeps
+        # unit granularity so the 24-bit exact-integer headroom isn't
+        # burned on a pointless inflation.
+        _MI, _GI = 2.0**20, 2.0**30
+        quant = np.array(
+            [
+                _GI
+                if n == "ephemeral-storage"
+                else _MI
+                if n == "memory" or n.startswith("hugepages-")
+                else 1e-3
+                if n == "cpu"
+                else 1.0
+                for n in resource_names
+            ],
+            dtype=np.float64,
+        )
+        # the exactness invariant the margin-free kernel floor rests on:
+        # quantized values must stay integer-representable in float32.
+        # Clamping is the enforcement — capacity clamps low (conservative),
+        # and a clamped request exceeds every real node anyway; the float64
+        # decode refit repairs either direction.
+        _QMAX = float(2**24 - 1)
+
+        def _qraw(rl: dict) -> np.ndarray:
+            raw = np.array(
+                [rl.get(n, 0.0) for n in resource_names], dtype=np.float64
+            )
+            return raw / quant
+
+        def rvec(rl: dict) -> np.ndarray:
+            """Requests-side quantization (ceil)."""
+            x = np.ceil(_qraw(rl) * (1.0 - 1e-12) - 1e-9)
+            return np.minimum(x, _QMAX).astype(np.float32)
+
+        def rvec_cap(rl: dict) -> np.ndarray:
+            """Capacity-side quantization (floor)."""
+            x = np.floor(_qraw(rl) * (1.0 + 1e-12) + 1e-9)
+            return np.minimum(x, _QMAX).astype(np.float32)
+
+        def rvec64q(rl: dict) -> np.ndarray:
+            """Requests-side quantization, float64 (ceil, unclamped)."""
+            return np.ceil(_qraw(rl) * (1.0 - 1e-12) - 1e-9)
+
+        def rvec64q_cap(rl: dict) -> np.ndarray:
+            """Capacity-side quantization, float64 (floor, unclamped)."""
+            return np.floor(_qraw(rl) * (1.0 + 1e-12) + 1e-9)
+
+        from karpenter_core_tpu_torch.solver.vocab import encode_requirements_batch
+
+        it_masks = encode_requirements_batch(
+            frozen, [it.requirements for it in catalog]
+        )
+        tmpl_masks = _neutralize(
+            encode_requirements_batch(
+                frozen, [t.requirements for t in self.templates]
+            )
+        )
+        if S == 0:  # dummy neutral template row (never selected)
+            tmpl_masks = EntityMasks(
+                mask=np.ones((pad_S, K, V), dtype=bool),
+                defines=np.zeros((pad_S, K), dtype=bool),
+                concrete=np.zeros((pad_S, K), dtype=bool),
+                negative=np.ones((pad_S, K), dtype=bool),
+                gt=np.full((pad_S, K), GT_NONE, dtype=np.int32),
+                lt=np.full((pad_S, K), LT_NONE, dtype=np.int32),
+            )
+
+        it_alloc = np.zeros((pad_T, R), dtype=np.float32)
+        it_alloc64q = np.zeros((pad_T, R), dtype=np.float64)
+        for ti, it in enumerate(catalog):
+            it_alloc[ti] = rvec_cap(it.allocatable())
+            it_alloc64q[ti] = rvec64q_cap(it.allocatable())
+
+        # offerings tensor [T, Z, CT] over the zone/ct vocab rows
+        zone_kid = frozen.keys.get(apilabels.LABEL_TOPOLOGY_ZONE, 0)
+        ct_kid = frozen.keys.get(apilabels.CAPACITY_TYPE_LABEL_KEY, 0)
+        Z = max(len(frozen.value_names[zone_kid]), 1)
+        CT = max(len(frozen.value_names[ct_kid]), 1)
+        off_avail = np.zeros((pad_T, Z, CT), dtype=bool)
+        for ti, it in enumerate(catalog):
+            for off in it.offerings:
+                if not off.available:
+                    continue
+                # the unavailable-offerings tensor mask: ICE'd rows never
+                # enter fresh-node viability (apply_unavailable already
+                # flipped copies' available flags; this guards catalogs
+                # handed in pre-built, e.g. over the sidecar wire)
+                if off.key(it.name) in self.unavailable_offerings:
+                    continue
+                z = frozen.values[zone_kid].get(off.zone)
+                c_ = frozen.values[ct_kid].get(off.capacity_type)
+                if z is not None and c_ is not None:
+                    off_avail[ti, z, c_] = True
+
+        # template-IT viability from the host prefilter (exact reference
+        # path)
+        it_index = {id(it): i for i, it in enumerate(catalog)}
+        tmpl_it = np.zeros((pad_S, pad_T), dtype=bool)
+        for si, t in enumerate(self.templates):
+            for it in t.instance_type_options:
+                tmpl_it[si, it_index[id(it)]] = True
+        tmpl_overhead = np.stack(
+            [rvec(o) for o in self.daemon_overhead]
+        ) if S else np.zeros((pad_S, R), dtype=np.float32)
+        tmpl_overhead64q = np.stack(
+            [rvec64q(o) for o in self.daemon_overhead]
+        ) if S else np.zeros((pad_S, R), dtype=np.float64)
+
+        # existing-node init rows (seeded into slot rows [0, E) each round)
+        exist_masks = (
+            _neutralize(encode_requirements_batch(frozen, self._exist_reqs()))
+            if E
+            else None
+        )
+        ex_valmask = np.ones((E, K, V), dtype=bool)
+        ex_defines = np.zeros((E, K), dtype=bool)
+        ex_complement = np.ones((E, K), dtype=bool)
+        ex_negative = np.ones((E, K), dtype=bool)
+        ex_gt = np.full((E, K), GT_NONE, dtype=np.int32)
+        ex_lt = np.full((E, K), LT_NONE, dtype=np.int32)
+        ex_requests = np.zeros((E, R), dtype=np.float32)
+        ex_capacity = np.zeros((E, R), dtype=np.float32)
+        for ei, node in enumerate(self.existing_nodes):
+            # same arithmetic as ExistingNodeSim: daemon overhead minus the
+            # node's own daemon requests, floored at zero
+            remaining = resutil.subtract(
+                self._node_daemon_overhead(node), node.daemon_requests
+            )
+            for k_ in list(remaining):
+                if remaining[k_] < 0:
+                    remaining[k_] = 0.0
+            ex_requests[ei] = rvec(remaining)
+            ex_capacity[ei] = rvec_cap(node.available)
+            ex_valmask[ei] = exist_masks.mask[ei]
+            ex_defines[ei] = exist_masks.defines[ei]
+            ex_complement[ei] = np.where(
+                exist_masks.defines[ei], ~exist_masks.concrete[ei], True
+            )
+            ex_negative[ei] = np.where(
+                exist_masks.defines[ei], exist_masks.negative[ei], True
+            )
+            ex_gt[ei] = exist_masks.gt[ei]
+            ex_lt[ei] = exist_masks.lt[ei]
+
+        # -- shape bucketing (the JAX package's padded shapes) -------------
+        # Padded entities are inert by construction: keys/values pad to the
+        # neutral invariant (all-True slot valmask, False class/template
+        # masks under defines=False), instance types/templates pad
+        # never-viable, topology groups pad owner/sel=False, resources pad
+        # zero-request. The kernel runs at padded shapes; _solve_once
+        # slices outputs back to natural sizes before decode.
+        Kp = _bucket(K)
+        Vp = _bucket(V)
+        Tp = _bucket(pad_T)
+        Sp = _bucket(pad_S, lo=2)
+        Rp = _bucket(R, lo=4)
+
+        def pad_masks(mask, defines_, concrete_like_complement, negative_,
+                      gt_, lt_):
+            """Pad one entity-mask family: V/K axes of the value mask pad
+            False then re-neutralize where defines is False."""
+            m2 = _pad(mask, {mask.ndim - 2: Kp, mask.ndim - 1: Vp}, False)
+            d2 = _pad(defines_, {defines_.ndim - 1: Kp}, False)
+            m2 = np.where(d2[..., None], m2, True)
+            c2 = _pad(concrete_like_complement,
+                      {concrete_like_complement.ndim - 1: Kp}, True)
+            n2 = _pad(negative_, {negative_.ndim - 1: Kp}, True)
+            g2 = _pad(gt_, {gt_.ndim - 1: Kp}, GT_NONE)
+            l2 = _pad(lt_, {lt_.ndim - 1: Kp}, LT_NONE)
+            return m2, d2, c2, n2, g2, l2
+
+        tm_mask, tm_def, tm_comp, tm_neg, tm_gt, tm_lt = pad_masks(
+            tmpl_masks.mask,
+            tmpl_masks.defines,
+            np.where(tmpl_masks.defines, ~tmpl_masks.concrete, True),
+            np.where(tmpl_masks.defines, tmpl_masks.negative, True),
+            tmpl_masks.gt,
+            tmpl_masks.lt,
+        )
+
+        e = dict(
+            fp=fp,
+            resource_names=list(resource_names),
+            quant=quant,
+            rvec=rvec, rvec_cap=rvec_cap,
+            rvec64q=rvec64q, rvec64q_cap=rvec64q_cap,
+            it_masks=it_masks,
+            tmpl_masks=tmpl_masks,
+            tmpl_mask_np=tmpl_masks.mask,
+            it_alloc=it_alloc, it_alloc64q=it_alloc64q,
+            off_avail=off_avail, tmpl_it=tmpl_it,
+            tmpl_overhead=tmpl_overhead, tmpl_overhead64q=tmpl_overhead64q,
+            tmpl_zone_mask=tmpl_masks.mask[:, zone_kid, :Z],
+            tmpl_ct_mask=tmpl_masks.mask[:, ct_kid, :CT],
+            zone_kid=zone_kid, ct_kid=ct_kid, Z=Z, CT=CT,
+            K=K, V=V, R=R, T=T, S=S, E=E, pad_T=pad_T, pad_S=pad_S,
+            Kp=Kp, Vp=Vp, Tp=Tp, Sp=Sp, Rp=Rp,
+            well_known=well_known,
+            ex_valmask=ex_valmask, ex_defines=ex_defines,
+            ex_complement=ex_complement, ex_negative=ex_negative,
+            ex_gt=ex_gt, ex_lt=ex_lt,
+            ex_requests=ex_requests, ex_capacity=ex_capacity,
+            # device-resident copies (reused across solves via this cache)
+            it_alloc_d=self._dev(_pad(it_alloc, {0: Tp, 1: Rp}, 0.0)),
+            off_avail_d=self._dev(_pad(off_avail, {0: Tp}, False)),
+            zone_key_d=self._scalar(zone_kid),
+            ct_key_d=self._scalar(ct_kid),
+            tm_mask_d=self._dev(_pad(tm_mask, {0: Sp}, True)),
+            tm_def_d=self._dev(_pad(tm_def, {0: Sp}, False)),
+            tm_comp_d=self._dev(_pad(tm_comp, {0: Sp}, True)),
+            tm_neg_d=self._dev(_pad(tm_neg, {0: Sp}, True)),
+            tm_gt_d=self._dev(_pad(tm_gt, {0: Sp}, GT_NONE)),
+            tm_lt_d=self._dev(_pad(tm_lt, {0: Sp}, LT_NONE)),
+            tmpl_it_d=self._dev(_pad(tmpl_it, {0: Sp, 1: Tp}, False)),
+            tmpl_overhead_d=self._dev(
+                _pad(tmpl_overhead, {0: Sp, 1: Rp}, 0.0)
+            ),
+            well_known_pad_d=self._dev(_pad(well_known, {0: Kp}, False)),
+            well_known_d=self._dev(well_known),
+            # natural-shape entity planes for the compat kernels
+            im_planes_d=tuple(
+                self._dev(np.asarray(x))
+                for x in (
+                    it_masks.mask, it_masks.defines, it_masks.concrete,
+                    it_masks.negative, it_masks.gt, it_masks.lt,
+                )
+            ) if T else None,
+            tm_planes_d=tuple(
+                self._dev(np.asarray(x))
+                for x in (
+                    tmpl_masks.mask, tmpl_masks.defines, tmpl_masks.concrete,
+                    tmpl_masks.negative, tmpl_masks.gt, tmpl_masks.lt,
+                )
+            ),
+        )
+        if len(self._fp_cache) >= self._FP_CACHE_CAP:
+            old = next(iter(self._fp_cache))
+            del self._fp_cache[old]
+            # cache eviction rebuilds; dict->
+            # dict filters preserve insertion order and mint no ids
+            self._row_cache = {
+                k: v for k, v in self._row_cache.items() if k[0] != old
+            }
+            # order-preserving filter, no ids
+            self._batch_cache = {
+                k: v for k, v in self._batch_cache.items() if k[0] != old
+            }
+        self._fp_cache[fpid] = e
+        return e, fpid
+
+    def _plan_digest(self, plan: topoplan.TopoPlan) -> bytes:
+        """Content digest of the lowered topology plan — everything the
+        class batch (owner/sel incidence, water-fill steps, domain ranks)
+        bakes into its tensors. zcount0 is deliberately excluded: live
+        domain counts feed init_state, which is rebuilt every round."""
+        import hashlib
+
+        h = hashlib.sha1()
+        for a in (
+            plan.h_type, plan.h_skew, plan.h_sel, plan.h_owner,
+            plan.z_type, plan.z_skew, plan.z_key, plan.z_mindom,
+            plan.z_sel, plan.z_owner, plan.z_domains, plan.z_rank,
+        ):
+            h.update(b"|")
+            if a is not None:
+                h.update(np.ascontiguousarray(a).tobytes())
+        for s in plan.steps:
+            h.update(
+                (
+                    f";{s.class_idx},{s.sub_value},{int(s.sub_first)},"
+                    f"{int(s.sub_last)},{s.wf_group},{s.wf_key}"
+                ).encode()
+            )
+            if s.zone_rest is not None:
+                h.update(np.ascontiguousarray(s.zone_rest).tobytes())
+        return h.digest()
+
+    def _class_batch(
+        self,
+        fpid: int,
+        frozen,
+        entry: dict,
+        plan: topoplan.TopoPlan,
+        classes: List[PodClass],
+        N: int,
+    ) -> dict:
+        """Stacked per-class tensors + the device compat/viability results.
+
+        Cached on (fingerprint, slot count, plan digest, ordered class
+        signature+count tuple): a steady-state re-solve — including every
+        sidecar RPC with an unchanged cluster — returns the whole batch
+        (and its device-resident ClassStep, attached by _class_steps)
+        without touching numpy. Relaxation rounds miss here but hit the
+        per-class row cache for every class the relax did NOT mutate."""
+        digest = self._plan_digest(plan)
+        sig_tuple = tuple((cls.signature, cls.count) for cls in classes)
+        key = (fpid, N, digest, sig_tuple)
+        from karpenter_core_tpu_torch.metrics import wiring as m
+
+        b = self._batch_cache.get(key)
+        if b is not None:
+            self._stat_inc("prep_cache_hits")
+            m.SOLVER_PREP_CACHE.inc({"outcome": "hit"})
+            return b
+        self._stat_inc("prep_cache_misses")
+        m.SOLVER_PREP_CACHE.inc({"outcome": "miss"})
+
+        from karpenter_core_tpu_torch.scheduling.requirements import (
+            has_preferred_node_affinity,
+        )
+        from karpenter_core_tpu_torch.solver.vocab import encode_requirements_batch
+
+        C = len(classes)
+        K, V, R = entry["K"], entry["V"], entry["R"]
+        T, S, E = entry["T"], entry["S"], entry["E"]
+        Kp, Vp, Tp, Sp, Rp = (
+            entry["Kp"], entry["Vp"], entry["Tp"], entry["Sp"], entry["Rp"]
+        )
+        Z, CT = entry["Z"], entry["CT"]
+        zone_kid, ct_kid = entry["zone_kid"], entry["ct_kid"]
+
+        rows: List[Optional[dict]] = []
+        miss: List[int] = []
+        for i, cls in enumerate(classes):
+            r = self._row_cache.get((fpid, cls.signature))
+            rows.append(r)
+            if r is None:
+                miss.append(i)
+        if miss:
+            enc = encode_requirements_batch(
+                frozen, [classes[i].requirements for i in miss]
+            )
+            # strict (pod_domains) masks — what topology admissibility
+            # consults (topology.go:166-188 passes strict reqs when
+            # preferences exist)
+            strict_enc = encode_requirements_batch(
+                frozen,
+                [
+                    classes[i].strict_requirements
+                    if classes[i].pods
+                    and has_preferred_node_affinity(classes[i].pods[0])
+                    else classes[i].requirements
+                    for i in miss
+                ],
+            )
+            for j, i in enumerate(miss):
+                cls = classes[i]
+                req = resutil.requests_for_pods(cls.pods[0])
+                row = dict(
+                    mask=enc.mask[j],
+                    defines=enc.defines[j],
+                    concrete=enc.concrete[j],
+                    negative=enc.negative[j],
+                    gt=enc.gt[j],
+                    lt=enc.lt[j],
+                    smask=np.where(
+                        strict_enc.defines[j][:, None], strict_enc.mask[j],
+                        True,
+                    ),
+                    req=entry["rvec"](req),
+                    req64=entry["rvec64q"](req),
+                    taint_ok=np.array(
+                        [
+                            _tolerates_taints(cls.tolerations, t.taints)
+                            for t in self.templates
+                        ],
+                        dtype=bool,
+                    ),
+                    exist_taint_ok=np.array(
+                        [
+                            _tolerates_taints(cls.tolerations, n.taints)
+                            for n in self.existing_nodes
+                        ],
+                        dtype=bool,
+                    ),
+                )
+                self._row_cache[(fpid, cls.signature)] = row
+                rows[i] = row
+            if len(self._row_cache) > self._ROW_CACHE_CAP:
+                self._row_cache.clear()
+
+        if C:
+            class_masks = _neutralize(
+                EntityMasks(
+                    mask=np.stack([r["mask"] for r in rows]),
+                    defines=np.stack([r["defines"] for r in rows]),
+                    concrete=np.stack([r["concrete"] for r in rows]),
+                    negative=np.stack([r["negative"] for r in rows]),
+                    gt=np.stack([r["gt"] for r in rows]),
+                    lt=np.stack([r["lt"] for r in rows]),
+                )
+            )
+            smask = np.stack([r["smask"] for r in rows])
+            class_requests = np.stack([r["req"] for r in rows])
+            class_requests64q = np.stack([r["req64"] for r in rows])
+        else:
+            class_masks = EntityMasks(
+                mask=np.ones((0, K, V), dtype=bool),
+                defines=np.zeros((0, K), dtype=bool),
+                concrete=np.zeros((0, K), dtype=bool),
+                negative=np.ones((0, K), dtype=bool),
+                gt=np.full((0, K), GT_NONE, dtype=np.int32),
+                lt=np.full((0, K), LT_NONE, dtype=np.int32),
+            )
+            smask = np.ones((0, K, V), dtype=bool)
+            class_requests = np.zeros((0, R), dtype=np.float32)
+            class_requests64q = np.zeros((0, R), dtype=np.float64)
+
+        taint_ok = (
+            np.stack([r["taint_ok"] for r in rows])
+            if C and S
+            else np.zeros((C, entry["pad_S"]), dtype=bool)
+        )
+        exist_taint_ok = np.ones((C, N), dtype=bool)
+        if C and E:
+            exist_taint_ok[:, :E] = np.stack(
+                [r["exist_taint_ok"] for r in rows]
+            )
+
+        Cp = _bucket(C)
+
+        def cpad(a, fill):
+            return _pad(a, {0: Cp}, fill)
+
+        cm = class_masks
+        # Fresh-node viability + kstar per class, ON DEVICE (ops/masks
+        # fresh_viability) over the BUCKETED arrays: the compat results
+        # never detour through the host, and the solve's only device sync
+        # is the post-scan output fetch.
+        # Dead-on equal to the retired host loop: same quantized float32
+        # floor arithmetic, first-template-wins (pad rows carry tmpl_ok
+        # False and can never be chosen).
+        if C and S and T:
+            cmask_p = np.where(
+                cpad(cm.defines, False)[:, :, None], cpad(cm.mask, False),
+                True,
+            )
+            class_args = (
+                self._dev(cmask_p),
+                self._dev(cpad(cm.defines, False)),
+                self._dev(cpad(cm.concrete, False)),
+                self._dev(cpad(cm.negative, True)),
+                self._dev(cpad(cm.gt, GT_NONE)),
+                self._dev(cpad(cm.lt, LT_NONE)),
+            )
+            class_it_dev = mops.intersects(*class_args, *entry["im_planes_d"])
+            tmpl_compat_dev = mops.compatible(
+                *class_args, *entry["tm_planes_d"], entry["well_known_d"]
+            )
+            class_it_b = _pad_cols(class_it_dev, Tp)
+            tmpl_ok_b = self._dev(
+                _pad(taint_ok, {0: Cp, 1: Sp}, False)
+            ) & _pad_cols(tmpl_compat_dev, Sp)
+            cz = self._dev(cpad(cm.mask[:, zone_kid, :Z], False))
+            cct = self._dev(cpad(cm.mask[:, ct_kid, :CT], False))
+            tz = self._dev(_pad(entry["tmpl_zone_mask"], {0: Sp}, False))
+            tct = self._dev(_pad(entry["tmpl_ct_mask"], {0: Sp}, False))
+            creq = self._dev(cpad(_pad(class_requests, {1: Rp}, 0.0), 0.0))
+            new_template, kstar = mops.fresh_viability(
+                class_it_b,
+                tmpl_ok_b,
+                entry["tmpl_it_d"],
+                cz, cct, tz, tct,
+                entry["off_avail_d"],
+                entry["it_alloc_d"],
+                entry["tmpl_overhead_d"],
+                creq,
+            )
+            class_it = class_it_b  # [Cp, Tp] device-resident
+            tmpl_ok = tmpl_ok_b  # [Cp, Sp] device-resident
+        else:
+            dev = self.device
+            class_it = torch.zeros((Cp, Tp), dtype=torch.bool, device=dev)
+            tmpl_ok = torch.zeros((Cp, Sp), dtype=torch.bool, device=dev)
+            new_template = torch.full((Cp,), -1, dtype=torch.int32, device=dev)
+            kstar = torch.zeros((Cp,), dtype=torch.int32, device=dev)
+
+        b = dict(
+            class_masks=class_masks,
+            smask=smask,
+            class_requests=class_requests,
+            class_requests64q=class_requests64q,
+            taint_ok=taint_ok,
+            exist_taint_ok=exist_taint_ok,
+            class_it=class_it,
+            tmpl_ok=tmpl_ok,
+            new_template=new_template,
+            kstar=kstar,
+            Cp=Cp,
+            class_steps=None,
+            step_class=None,
+        )
+        if len(self._batch_cache) >= self._BATCH_CACHE_CAP:
+            del self._batch_cache[next(iter(self._batch_cache))]
+        self._batch_cache[key] = b
+        return b
+
+    def _make_init_state(
+        self,
+        entry: dict,
+        plan: topoplan.TopoPlan,
+        N: int,
+        hcount0: np.ndarray,
+        Ghp: int,
+        Gzp: int,
+    ) -> SlotState:
+        """Fresh device SlotState with existing nodes seeded in rows
+        [0, E), rebuilt every round from the fp entry's cached host rows."""
+        K, V, R = entry["K"], entry["V"], entry["R"]
+        E = entry["E"]
+        Kp, Vp, Tp, Rp = entry["Kp"], entry["Vp"], entry["Tp"], entry["Rp"]
+
+        valmask = np.ones((N, K, V), dtype=bool)
+        defines = np.zeros((N, K), dtype=bool)
+        complement = np.ones((N, K), dtype=bool)
+        negative = np.ones((N, K), dtype=bool)
+        gt = np.full((N, K), GT_NONE, dtype=np.int32)
+        lt = np.full((N, K), LT_NONE, dtype=np.int32)
+        requests = np.zeros((N, R), dtype=np.float32)
+        capacity = np.full((N, R), np.float32(BIG))
+        kind = np.zeros((N,), dtype=np.int8)
+        template_arr = np.full((N,), -1, dtype=np.int32)
+        if E:
+            valmask[:E] = entry["ex_valmask"]
+            defines[:E] = entry["ex_defines"]
+            complement[:E] = entry["ex_complement"]
+            negative[:E] = entry["ex_negative"]
+            gt[:E] = entry["ex_gt"]
+            lt[:E] = entry["ex_lt"]
+            requests[:E] = entry["ex_requests"]
+            capacity[:E] = entry["ex_capacity"]
+            kind[:E] = 1
+
+        # slot valmask pads True everywhere: defined keys re-acquire False
+        # pad columns on first intersection with a (False-padded) class
+        # mask; EXISTING slots' defined keys must pad False now or
+        # anti-affinity rowcounts see phantom values
+        valmask_p = _pad(valmask, {1: Kp, 2: Vp}, True)
+        defines_p = _pad(defines, {1: Kp}, False)
+        valmask_p[:, :K] = np.where(
+            defines[:, :K, None],
+            _pad(valmask, {2: Vp}, False)[:, :K],
+            valmask_p[:, :K],
+        )
+        return SlotState(
+            valmask=self._dev(valmask_p),
+            defines=self._dev(defines_p),
+            complement=self._dev(_pad(complement, {1: Kp}, True)),
+            negative=self._dev(_pad(negative, {1: Kp}, True)),
+            gt=self._dev(_pad(gt, {1: Kp}, GT_NONE)),
+            lt=self._dev(_pad(lt, {1: Kp}, LT_NONE)),
+            itmask=self._dev(np.zeros((N, Tp), dtype=bool)),
+            requests=self._dev(_pad(requests, {1: Rp}, 0.0)),
+            capacity=self._dev(_pad(capacity, {1: Rp}, np.float32(BIG))),
+            kind=self._dev(kind),
+            template=self._dev(template_arr),
+            podcount=self._dev(np.zeros((N,), dtype=np.int32)),
+            next_free=self._scalar(E),
+            overflow=self._scalar(False, torch.bool),
+            hcount=self._dev(_pad(hcount0, {1: Ghp}, 0)),
+            zcount=self._dev(_pad(plan.zcount0, {0: Gzp, 1: Vp}, 0)),
+            carry=self._scalar(0),
+        )
+
+    def _prepare_with_vocab(
+        self, plan: topoplan.TopoPlan, max_slots, topo: Topology
+    ) -> _Prepared:
+        """Assemble the device problem, reusing every tensor the pod mix
+        did not invalidate.
+
+        Three cache layers (see __init__) make re-solves incremental: the
+        canonical vocab fingerprint keys the catalog/template/existing-node
+        tensors (_fp_entry); per-class rows key on the class signature so
+        a relaxation round re-encodes only the classes the relax mutated;
+        and the stacked class batch — host planes plus the device-resident
+        compat/viability results and the scanned ClassStep — keys on the
+        ordered signature+count tuple and the topology-plan digest, so a
+        steady-state re-solve skips the numpy rebuild entirely. Only
+        genuinely per-round state is rebuilt every call: the plan lowering,
+        the live count seeds (hcount0/zcount0), and init_state."""
+        classes = plan.device_classes
+        catalog = self._catalog_union()
+        E = len(self.existing_nodes)
+        N = max_slots
+        if E > N:
+            raise _SlotOverflow()
+
+        frozen = self._build_vocab(classes, plan)
+        self._round_frozen = frozen
+        topoplan.finalize_arrays(plan, frozen, topo)
+        resource_names = self._resource_axis(classes)
+        entry, fpid = self._fp_entry(frozen, resource_names)
+        batch = self._class_batch(fpid, frozen, entry, plan, classes, N)
+
+        K, V = frozen.K, frozen.V
+        Ghp = _bucket(plan.Gh, lo=1)
+        Gzp = _bucket(plan.Gz, lo=1)
+        Vp = entry["Vp"]
+        self._pad_shapes = dict(
+            K=K, V=V, T=entry["pad_T"], Gh=plan.Gh, Gz=plan.Gz
+        )
+
+        # per-round existing-node sims (they register with this round's
+        # topology); their encoded rows come from the fp entry
+        existing_sims = [
+            ExistingNodeSim(node, topo, self._node_daemon_overhead(node))
+            for node in self.existing_nodes
+        ]
+
+        # topology count state: hostname-group counts seeded per existing
+        # slot; positive counts on non-slot hostnames only matter for the
+        # affinity bootstrap check (h_possel0)
+        slot_names = [n.name for n in self.existing_nodes]
+        hcount0 = topoplan.initial_hcounts(plan, slot_names, N).T  # [N, Gh]
+        slot_name_set = set(slot_names)
+        h_possel0 = np.zeros((plan.Gh,), dtype=bool)
+        for gi, dg in enumerate(plan.host_groups):
+            # any() over domain counts is an
+            # order-insensitive reduction (and short-circuits; sorting
+            # would force materializing every domain)
+            h_possel0[gi] = any(
+                cnt > 0
+                for name, cnt in dg.group.domains.items()
+                if name not in slot_name_set
+            )
+
+        statics = FFDStatics(
+            it_alloc=entry["it_alloc_d"],
+            off_avail=entry["off_avail_d"],
+            zone_key=entry["zone_key_d"],
+            ct_key=entry["ct_key_d"],
+            tmpl_mask=entry["tm_mask_d"],
+            tmpl_defines=entry["tm_def_d"],
+            tmpl_complement=entry["tm_comp_d"],
+            tmpl_negative=entry["tm_neg_d"],
+            tmpl_gt=entry["tm_gt_d"],
+            tmpl_lt=entry["tm_lt_d"],
+            tmpl_it=entry["tmpl_it_d"],
+            tmpl_overhead=entry["tmpl_overhead_d"],
+            well_known=entry["well_known_pad_d"],
+            gt_none=self._scalar(GT_NONE),
+            lt_none=self._scalar(LT_NONE),
+            h_type=self._dev(_pad(plan.h_type, {0: Ghp}, 0)),
+            h_skew=self._dev(_pad(plan.h_skew, {0: Ghp}, 0)),
+            h_possel0=self._dev(_pad(h_possel0, {0: Ghp}, False)),
+            z_type=self._dev(_pad(plan.z_type, {0: Gzp}, 0)),
+            z_skew=self._dev(_pad(plan.z_skew, {0: Gzp}, 0)),
+            z_key=self._dev(_pad(plan.z_key, {0: Gzp}, 0)),
+            z_mindom=self._dev(
+                _pad(plan.z_mindom, {0: Gzp}, topoplan.NO_MIN_DOMAINS)
+            ),
+            z_domains=self._dev(_pad(plan.z_domains, {0: Gzp, 1: Vp}, False)),
+            z_rank=self._dev(_pad(plan.z_rank, {0: Gzp, 1: Vp}, RANK_NONE)),
+        )
+
+        init_state = self._make_init_state(entry, plan, N, hcount0, Ghp, Gzp)
+
+        # level-search iterations: the water level is bounded by seeded
+        # topology counts + pods in this solve
+        import math
+
+        count_bound = 2 * (
+            sum(c.count for c in classes)
+            + (int(plan.zcount0.max()) if plan.zcount0.size else 0)
+            + (int(hcount0.max()) if hcount0.size else 0)
+            + 2
+        )
+        # bucket to a multiple of 4 so drifting pod counts share jit cache
+        level_iters = -(-max(math.ceil(math.log2(count_bound)), 4) // 4) * 4
+
+        prep = _Prepared(
+            vocab=frozen,
+            resource_names=resource_names,
+            catalog=catalog,
+            class_masks=batch["class_masks"],
+            class_requests=batch["class_requests"],
+            classes=classes,
+            templates=self.templates,
+            class_it=batch["class_it"],
+            tmpl_ok=batch["tmpl_ok"],
+            new_template=batch["new_template"],
+            kstar=batch["kstar"],
+            statics=statics,
+            init_state=init_state,
+            exist_taint_ok=batch["exist_taint_ok"],
+            existing_sims=existing_sims,
+            n_slots=N,
+            topo=topo,
+            plan=plan,
+            smask=batch["smask"],
+            it_alloc64q=entry["it_alloc64q"],
+            class_requests64q=batch["class_requests64q"],
+            tmpl_overhead64q=entry["tmpl_overhead64q"],
+            off_avail_np=entry["off_avail"],
+            tmpl_it_np=entry["tmpl_it"],
+            tmpl_mask_np=entry["tmpl_mask_np"],
+            zone_kid=entry["zone_kid"],
+            ct_kid=entry["ct_kid"],
+            n_zones=entry["Z"],
+            n_cts=entry["CT"],
+            level_iters=level_iters,
+            n_classes_padded=batch["Cp"],
+            _batch=batch,
+        )
+        return prep
+
+    def _class_steps(self, prep: _Prepared) -> ClassStep:
+        """Per-STEP scanned arrays: one step per class, except self-selecting
+        label-spread classes which expand to one pinned sub-step per
+        admissible domain (ops/topoplan.py). All axes pad to the bucketed
+        shapes of prep.statics/init_state; steps pad to a bucketed count
+        with inert entries (count=0, no viable template — the scan carries
+        state through them unchanged). The finished device-resident
+        ClassStep caches on the class batch (prep._batch), so steady-state
+        re-solves skip both the host assembly and the host->device
+        transfer."""
+        cached = prep._batch.get("class_steps")
+        if cached is not None:
+            prep.step_class = prep._batch["step_class"]
+            return cached
+        cm = prep.class_masks
+        plan = prep.plan
+        steps = plan.steps
+        V = prep.vocab.V
+        cis = np.array([s.class_idx for s in steps], dtype=np.int32)
+        counts = np.array(
+            [prep.classes[ci].count for ci in cis], dtype=np.int32
+        )
+        J = len(steps)
+        Jp = _bucket_steps(J)
+        Kp = int(prep.statics.well_known.shape[0])
+        Vp = int(prep.statics.z_domains.shape[1])
+        Tp = int(prep.statics.it_alloc.shape[0])
+        Sp = int(prep.statics.tmpl_it.shape[0])
+        Rp = int(prep.statics.it_alloc.shape[1])
+        Ghp = int(prep.statics.h_type.shape[0])
+        Gzp = int(prep.statics.z_type.shape[0])
+        zone_rest = (
+            np.stack(
+                [
+                    s.zone_rest
+                    if s.zone_rest is not None
+                    else np.zeros((V,), dtype=bool)
+                    for s in steps
+                ]
+            )
+            if J
+            else np.zeros((0, V), dtype=bool)
+        )
+
+        def stepvec(values, dtype, fill):
+            return _pad(np.array(values, dtype=dtype), {0: Jp}, fill)
+
+        # device-resident per-class arrays (class_it/tmpl_ok/new_template/
+        # kstar live on device, see _prepare_with_vocab): gather by padded
+        # step index, pad the natural T/S axes up to the statics' bucketed
+        # shapes, and neutralize the pad rows so inert steps stay inert
+        ci_padded = np.zeros((Jp,), dtype=np.int32)
+        ci_padded[:J] = cis
+        ci_j = torch.tensor(ci_padded, dtype=torch.int64, device=self.device)
+        valid_j = torch.tensor(np.arange(Jp) < J, device=self.device)
+        class_it_g = _pad_cols(prep.class_it[ci_j], Tp)
+        tmpl_ok_g = _pad_cols(prep.tmpl_ok[ci_j], Sp)
+        minus1 = self._scalar(-1)
+        zero = self._scalar(0)
+
+        mask = _pad(cm.mask[cis], {0: Jp, 1: Kp, 2: Vp}, False)
+        defines = _pad(cm.defines[cis], {0: Jp, 1: Kp}, False)
+        mask = np.where(defines[:, :, None], mask, True)  # neutral pads
+        smask = _pad(prep.smask[cis], {0: Jp, 1: Kp, 2: Vp}, True)
+        step = ClassStep(
+            mask=self._dev(mask),
+            defines=self._dev(defines),
+            concrete=self._dev(_pad(cm.concrete[cis], {0: Jp, 1: Kp}, False)),
+            negative=self._dev(_pad(cm.negative[cis], {0: Jp, 1: Kp}, True)),
+            gt=self._dev(_pad(cm.gt[cis], {0: Jp, 1: Kp}, GT_NONE)),
+            lt=self._dev(_pad(cm.lt[cis], {0: Jp, 1: Kp}, LT_NONE)),
+            count=self._dev(_pad(counts, {0: Jp}, 0)),
+            requests=self._dev(
+                _pad(prep.class_requests[cis], {0: Jp, 1: Rp}, 0.0)
+            ),
+            class_it=class_it_g & valid_j[:, None],
+            tmpl_ok=tmpl_ok_g & valid_j[:, None],
+            # [Jp, N]: the one scanned input with a slot axis
+            exist_taint_ok=self._dev(
+                _pad(prep.exist_taint_ok[cis], {0: Jp}, False)
+            ),
+            new_template=torch.where(valid_j, prep.new_template[ci_j], minus1),
+            kstar=torch.where(valid_j, prep.kstar[ci_j], zero),
+            smask=self._dev(smask),
+            h_sel=self._dev(_pad(plan.h_sel[cis], {0: Jp, 1: Ghp}, False)),
+            h_owner=self._dev(_pad(plan.h_owner[cis], {0: Jp, 1: Ghp}, False)),
+            z_sel=self._dev(_pad(plan.z_sel[cis], {0: Jp, 1: Gzp}, False)),
+            z_owner=self._dev(_pad(plan.z_owner[cis], {0: Jp, 1: Gzp}, False)),
+            sub_value=self._dev(
+                stepvec([s.sub_value for s in steps], np.int32, -1)
+            ),
+            sub_first=self._dev(
+                stepvec([s.sub_first for s in steps], bool, True)
+            ),
+            sub_last=self._dev(
+                stepvec([s.sub_last for s in steps], bool, True)
+            ),
+            wf_group=self._dev(
+                stepvec([s.wf_group for s in steps], np.int32, -1)
+            ),
+            wf_key=self._dev(
+                stepvec([s.wf_key for s in steps], np.int32, -1)
+            ),
+            zone_rest=self._dev(_pad(zone_rest, {0: Jp, 1: Vp}, False)),
+        )
+        prep._batch["class_steps"] = step
+        prep._batch["step_class"] = ci_j
+        prep.step_class = ci_j
+        return step
+
+    def _catalog_union(self) -> List[InstanceType]:
+        if self._catalog is None:
+            seen = {}
+            for t in self.templates:
+                for it in t.instance_type_options:
+                    seen.setdefault(id(it), it)
+            # include full per-pool catalogs so class_it covers everything
+            for its in self.instance_types.values():
+                for it in its:
+                    seen.setdefault(id(it), it)
+            self._catalog = list(seen.values())
+        return self._catalog
+
+    def _node_daemon_overhead(self, node: SimNode) -> dict:
+        return resutil.requests_for_pods(
+            *node_daemon_pods(node, self.daemonset_pods)
+        )
+
+    # ------------------------------------------------------------------
+
+    def _decode(
+        self, prep: _Prepared, out: Dict[str, np.ndarray]
+    ) -> Tuple[List[InFlightNodeClaim], List[ExistingNodeSim], list]:
+        """Re-materialize device placements through the host algebra.
+
+        Topology-free solves merge each slot's class groups with the exact
+        reference-semantics machinery (Requirements.add +
+        filter_instance_types). Topology solves instead reconstruct each
+        fresh slot's joined requirements straight from the final device
+        planes (decode_requirements — the planes already carry every
+        admissibility tightening the kernel applied) and sync the host
+        groups' domain counters from the device count state. Either way, any
+        placement the host-side checks reject is re-placed through the host
+        greedy add; only pods the host path also rejects surface as failures
+        (and re-enter via relaxation)."""
+        # per-class decision planes: the step->class merge already ran on
+        # device (ops/ffd.aggregate_takes), so decode starts from the
+        # [C, used-slots] matrix instead of replaying J scan steps
+        takes_bc = np.asarray(out["takes_bc"])
+        unplaced_by_class = np.asarray(out["unplaced_bc"]).astype(np.int64)
+        slot_template = np.asarray(out["template"])
+        plan = prep.plan
+        C = len(prep.classes)
+        E = len(prep.existing_sims)
+        failed: list = []
+        divergent: List[Pod] = []
+
+        assigned: Dict[int, Dict[int, int]] = {}
+        for ci, n in zip(*np.nonzero(takes_bc)):
+            assigned.setdefault(int(n), {})[int(ci)] = int(takes_bc[ci, n])
+        for ci, cls in enumerate(prep.classes):
+            k_unplaced = int(unplaced_by_class[ci])
+            if k_unplaced:
+                for p in cls.pods[cls.count - k_unplaced :]:
+                    failed.append((p, "no nodepool matched pod"))
+
+        claims: List[InFlightNodeClaim] = []
+        topo = prep.topo
+        pod_cursor = {ci: 0 for ci in range(C)}
+
+        if plan.has_device_topology():
+            return self._decode_topo(
+                prep, out, assigned, slot_template, pod_cursor, claims, failed
+            )
+
+        # ---- topology-free path ------------------------------------------
+        # group-add is exact only when no topology group could observe these
+        # pods (decode sees topology-free pods, but inverse anti-affinity
+        # groups from the cluster can still select them by label)
+        can_group = not topo.topologies and not topo.inverse_topologies
+
+        for n in sorted(assigned):
+            groups = sorted(assigned[n].items())
+            if n < E:
+                target = prep.existing_sims[n]
+            else:
+                si = int(slot_template[n])
+                template = prep.templates[si]
+                if can_group and self._decode_fresh_vectorized(
+                    prep, si, template, groups, pod_cursor, topo,
+                    claims, divergent,
+                ):
+                    continue
+                target = InFlightNodeClaim(
+                    template,
+                    topo,
+                    self.daemon_overhead[si],
+                    template.instance_type_options,
+                )
+                claims.append(target)
+            for ci, k in groups:
+                cls = prep.classes[ci]
+                start = pod_cursor[ci]
+                pods = cls.pods[start : start + k]
+                pod_cursor[ci] = start + k
+                if not pods:
+                    continue
+                req = resutil.requests_for_pods(pods[0])
+                if can_group and not pods[0].host_ports:
+                    try:
+                        target.add_group(pods, req)
+                        continue
+                    except IncompatibleError:
+                        pass  # re-place pod-by-pod below
+                for p in pods:
+                    try:
+                        target.add(p, req)
+                    except IncompatibleError:
+                        divergent.append(p)
+        if divergent:
+            from karpenter_core_tpu_torch.metrics import wiring as m
+
+            m.SOLVER_HOST_FALLBACK_PODS.inc(
+                {"cause": "divergent"}, by=len(divergent)
+            )
+        for p in divergent:
+            err = self._host_fallback_add(p, claims, prep.existing_sims, topo)
+            if err is not None:
+                failed.append((p, err))
+        # drop empty claims (all groups failed), releasing their placeholder
+        # hostnames from the shared per-round topology (see below)
+        kept = []
+        for c in claims:
+            if c.pods:
+                kept.append(c)
+            else:
+                c.destroy()
+        if can_group:
+            kept = self._repack_sparse_claims(kept)
+        return kept, prep.existing_sims, failed
+
+    def _repack_sparse_claims(
+        self, claims: List[InFlightNodeClaim]
+    ) -> List[InFlightNodeClaim]:
+        """Eliminate class-batched tail fragmentation.
+
+        The kernel opens ceil(rem/kstar) identical fresh slots per class
+        (ops/ffd.py), which can strand a near-empty tail node the
+        pod-at-a-time oracle never creates. Walk claims sparsest-first and
+        try to re-place each one's pods into the other claims through the
+        host algebra; a claim whose pods all move is dropped. Stops at the
+        first claim that cannot fully drain (denser ones won't either).
+        Topology-free solves only (the caller gates on can_group): moving a
+        pod never touches domain counters here. A partial drain keeps the
+        claim with its remaining pods — still a valid packing, requests
+        intentionally left conservative (stale high) on the source."""
+        if len(claims) < 2:
+            return claims
+        claims = sorted(claims, key=lambda c: len(c.pods))
+        out = list(claims)
+        for claim in claims:
+            others = sorted(
+                (c for c in out if c is not claim), key=lambda c: len(c.pods)
+            )
+            moved: List[Pod] = []
+            ok = True
+            for p in list(claim.pods):
+                req = resutil.requests_for_pods(p)
+                placed = False
+                for o in others:
+                    try:
+                        o.add(p, req)
+                        placed = True
+                        break
+                    except IncompatibleError:
+                        continue
+                if not placed:
+                    ok = False
+                    break
+                moved.append(p)
+            if not ok:
+                # keep the claim with whatever didn't move; a moved pod
+                # stays moved (both homes are valid, only one lists it)
+                moved_ids = {id(p) for p in moved}
+                claim.pods = [p for p in claim.pods if id(p) not in moved_ids]
+                break
+            claim.pods = []
+            claim.destroy()
+            out.remove(claim)
+        return out
+
+    # -- topology decode ---------------------------------------------------
+
+    def _decode_topo(
+        self,
+        prep: _Prepared,
+        out: Dict[str, np.ndarray],
+        assigned: Dict[int, Dict[int, int]],
+        slot_template: np.ndarray,
+        pod_cursor: Dict[int, int],
+        claims: List[InFlightNodeClaim],
+        failed: list,
+    ) -> Tuple[List[InFlightNodeClaim], List[ExistingNodeSim], list]:
+        """Decode with device topology state: bulk commits, then host group
+        count sync, then deferred per-pod replays.
+
+        Ordering is load-bearing: deferred pods must replay through the host
+        algebra AFTER the device counts (minus the deferred contributions)
+        are synced into the host TopologyGroups, or they would place against
+        stale counters."""
+        plan, topo = prep.plan, prep.topo
+        E = len(prep.existing_sims)
+        valmask = np.asarray(out["valmask"])
+        defines = np.asarray(out["defines"])
+        complement = np.asarray(out["complement"])
+        gt = np.asarray(out["gt"])
+        lt = np.asarray(out["lt"])
+        itmask = np.asarray(out["itmask"])
+        hcount = np.asarray(out["hcount"]).astype(np.int64).copy()
+        zcount = np.asarray(out["zcount"]).astype(np.int64).copy()
+
+        deferred: List[Pod] = []
+        densified = 0  # densify victims inside `deferred` (metrics split)
+        # (slot, class, k, slot requirements, hostname) per bulk commit
+        committed: List[tuple] = []
+        slot_hostnames: Dict[int, str] = {}
+        slot_claims: Dict[int, InFlightNodeClaim] = {}  # fresh slots only
+
+        def defer(n: int, ci: int, pods: List[Pod]) -> None:
+            self._topo_subtract(
+                plan, valmask, defines, complement, n, ci, len(pods),
+                hcount, zcount,
+            )
+            deferred.extend(pods)
+
+        for n in sorted(assigned):
+            groups = sorted(assigned[n].items())
+            if n < E:
+                target = prep.existing_sims[n]
+                slot_hostnames[n] = target.name
+                for ci, k in groups:
+                    cls = prep.classes[ci]
+                    start = pod_cursor[ci]
+                    pods = cls.pods[start : start + k]
+                    pod_cursor[ci] = start + k
+                    if not pods:
+                        continue
+                    if pods[0].host_ports:
+                        defer(n, ci, pods)
+                        continue
+                    try:
+                        target.add_group(pods, resutil.requests_for_pods(pods[0]))
+                        committed.append(
+                            (n, ci, len(pods), target.requirements, target.name)
+                        )
+                    except IncompatibleError:
+                        defer(n, ci, pods)
+            else:
+                self._commit_fresh_topo(
+                    prep, n, int(slot_template[n]), groups, pod_cursor,
+                    claims, committed, slot_hostnames, defer,
+                    valmask, defines, complement, gt, lt, itmask,
+                    slot_claims,
+                )
+
+        # Voluntary densification deferral (the topology twin of
+        # _repack_sparse_claims): the class-batched kernel strands sparse
+        # tail slots (ceil(rem/kstar) per class) the pod-at-a-time oracle
+        # never opens. Drain the sparsest fresh slots through the existing
+        # subtract-and-repair machinery — their pods re-place one-by-one
+        # into the other claims' residual capacity via the host algebra,
+        # re-opening an equivalent node only when nothing admits them, so
+        # the pass can only densify.
+        if len(slot_claims) >= 2:
+            sizes = sorted(len(c.pods) for c in slot_claims.values())
+            median = sizes[len(sizes) // 2]
+            eligible = sorted(
+                (
+                    (n, c)
+                    for n, c in slot_claims.items()
+                    if len(c.pods) <= int(median * DENSIFY_THRESHOLD)
+                ),
+                key=lambda nc: len(nc[1].pods),
+            )[: int(len(slot_claims) * DENSIFY_CAP)]
+            victims = []
+            pod_budget = DENSIFY_POD_BUDGET
+            for n, c in eligible:
+                if len(c.pods) > pod_budget:
+                    break
+                pod_budget -= len(c.pods)
+                victims.append((n, c))
+            if victims:
+                from karpenter_core_tpu_torch.metrics import wiring as m
+
+                densified = sum(len(c.pods) for _, c in victims)
+                m.SOLVER_HOST_FALLBACK_PODS.inc(
+                    {"cause": "densify"}, by=densified
+                )
+            for n, claim in victims:
+                for entry in [e for e in committed if e[0] == n]:
+                    _n, ci, k, _reqs, _hn = entry
+                    self._topo_subtract(
+                        plan, valmask, defines, complement, n, ci, k,
+                        hcount, zcount,
+                    )
+                    committed.remove(entry)
+                deferred.extend(claim.pods)
+                claim.pods = []
+                claim.destroy()
+                claims.remove(claim)
+                slot_hostnames.pop(n, None)
+
+        self._sync_topo_counts(prep, hcount, zcount, slot_hostnames)
+        self._recount_host_only(prep, committed)
+
+        if len(deferred) > densified:
+            from karpenter_core_tpu_torch.metrics import wiring as m
+
+            m.SOLVER_HOST_FALLBACK_PODS.inc(
+                {"cause": "deferred"}, by=len(deferred) - densified
+            )
+        for p in deferred:
+            err = self._host_fallback_add(p, claims, prep.existing_sims, topo)
+            if err is not None:
+                failed.append((p, err))
+
+        kept = []
+        for c in claims:
+            if c.pods:
+                kept.append(c)
+            else:
+                c.destroy()
+        return kept, prep.existing_sims, failed
+
+    def _commit_fresh_topo(
+        self,
+        prep: _Prepared,
+        n: int,
+        si: int,
+        groups: List[Tuple[int, int]],
+        pod_cursor: Dict[int, int],
+        claims: List[InFlightNodeClaim],
+        committed: List[tuple],
+        slot_hostnames: Dict[int, str],
+        defer,
+        valmask: np.ndarray,
+        defines: np.ndarray,
+        complement: np.ndarray,
+        gt: np.ndarray,
+        lt: np.ndarray,
+        itmask: np.ndarray,
+        slot_claims: Optional[Dict[int, InFlightNodeClaim]] = None,
+    ) -> None:
+        """Materialize one fresh topology slot from the final device planes:
+        float64-refit the take against the slot's final viable instance
+        types, rebuild the joined requirements with decode_requirements, and
+        commit in bulk. minValues / hostPort shapes go per-pod instead."""
+        template = prep.templates[si]
+        T = len(prep.catalog)
+        entries: List[Tuple[int, List[Pod]]] = []
+        for ci, k in groups:
+            cls = prep.classes[ci]
+            start = pod_cursor[ci]
+            pods = cls.pods[start : start + k]
+            pod_cursor[ci] = start + k
+            if pods:
+                entries.append((ci, pods))
+        if not entries:
+            return
+        plane_ok = not template.requirements.has_min_values() and all(
+            not pods[0].host_ports
+            and not prep.classes[ci].requirements.has_min_values()
+            for ci, pods in entries
+        )
+        # quantized-integer refit (exact under repeated addition): the same
+        # arithmetic regime as the device kernel, so a slot the kernel packed
+        # exactly full is not deferred over a 1e-13 raw-float drift
+        req_vec = prep.tmpl_overhead64q[si].copy()
+        requests = dict(self.daemon_overhead[si])
+        for ci, pods in entries:
+            for _ in range(len(pods)):
+                req_vec += prep.class_requests64q[ci]
+            requests = resutil.merge_repeated(
+                requests, resutil.requests_for_pods(pods[0]), len(pods)
+            )
+        opt_idx = [
+            int(t)
+            for t in np.nonzero(itmask[n, :T])[0]
+            if np.all(req_vec <= prep.it_alloc64q[t])
+        ]
+        if not plane_ok or not opt_idx:
+            for ci, pods in entries:
+                defer(n, ci, pods)
+            return
+        claim = InFlightNodeClaim(
+            template,
+            prep.topo,
+            self.daemon_overhead[si],
+            [prep.catalog[t] for t in opt_idx],
+        )
+        reqs = decode_requirements(
+            prep.vocab, valmask[n], defines[n], complement[n], gt[n], lt[n]
+        )
+        reqs.add(
+            Requirement.new(apilabels.LABEL_HOSTNAME, "In", [claim.hostname])
+        )
+        claim.requirements = reqs
+        claim.pods = [p for _, pods in entries for p in pods]
+        claim.requests = requests
+        claims.append(claim)
+        slot_hostnames[n] = claim.hostname
+        if slot_claims is not None:
+            slot_claims[n] = claim
+        for ci, pods in entries:
+            committed.append((n, ci, len(pods), reqs, claim.hostname))
+
+    @staticmethod
+    def _topo_subtract(
+        plan, valmask, defines, complement, n, ci, k, hcount, zcount
+    ) -> None:
+        """Remove a deferred placement's contributions from the device
+        counts — the mirror of the kernel's count update, evaluated on the
+        final planes (a slot pinned by a LATER class than the deferred one
+        can over-subtract by at most the deferred pod count; deferred slots
+        are divergence repairs, so the drift is bounded and rare)."""
+        if plan.h_sel.size:
+            hcount[n, :] -= k * plan.h_sel[ci].astype(np.int64)
+        for gi in range(len(plan.label_groups)):
+            if not plan.z_sel[ci, gi]:
+                continue
+            kid = int(plan.z_key[gi])
+            if not defines[n, kid] or complement[n, kid]:
+                continue
+            row = valmask[n, kid]
+            if plan.z_type[gi] == 1 or row.sum() == 1:
+                zcount[gi] -= k * row.astype(np.int64)
+
+    def _sync_topo_counts(
+        self, prep: _Prepared, hcount, zcount, slot_hostnames: Dict[int, str]
+    ) -> None:
+        """Overwrite the host TopologyGroups' domain counters with the
+        device truth (counts for untouched slots/domains are unchanged by
+        construction, so only synced entries are written)."""
+        plan = prep.plan
+        for gi, dg in enumerate(plan.host_groups):
+            g = dg.group
+            for n, name in slot_hostnames.items():
+                cnt = max(int(hcount[n, gi]), 0)
+                if name not in g.domains and cnt == 0:
+                    continue
+                g.domains[name] = cnt
+                if cnt > 0:
+                    g.empty_domains.discard(name)
+                else:
+                    g.empty_domains.add(name)
+        for gi, dg in enumerate(plan.label_groups):
+            g = dg.group
+            kid = int(plan.z_key[gi])
+            names = prep.vocab.value_names[kid]
+            # union with nonzero count columns: the kernel can record
+            # placements on vocab values outside the registered universe (a
+            # counted-not-constrained class pinned to an unregistered
+            # domain); TopologyGroup.record creates new domain entries, so
+            # the sync must too or host-fallback replays see stale counters
+            cols = np.nonzero(plan.z_domains[gi] | (zcount[gi] != 0))[0]
+            for vid in cols:
+                name = names[vid]
+                cnt = max(int(zcount[gi, vid]), 0)
+                if name not in g.domains and cnt == 0:
+                    continue
+                g.domains[name] = cnt
+                if cnt > 0:
+                    g.empty_domains.discard(name)
+                else:
+                    g.empty_domains.add(name)
+
+    def _recount_host_only(self, prep: _Prepared, committed: List[tuple]) -> None:
+        """Groups the device could not model (non-trivial spread node
+        filters) re-count the bulk-committed placements host-side at
+        (class × slot) granularity — their owner classes always run on the
+        host, so these counters only need the device classes' contributions."""
+        plan = prep.plan
+        if not plan.host_only_groups:
+            return
+        from karpenter_core_tpu_torch.scheduling.requirements import (
+            ALLOW_UNDEFINED_WELL_KNOWN_LABELS,
+        )
+
+        for g in plan.host_only_groups:
+            for n, ci, k, reqs, hostname in committed:
+                rep = prep.classes[ci].pods[0]
+                if not g.selects(rep):
+                    continue
+                if not g.node_filter.matches_requirements(
+                    reqs, ALLOW_UNDEFINED_WELL_KNOWN_LABELS
+                ):
+                    continue
+                if g.key == apilabels.LABEL_HOSTNAME:
+                    domain = hostname
+                else:
+                    dom_req = reqs.get(g.key)
+                    vals = dom_req.sorted_values()
+                    if dom_req.complement or len(vals) != 1:
+                        continue
+                    domain = vals[0]
+                g.record(*([domain] * k))
+
+    def _decode_fresh_vectorized(
+        self,
+        prep: _Prepared,
+        si: int,
+        template,
+        groups: List[Tuple[int, int]],
+        pod_cursor: Dict[int, int],
+        topo: Topology,
+        claims: List[InFlightNodeClaim],
+        divergent: List[Pod],
+    ) -> bool:
+        """Materialize a fresh slot's claim straight from the prep tensors.
+
+        The per-group viability mask — template ITs ∧ class requirement
+        compat (class_it, the same kernels the FFD scan used, property-tested
+        against the host algebra) ∧ float64 resource fit ∧ offering
+        availability under the joined zone/capacity-type masks — replaces
+        the O(groups × instance-types) Python filter. Requirements and
+        request dicts are still folded through the host algebra once per
+        class, so the returned claim is indistinguishable from the
+        add()-built one. Returns False to fall back wholesale (min-values or
+        host ports in play), leaving pod cursors untouched."""
+        if template.requirements.has_min_values():
+            return False
+        for ci, _k in groups:
+            cls = prep.classes[ci]
+            if cls.pods and (
+                cls.pods[0].host_ports or cls.requirements.has_min_values()
+            ):
+                return False
+
+        # The whole plane outcome is a pure function of the composition
+        # (si, groups) given prep — and hundreds of slots repeat a handful
+        # of compositions, so the per-class trial loop, request folding,
+        # requirement joining, and final filter all cache on that shape;
+        # per-slot work reduces to cursor advancement + claim assembly.
+        shape = (si, tuple(groups))
+        cached = self._composition_cache.get(shape)
+        if cached is None:
+            cached = self._decode_composition(prep, si, template, groups)
+            self._composition_cache[shape] = cached
+        committed_counts, remaining, requests_proto, reqs_proto = cached
+
+        committed_set = {ci for ci, _ in committed_counts}
+        pods_all: List[Pod] = []
+        for ci, k in groups:
+            cls = prep.classes[ci]
+            start = pod_cursor[ci]
+            pods = cls.pods[start : start + k]
+            pod_cursor[ci] = start + k
+            if not pods:
+                continue
+            if ci in committed_set and remaining:
+                pods_all.extend(pods)
+            else:
+                divergent.extend(pods)
+        if pods_all:
+            claim = InFlightNodeClaim(
+                template, topo, self.daemon_overhead[si], list(remaining)
+            )
+            claim.requirements.add(*(r.copy() for r in reqs_proto))
+            claim.pods = pods_all
+            claim.requests = dict(requests_proto)
+            claims.append(claim)
+        return True
+
+    def _decode_composition(
+        self, prep: _Prepared, si: int, template, groups: List[Tuple[int, int]]
+    ):
+        """Evaluate one composition shape through the plane algebra: the
+        per-group viability mask — template ITs ∧ class requirement compat
+        (class_it, the same kernels the FFD scan used, property-tested
+        against the host algebra) ∧ quantized-integer resource fit (the
+        device kernel's exact arithmetic, so slots packed exactly full are
+        not rejected over raw-float drift) ∧ offering availability under
+        the joined zone/capacity-type masks — then one final
+        requirements-only filter_instance_types against the JOINED
+        requirements (classes can be pairwise-IT-compatible yet jointly
+        narrower)."""
+        Z, CT = prep.n_zones, prep.n_cts
+        cm = prep.class_masks
+        T = len(prep.catalog)
+        mask = prep.tmpl_it_np[si].copy()
+        req_vec = prep.tmpl_overhead64q[si].copy()
+        zmask = prep.tmpl_mask_np[si, prep.zone_kid, :Z].copy()
+        ctmask = prep.tmpl_mask_np[si, prep.ct_kid, :CT].copy()
+        requests = dict(self.daemon_overhead[si])
+        committed_counts: List[Tuple[int, int]] = []
+
+        for ci, k in groups:
+            cls = prep.classes[ci]
+            if not cls.pods:
+                continue
+            trial_req = req_vec.copy()
+            for _ in range(k):
+                trial_req += prep.class_requests64q[ci]
+            trial_z = zmask & cm.mask[ci, prep.zone_kid, :Z]
+            trial_ct = ctmask & cm.mask[ci, prep.ct_kid, :CT]
+            fits = (trial_req[None, :] <= prep.it_alloc64q).all(axis=1)
+            off_ok = (
+                prep.off_avail_np
+                & trial_z[None, :, None]
+                & trial_ct[None, None, :]
+            ).any(axis=(1, 2))
+            trial = mask & prep.class_it[ci] & fits & off_ok
+            if not trial.any():
+                continue  # caller diverges this class (not in committed)
+            mask, req_vec, zmask, ctmask = trial, trial_req, trial_z, trial_ct
+            requests = resutil.merge_repeated(
+                requests, resutil.requests_for_pods(cls.pods[0]), k
+            )
+            committed_counts.append((ci, k))
+
+        remaining: list = []
+        reqs_proto: list = []
+        if committed_counts:
+            options = [prep.catalog[i] for i in np.nonzero(mask[:T])[0]]
+            joined = Requirements()
+            joined.add(*(r.copy() for r in template.requirements.values()))
+            for ci, _k in committed_counts:
+                reqs = prep.classes[ci].requirements
+                reqs_proto.extend(reqs.values())
+                joined.add(*(r.copy() for r in reqs.values()))
+            remaining = filter_instance_types(options, joined, {}).remaining
+            if not remaining:
+                # jointly-incompatible composition: everything diverges
+                committed_counts = []
+                reqs_proto = []
+        return committed_counts, remaining, requests, reqs_proto
+
+    def _host_fallback_add(
+        self,
+        pod: Pod,
+        claims: List[InFlightNodeClaim],
+        existing_sims: List[ExistingNodeSim],
+        topo: Topology,
+        pod_requests: Optional[dict] = None,
+    ) -> Optional[str]:
+        """Host placement via the shared greedy policy (place_pod), with the
+        pools' remaining limits so fallback claims respect NodePool limits
+        exactly like the greedy path (scheduler.go:417-434)."""
+        if pod_requests is None:
+            pod_requests = resutil.requests_for_pods(pod)
+        return place_pod(
+            pod,
+            pod_requests,
+            existing_sims,
+            claims,
+            self.templates,
+            {id(t): o for t, o in zip(self.templates, self.daemon_overhead)},
+            topo,
+            getattr(self, "_round_remaining", {}),
+        )

@@ -1,0 +1,327 @@
+"""The FFD class scan through the hand-written CUDA kernel.
+
+Replaces the solo path of ``karpenter_core_tpu/ops/pallas_ffd.py``:
+``_fused_step`` (the ``pl.pallas_call`` at :135), ``_pallas_ffd_solve_impl``
+and ``pallas_ffd_solve[_donated]``. The kernel is ``csrc/ffd_step.cu``; its
+specification and oracle is the plain ``ops/ffd.ffd_step``. The source
+note there says what bounds a step on the card (latency of the dependent
+stages and of the cross-slot decisions; the ~11 MB slot state of the
+50k-pod problem stays in L2) and how the design answers it (four kernels
+launched per step on the current stream, slot state updated in place, no
+host synchronisation inside the scan).
+
+Build: ``nvcc`` compiles the source into a shared library with a C
+interface at first use, into ``karpenter_core_tpu_torch/build/`` (listed
+in ``.gitignore``), keyed by a hash of the source and flags; ``ctypes``
+loads it. Nothing is built or imported at module import.
+
+``cuda_ffd_solve`` takes the plain version for tensors on the CPU, launches
+the kernels for tensors on a CUDA device, and raises for anything else; on
+the card it never runs the plain version. ``counter.launches[name]`` counts
+the launches of each of the four kernels (``KERNELS``): each C entry
+``launch_<name>`` launches its kernel once, and the wrapper adds one to that
+kernel's count after the entry reports success.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from karpenter_core_tpu_torch.ops import ffd as ffd_ops
+from karpenter_core_tpu_torch.ops.ffd import (
+    LEVEL_ITERS,
+    ClassStep,
+    FFDStatics,
+    SlotState,
+)
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "ffd_step.cu"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+# Z and CT (zone and capacity-type vocab widths) ride 64-bit masks
+_MAX_ZONE_CT = 64
+_PROLOGUE_SMEM_MAX = 48 * 1024
+
+
+# the step's kernels, in launch order (csrc/ffd_step.cu)
+KERNELS = ("k_prologue", "k_feasible", "k_decide", "k_merge")
+
+
+class LaunchCounter:
+    """Launches on the card of each of the step's kernels; plain integers."""
+
+    def __init__(self) -> None:
+        self.launches = dict.fromkeys(KERNELS, 0)
+
+    def reset(self) -> None:
+        self.launches = dict.fromkeys(KERNELS, 0)
+
+    def total(self) -> int:
+        return sum(self.launches.values())
+
+
+counter = LaunchCounter()
+
+_POINTERS = (
+    # slot state
+    "valmask", "defines", "complement", "negative", "gt", "lt", "itmask",
+    "requests", "capacity", "kind", "tmpl", "podcount", "next_free",
+    "overflow", "hcount", "zcount", "carry",
+    # class steps
+    "c_mask", "c_defines", "c_concrete", "c_negative", "c_gt", "c_lt",
+    "c_count", "c_requests", "c_class_it", "c_tmpl_ok", "c_exist_taint_ok",
+    "c_new_template", "c_kstar", "c_smask", "c_h_sel", "c_h_owner",
+    "c_z_sel", "c_z_owner", "c_sub_value", "c_sub_first", "c_sub_last",
+    "c_wf_group", "c_wf_key", "c_zone_rest",
+    # statics
+    "it_alloc", "off_avail", "zone_key", "ct_key", "t_mask", "t_defines",
+    "t_complement", "t_negative", "t_gt", "t_lt", "t_it", "t_overhead",
+    "well_known", "h_type", "h_skew", "h_possel0", "z_type", "z_skew",
+    "z_key", "z_mindom", "z_domains", "z_rank",
+    # outputs
+    "takes", "unplaced",
+    # scratch
+    "sc", "eff", "hboot", "k_fresh", "off_fresh", "k_eff", "feas", "take",
+)
+_DIMS = ("N", "K", "V", "T", "R", "S", "Z", "CT", "Gh", "Gz", "level_iters",
+         "pad_")
+_SC_COUNT = 7  # csrc/ffd_step.cu SC_COUNT_
+
+
+class _Args(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in _POINTERS] + [
+        (name, ctypes.c_int32) for name in _DIMS
+    ]
+
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA FFD kernel cannot be built")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"libffd_step_{digest}.so"
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+                )
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        lib.ffd_args_size.argtypes = []
+        lib.ffd_args_size.restype = ctypes.c_int
+        lib.ffd_prologue_smem.argtypes = [ctypes.c_int] * 4
+        lib.ffd_prologue_smem.restype = ctypes.c_int
+        for name in KERNELS:
+            entry = getattr(lib, f"launch_{name}")
+            entry.argtypes = [
+                ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p
+            ]
+            entry.restype = ctypes.c_int
+        lib.ffd_error_string.argtypes = [ctypes.c_int]
+        lib.ffd_error_string.restype = ctypes.c_char_p
+        if lib.ffd_args_size() != ctypes.sizeof(_Args):
+            raise RuntimeError(
+                f"FfdArgs layout mismatch: C {lib.ffd_args_size()} bytes,"
+                f" Python {ctypes.sizeof(_Args)}"
+            )
+        _lib = lib
+        return lib
+
+
+def _check(name, x, dtype, shape, device):
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return x.data_ptr()
+
+
+def cuda_ffd_solve(state: SlotState, steps: ClassStep, statics: FFDStatics,
+                   level_iters: int = LEVEL_ITERS):
+    """Scan all stacked class steps; returns (final state, takes [J, N]
+    int32, unplaced [J] int32) exactly as ``ops/ffd.ffd_solve``. The input
+    state is not modified (the kernels update a copy in place)."""
+    dev = state.kind.device
+    if dev.type == "cpu":
+        return ffd_ops.ffd_solve(state, steps, statics, level_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"cuda_ffd_solve: unsupported device {dev}")
+    return _launch(state, steps, statics, level_iters)
+
+
+def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
+            level_iters: int):
+    """The scan on the card: J class steps, four kernels each."""
+    dev = state.kind.device
+    if steps.topo_rank is not None:
+        raise NotImplementedError(
+            "ClassStep.topo_rank is ported with the topoaware slice,"
+            " ROADMAP A.10"
+        )
+    N, K, V = state.valmask.shape
+    T = state.itmask.shape[1]
+    R = state.requests.shape[1]
+    Gh = state.hcount.shape[1]
+    Gz = state.zcount.shape[0]
+    S = statics.tmpl_it.shape[0]
+    _, Z, CT = statics.off_avail.shape
+    J = steps.count.shape[0]
+    if N <= 0:
+        raise ValueError(f"cuda_ffd_solve: {N} slots")
+    if J == 0:  # no class step: nothing to launch
+        return (SlotState(*(x.clone() for x in state)),
+                torch.empty((0, N), dtype=torch.int32, device=dev),
+                torch.empty((0,), dtype=torch.int32, device=dev))
+    if Z > _MAX_ZONE_CT or CT > _MAX_ZONE_CT:
+        raise ValueError(f"zone/capacity-type widths {Z}/{CT} exceed 64")
+    lib = build()
+    if lib.ffd_prologue_smem(K, V, Gh, Gz) > _PROLOGUE_SMEM_MAX:
+        raise ValueError("prologue shared memory above 48 KB")
+
+    b, i8, i32, f32 = torch.bool, torch.int8, torch.int32, torch.float32
+    st = SlotState(*(x.clone() for x in state))
+    p = {}
+    for name, x, dt, shape in (
+        ("valmask", st.valmask, b, (N, K, V)),
+        ("defines", st.defines, b, (N, K)),
+        ("complement", st.complement, b, (N, K)),
+        ("negative", st.negative, b, (N, K)),
+        ("gt", st.gt, i32, (N, K)),
+        ("lt", st.lt, i32, (N, K)),
+        ("itmask", st.itmask, b, (N, T)),
+        ("requests", st.requests, f32, (N, R)),
+        ("capacity", st.capacity, f32, (N, R)),
+        ("kind", st.kind, i8, (N,)),
+        ("tmpl", st.template, i32, (N,)),
+        ("podcount", st.podcount, i32, (N,)),
+        ("next_free", st.next_free, i32, ()),
+        ("overflow", st.overflow, b, ()),
+        ("hcount", st.hcount, i32, (N, Gh)),
+        ("zcount", st.zcount, i32, (Gz, V)),
+        ("carry", st.carry, i32, ()),
+        ("c_mask", steps.mask, b, (J, K, V)),
+        ("c_defines", steps.defines, b, (J, K)),
+        ("c_concrete", steps.concrete, b, (J, K)),
+        ("c_negative", steps.negative, b, (J, K)),
+        ("c_gt", steps.gt, i32, (J, K)),
+        ("c_lt", steps.lt, i32, (J, K)),
+        ("c_count", steps.count, i32, (J,)),
+        ("c_requests", steps.requests, f32, (J, R)),
+        ("c_class_it", steps.class_it, b, (J, T)),
+        ("c_tmpl_ok", steps.tmpl_ok, b, (J, S)),
+        ("c_exist_taint_ok", steps.exist_taint_ok, b, (J, N)),
+        ("c_new_template", steps.new_template, i32, (J,)),
+        ("c_kstar", steps.kstar, i32, (J,)),
+        ("c_smask", steps.smask, b, (J, K, V)),
+        ("c_h_sel", steps.h_sel, b, (J, Gh)),
+        ("c_h_owner", steps.h_owner, b, (J, Gh)),
+        ("c_z_sel", steps.z_sel, b, (J, Gz)),
+        ("c_z_owner", steps.z_owner, b, (J, Gz)),
+        ("c_sub_value", steps.sub_value, i32, (J,)),
+        ("c_sub_first", steps.sub_first, b, (J,)),
+        ("c_sub_last", steps.sub_last, b, (J,)),
+        ("c_wf_group", steps.wf_group, i32, (J,)),
+        ("c_wf_key", steps.wf_key, i32, (J,)),
+        ("c_zone_rest", steps.zone_rest, b, (J, V)),
+        ("it_alloc", statics.it_alloc, f32, (T, R)),
+        ("off_avail", statics.off_avail, b, (T, Z, CT)),
+        ("zone_key", statics.zone_key, i32, ()),
+        ("ct_key", statics.ct_key, i32, ()),
+        ("t_mask", statics.tmpl_mask, b, (S, K, V)),
+        ("t_defines", statics.tmpl_defines, b, (S, K)),
+        ("t_complement", statics.tmpl_complement, b, (S, K)),
+        ("t_negative", statics.tmpl_negative, b, (S, K)),
+        ("t_gt", statics.tmpl_gt, i32, (S, K)),
+        ("t_lt", statics.tmpl_lt, i32, (S, K)),
+        ("t_it", statics.tmpl_it, b, (S, T)),
+        ("t_overhead", statics.tmpl_overhead, f32, (S, R)),
+        ("well_known", statics.well_known, b, (K,)),
+        ("h_type", statics.h_type, i32, (Gh,)),
+        ("h_skew", statics.h_skew, i32, (Gh,)),
+        ("h_possel0", statics.h_possel0, b, (Gh,)),
+        ("z_type", statics.z_type, i32, (Gz,)),
+        ("z_skew", statics.z_skew, i32, (Gz,)),
+        ("z_key", statics.z_key, i32, (Gz,)),
+        ("z_mindom", statics.z_mindom, i32, (Gz,)),
+        ("z_domains", statics.z_domains, b, (Gz, V)),
+        ("z_rank", statics.z_rank, i32, (Gz, V)),
+    ):
+        p[name] = _check(name, x, dt, shape, dev)
+
+    # outputs and scratch (the kernel allocates nothing itself)
+    takes = torch.empty((J, N), dtype=i32, device=dev)
+    unplaced = torch.empty((J,), dtype=i32, device=dev)
+    scratch = dict(
+        sc=torch.empty((_SC_COUNT,), dtype=i32, device=dev),
+        eff=torch.empty((K * V + 3 * K,), dtype=torch.uint8, device=dev),
+        hboot=torch.empty((Gh,), dtype=torch.uint8, device=dev),
+        k_fresh=torch.empty((T,), dtype=f32, device=dev),
+        off_fresh=torch.empty((T,), dtype=torch.uint8, device=dev),
+        k_eff=torch.empty((N,), dtype=i32, device=dev),
+        feas=torch.empty((N,), dtype=torch.uint8, device=dev),
+        take=torch.empty((N,), dtype=i32, device=dev),
+    )
+    p["takes"] = takes.data_ptr()
+    p["unplaced"] = unplaced.data_ptr()
+    for name, x in scratch.items():
+        p[name] = x.data_ptr()
+    args = _Args(
+        **p, N=N, K=K, V=V, T=T, R=R, S=S, Z=Z, CT=CT, Gh=Gh, Gz=Gz,
+        level_iters=int(level_iters), pad_=0,
+    )
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    entries = [(name, getattr(lib, f"launch_{name}")) for name in KERNELS]
+    with torch.cuda.device(dev):
+        for j in range(J):
+            for name, entry in entries:
+                rc = entry(ctypes.byref(args), j, stream)
+                if rc != 0:
+                    raise RuntimeError(
+                        f"{name} launch failed at step {j}:"
+                        f" {lib.ffd_error_string(rc).decode()}"
+                    )
+                counter.launches[name] += 1
+    return st, takes, unplaced
