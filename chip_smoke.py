@@ -25,7 +25,26 @@ on failure:
    result must equal the same solve through the plain version
    (``kernel_backend="reference"``). The scan inputs of a warm solve, at
    the adaptive slot width the warm solves run at, are then held
-   bit-equal between the kernel and the plain version for each problem.
+   bit-equal between the kernel and the plain version for each problem;
+5. batched kernel: the fleet batch, 11 tenants with their own pool names
+   over 400 types at 2048 slots (8 plain with 5000, 4900, ... 4300 pods, 3
+   topology with 5000, 4900, 4800), grouped by the shape key of each
+   tenant's first request (8 plain rows, 3 topology rows padded to 4). For
+   each group the batched scan (``cuda_ffd_solve_batched``) must be
+   bit-equal to the plain batched scan on every plane, each row bit-equal
+   to the solo kernel scan of its request, and each pad row equal to row
+   0; times the batched scan, the same requests' solo scans one after
+   another, and the plain batched scan;
+6. batched main path: ``solve_batch`` over the 11 tenants, one cold round
+   and three warm, with the plain step made to raise. Every tenant's node
+   count must be the JAX package's (``FLEET_EXPECTED_NODES``) and its
+   result the same as the tenant solved alone through the kernel and
+   through the plain version; the cold round must batch at least 8
+   problems in one dispatch; no batched dispatch may fail (so none is
+   retried solo); each kernel's launches must grow by the scans' steps and
+   the problem rows counted by their rows; the verifier's rejection
+   counter must not move. Times each round, the tenants solved one after
+   another, and the device idle share of a profiled warm round.
 
 It prints a sha256 digest of the sources it runs (``source_digest``), a
 ``{"kernels": [...]}`` line, the card's name and power limit from
@@ -316,15 +335,47 @@ def mixed_problem(seed):
     return pool, catalog, existing, pods
 
 
-def scheduler(n_types, max_slots, kernel_backend="cuda"):
+def scheduler(n_types, max_slots, kernel_backend="cuda", pool="default"):
     from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
     from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
 
-    pool = _pool()
+    pool = _pool(pool)
     return DeviceScheduler(
         [pool], {pool.name: list(bench_catalog(n_types))},
         max_slots=max_slots, device="cuda", kernel_backend=kernel_backend,
     )
+
+
+def fleet():
+    """tenant -> (pods factory, pod count): the fleet batch of the batched
+    phases, each tenant with its own pool name over bench_catalog(400) at
+    max_slots=2048 (the widths of plain_5k_400 and topology_5k_400). Pod
+    counts differ per tenant, so a kernel that mixes up problems cannot
+    pass."""
+    out = {f"fleet-plain-{i}": (lambda i=i: _plain_pods(5000 - 100 * i),
+                                5000 - 100 * i) for i in range(8)}
+    out.update({f"fleet-topo-{i}": (lambda i=i: _topology_pods(5000 - 100 * i),
+                                    5000 - 100 * i) for i in range(3)})
+    return out
+
+
+FLEET_TYPES, FLEET_SLOTS = 400, 2048
+# the JAX package's node count for each fleet tenant (its DeviceScheduler,
+# xla backend, each tenant solved alone and all 11 through its solve_batch,
+# on the CPU)
+FLEET_EXPECTED_NODES = {
+    "fleet-plain-0": 171, "fleet-plain-1": 168, "fleet-plain-2": 164,
+    "fleet-plain-3": 161, "fleet-plain-4": 157, "fleet-plain-5": 154,
+    "fleet-plain-6": 151, "fleet-plain-7": 147,
+    "fleet-topo-0": 91, "fleet-topo-1": 89, "fleet-topo-2": 87,
+}
+# how the tenants' first requests group by shape key
+FLEET_GROUPS = [[f"fleet-plain-{i}" for i in range(8)],
+                [f"fleet-topo-{i}" for i in range(3)]]
+
+
+def fleet_scheduler(name, kernel_backend="cuda"):
+    return scheduler(FLEET_TYPES, FLEET_SLOTS, kernel_backend, pool=name)
 
 
 def first_request(sched, pods):
@@ -414,17 +465,43 @@ def _bound(req, state, takes, unplaced):
     HBM rate, and the float32 operations of the k_max evaluation this
     run's data needs (open slots x compatible instance types x 3R+2 per
     step) over the non-tensor float32 peak."""
+    return _bound_ms([_bound_terms(req.init_state, req.steps, req.statics,
+                                   state, takes, unplaced)])
+
+
+def _bound_batched(init, steps, statics, state, takes, unplaced):
+    """``_bound`` of a batched scan: bytes and operations summed over its
+    problem rows (pad rows included: the kernel computes them)."""
+    from karpenter_core_tpu_torch.ops.ffd import _row
+
+    return _bound_ms([
+        _bound_terms(_row(init, b), _row(steps, b), _row(statics, b),
+                     _row(state, b), takes[b], unplaced[b])
+        for b in range(takes.shape[0])
+    ])
+
+
+def _bound_ms(terms):
+    moved = sum(t[0] for t in terms)
+    ops = sum(t[1] for t in terms)
+    t_bytes = moved / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bound_terms(init_state, steps, statics, state, takes, unplaced):
+    """(bytes moved, float32 operations) of one problem's scan."""
     import torch
 
     def nbytes(tree):
         return sum(x.numel() * x.element_size() for x in tree
                    if x is not None)
 
-    moved = (nbytes(req.init_state) + nbytes(req.steps) + nbytes(req.statics)
+    moved = (nbytes(init_state) + nbytes(steps) + nbytes(statics)
              + nbytes(state) + takes.numel() * 4 + unplaced.numel() * 4)
     J, N = takes.shape
-    R = req.init_state.requests.shape[1]
-    kind0 = req.init_state.kind
+    R = init_state.requests.shape[1]
+    kind0 = init_state.kind
     # a fresh slot opens at the first step that puts pods on it
     took = takes > 0
     first = torch.where(took.any(0), took.int().argmax(0),
@@ -432,11 +509,9 @@ def _bound(req, state, takes, unplaced):
     first = torch.where(kind0 > 0, torch.zeros_like(first), first)
     opened = torch.bincount(first.clamp(max=J), minlength=J + 1)[:J]
     open_before = torch.cumsum(opened, 0)  # open at the start of step j
-    types = req.steps.class_it.sum(1)
+    types = steps.class_it.sum(1)
     ops = float((open_before * types).sum()) * (3 * R + 2)
-    t_bytes = moved / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return moved, ops
 
 
 def kernel_phase():
@@ -646,6 +721,306 @@ def main_path_phase():
     return rows, launches
 
 
+def _copy(tree):
+    return type(tree)(*(x.clone() for x in tree))
+
+
+def _key_digest(key):
+    return hashlib.sha256(repr(key).encode()).hexdigest()[:12]
+
+
+def _time_once(fn):
+    """(result, device ms) of one call, by CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def fleet_groups(reqs):
+    """Group the tenants' requests by shape key, as solve_batch does; raise
+    unless they group as FLEET_GROUPS."""
+    groups = {}
+    for name, req in reqs.items():
+        groups.setdefault(req.shape_key(), []).append(name)
+    for key, names in groups.items():
+        print(f"shape key {_key_digest(key)}: {names}", flush=True)
+    if sorted(groups.values()) != sorted(FLEET_GROUPS):
+        raise AssertionError(f"fleet grouped as {list(groups.values())},"
+                             f" expected {FLEET_GROUPS}")
+    return list(groups.values())
+
+
+def batched_kernel_phase():
+    """The batched kernel on the fleet batch's stacked requests, held
+    bit-equal to the plain batched scan, row by row to the solo kernel, and
+    pad rows to row 0; timed against the same requests' solo scans."""
+    from karpenter_core_tpu_torch.models.provisioner import (
+        _BATCH_PAD_LO,
+        _bucket,
+        _stack_trees,
+    )
+    from karpenter_core_tpu_torch.ops import cuda_ffd, ffd
+
+    reqs = {name: first_request(fleet_scheduler(name, "reference"), make())
+            for name, (make, _n) in fleet().items()}
+    rows = []
+    for names in fleet_groups(reqs):
+        rs = [reqs[n] for n in names]
+        B = len(rs)
+        Bp = _bucket(B, lo=_BATCH_PAD_LO)
+        rs_p = rs + [rs[0]] * (Bp - B)
+        state = _stack_trees([r.init_state for r in rs_p])
+        steps = _stack_trees([r.steps for r in rs_p])
+        statics = _stack_trees([r.statics for r in rs_p])
+        li = rs[0].level_iters
+        J = int(steps.count.shape[1])
+        N = int(state.kind.shape[1])
+
+        def batched():  # the kernel updates its state in place: a copy
+            return cuda_ffd.cuda_ffd_solve_batched(_copy(state), steps,
+                                                   statics, li)
+
+        k_out = batched()
+        kb = _planes(*k_out)
+        p_out, plain_ms = _time_once(
+            lambda: ffd.ffd_solve_batched(state, steps, statics, li))
+        pb = _planes(*p_out)
+        bad = {k: n for k in kb if (n := _unequal(kb[k], pb[k]))}
+        if bad:
+            raise AssertionError(f"{names}: batched kernel != plain on {bad}")
+        err = max(_max_abs_err(kb[k], pb[k]) for k in kb)
+        for b, r in enumerate(rs):
+            sp = _planes(*cuda_ffd.cuda_ffd_solve(r.init_state, r.steps,
+                                                  r.statics, li))
+            bad = {k: n for k in sp if (n := _unequal(kb[k][b], sp[k]))}
+            if bad:
+                raise AssertionError(
+                    f"{names[b]}: batched row != solo kernel on {bad}")
+        for b in range(B, Bp):
+            bad = {k: n for k in kb if (n := _unequal(kb[k][b], kb[k][0]))}
+            if bad:
+                raise AssertionError(f"pad row {b} != row 0 on {bad}")
+        ms = _time_ms(batched, 10)
+        solo_ms = _time_ms(
+            lambda: [cuda_ffd.cuda_ffd_solve(r.init_state, r.steps,
+                                             r.statics, li) for r in rs], 5)
+        bound_ms, bound_by = _bound_batched(state, steps, statics, *k_out)
+        row = dict(
+            tenants=names, B=B, Bp=Bp, J=J, N=N,
+            T=int(state.itmask.shape[2]), unequal=0, max_abs_err=err,
+            ms=ms, ms_per_step=ms / J, solo_sum_ms=solo_ms,
+            solo_sum_ms_per_step=solo_ms / J, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+        rows.append(row)
+        print(f"batched kernel [{names[0]}..{names[-1]}] B={B} Bp={Bp} J={J}"
+              f" N={N}: 0 unequal elements against the plain batched scan,"
+              f" each row equal to its solo kernel scan, pad rows equal to"
+              f" row 0; scan {ms:.3f} ms ({ms / J * 1e3:.2f} us/step) vs"
+              f" {B} solo scans {solo_ms:.3f} ms vs plain {plain_ms:.1f} ms;"
+              f" bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return rows
+
+
+@contextlib.contextmanager
+def dispatch_spy():
+    """Record the scan dispatches solve_batch makes: batched ones (and
+    whether one raised), solo ones, and the (rows, steps) of each scan the
+    kernel wrappers take. Calls straight through and counts no launch."""
+    from karpenter_core_tpu_torch.models import provisioner as prov
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+
+    log = dict(batched=0, batched_failed=0, solo=0, scans=[], padded=[])
+    run_b, run_1 = prov._run_kernel_batched, prov._run_kernel_solo
+    scan_b, scan_1 = cuda_ffd.cuda_ffd_solve_batched, cuda_ffd.cuda_ffd_solve
+
+    def batched(reqs):
+        log["batched"] += 1
+        try:
+            outs, padded = run_b(reqs)
+        except Exception:
+            log["batched_failed"] += 1
+            raise
+        log["padded"].append(padded)
+        return outs, padded
+
+    def solo(req):
+        log["solo"] += 1
+        return run_1(req)
+
+    def kernel_b(state, steps, *args, **kwargs):
+        log["scans"].append((int(state.kind.shape[0]),
+                             int(steps.count.shape[1])))
+        return scan_b(state, steps, *args, **kwargs)
+
+    def kernel_1(state, steps, *args, **kwargs):
+        log["scans"].append((1, int(steps.count.shape[0])))
+        return scan_1(state, steps, *args, **kwargs)
+
+    prov._run_kernel_batched, prov._run_kernel_solo = batched, solo
+    cuda_ffd.cuda_ffd_solve_batched, cuda_ffd.cuda_ffd_solve = (
+        kernel_b, kernel_1)
+    try:
+        yield log
+    finally:
+        prov._run_kernel_batched, prov._run_kernel_solo = run_b, run_1
+        cuda_ffd.cuda_ffd_solve_batched, cuda_ffd.cuda_ffd_solve = (
+            scan_b, scan_1)
+
+
+def batched_main_path_phase():
+    """``solve_batch`` over the fleet's 11 tenants on the card: one cold and
+    three warm rounds, held to the JAX package's node counts and to each
+    tenant solved alone through the kernel and through the plain version,
+    with every launch and problem row accounted for and no solo retry."""
+    import torch
+
+    from karpenter_core_tpu_torch.metrics import wiring as m
+    from karpenter_core_tpu_torch.models.provisioner import solve_batch
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+
+    tenants = fleet()
+    total_pods = sum(n for _make, n in tenants.values())
+    rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+
+    # the tenants solved alone, one after another, through the kernel: a
+    # cold pass, then timed warm passes before and after the batched rounds
+    alone = {n: fleet_scheduler(n) for n in tenants}
+    expected = {}
+
+    def one_by_one():
+        pods = {n: make() for n, (make, _k) in tenants.items()}
+        with plain_forbidden():
+            t0 = time.perf_counter()
+            res = {n: alone[n].solve(pods[n]) for n in tenants}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        for n, r in res.items():
+            expected.setdefault(n, _canonical(r))
+            if _canonical(r) != expected[n] or r.pod_errors:
+                raise AssertionError(f"{n}: a warm solve alone changed")
+        return wall, _phase_sums(alone.values())
+
+    seq = [one_by_one() for _ in range(4)]
+    # and through the plain version
+    for n, (make, _k) in tenants.items():
+        ref = fleet_scheduler(n, "reference").solve(make())
+        if _canonical(ref) != expected[n]:
+            raise AssertionError(f"{n}: cuda result != reference result")
+
+    scheds = [fleet_scheduler(n) for n in tenants]
+    rounds = []
+    cuda_ffd.counter.reset()
+    with dispatch_spy() as log, plain_forbidden():
+        for rnd in range(4):  # one cold round, three warm
+            pods = [make() for make, _k in tenants.values()]
+            before = (dict(cuda_ffd.counter.launches), cuda_ffd.counter.rows,
+                      len(log["scans"]), log["batched"], log["solo"],
+                      len(log["padded"]))
+            t0 = time.perf_counter()
+            outcomes, stats = solve_batch(list(zip(scheds, pods)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for n, (status, res) in zip(tenants, outcomes):
+                if status != "ok":
+                    raise AssertionError(f"round {rnd} {n}: {res!r}")
+                if res.pod_errors:
+                    raise AssertionError(
+                        f"round {rnd} {n}: {len(res.pod_errors)} pod errors")
+                if res.node_count() != FLEET_EXPECTED_NODES[n]:
+                    raise AssertionError(
+                        f"round {rnd} {n}: {res.node_count()} nodes,"
+                        f" expected {FLEET_EXPECTED_NODES[n]}")
+                if _canonical(res) != expected[n]:
+                    raise AssertionError(
+                        f"round {rnd} {n}: batched result != the tenant"
+                        " solved alone")
+            scans = log["scans"][before[2]:]
+            n_batched = log["batched"] - before[3]
+            n_solo = log["solo"] - before[4]
+            padded = log["padded"][before[5]:]
+            if log["batched_failed"]:
+                raise AssertionError("a batched dispatch failed and was"
+                                     " retried solo")
+            if (stats["dispatches"] != n_batched + n_solo
+                    or stats["batched_dispatches"] != n_batched
+                    or stats["padded_total_rows"] != sum(padded)):
+                raise AssertionError(f"round {rnd}: stats {stats} against"
+                                     f" {n_batched} batched and {n_solo}"
+                                     " solo dispatches")
+            if rnd == 0 and (stats["batched_dispatches"] < 1
+                             or stats["batched_problems"] < 8):
+                raise AssertionError(f"cold round batched too little: {stats}")
+            grew = {k: v - before[0][k]
+                    for k, v in cuda_ffd.counter.launches.items()}
+            steps = sum(j for _b, j in scans)
+            if set(grew.values()) != {steps} or steps <= 0:
+                raise AssertionError(f"round {rnd}: launches {grew}, the"
+                                     f" scans had {steps} steps")
+            if cuda_ffd.counter.rows - before[1] != sum(b for b, _j in scans):
+                raise AssertionError(f"round {rnd}: rows counted"
+                                     f" {cuda_ffd.counter.rows - before[1]},"
+                                     f" scans {scans}")
+            if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
+                raise AssertionError(f"round {rnd}: the verifier rejected")
+            rounds.append(dict(
+                wall_s=wall, pods_per_s=total_pods / wall, stats=stats,
+                scans=scans, launches=grew,
+                rows=cuda_ffd.counter.rows - before[1],
+                phases=_phase_sums(scheds),
+            ))
+            print(f"solve_batch round {rnd} ({'cold' if rnd == 0 else 'warm'}):"
+                  f" {wall:.3f} s, {total_pods / wall:.0f} pods/s; scans"
+                  f" (rows, steps) {scans}; stats {json.dumps(stats)};"
+                  f" launches {json.dumps(grew)}; node counts equal the JAX"
+                  " package's; results equal each tenant solved alone;"
+                  " no solo retry; verifier rejections unmoved", flush=True)
+    launches = dict(cuda_ffd.counter.launches)
+    rows_served = cuda_ffd.counter.rows
+    seq += [one_by_one() for _ in range(3)]
+    with plain_forbidden():
+        pods = [make() for make, _k in tenants.values()]
+        idle = _idle_share(lambda: solve_batch(list(zip(scheds, pods))))
+    warm = [r["wall_s"] for r in rounds[1:]]
+    seq_warm = [s[0] for s in seq[1:]]  # 3 passes before, 3 after
+    out = dict(
+        tenants=list(tenants), pods=total_pods,
+        nodes=dict(FLEET_EXPECTED_NODES), rounds=rounds,
+        cold_s=rounds[0]["wall_s"], warm_s=warm,
+        warm_p50_s=statistics.median(warm),
+        one_by_one_cold_s=seq[0][0], one_by_one_warm_s=seq_warm,
+        one_by_one_warm_p50_s=statistics.median(seq_warm),
+        one_by_one_phases=seq[-1][1],
+        pods_per_s_batched_warm_p50=total_pods / statistics.median(warm),
+        pods_per_s_one_by_one_warm_p50=(total_pods
+                                        / statistics.median(seq_warm)),
+        device_idle_share=idle, launches=launches, rows=rows_served,
+    )
+    print(f"solve_batch over {len(tenants)} tenants ({total_pods} pods):"
+          f" cold {out['cold_s']:.3f} s, warm p50 {out['warm_p50_s']:.3f} s"
+          f" ({out['pods_per_s_batched_warm_p50']:.0f} pods/s), phases of"
+          f" the last round {json.dumps(rounds[-1]['phases'])}; one by one"
+          f" cold {seq[0][0]:.3f} s, warm {json.dumps(seq_warm)} (p50"
+          f" {out['pods_per_s_one_by_one_warm_p50']:.0f} pods/s), phases of"
+          f" the last pass {json.dumps(seq[-1][1])}; device idle share"
+          f" {idle}; launches {json.dumps(launches)}, rows {rows_served}",
+          flush=True)
+    return out
+
+
+def _phase_sums(schedulers):
+    """Each phase's seconds summed over the schedulers' last solves."""
+    keys = ("plan_s", "prepare_s", "kernel_s", "decode_s", "verify_s")
+    return {k: sum(s.last_phase_stats.get(k, 0.0) for s in schedulers)
+            for k in keys}
+
+
 def main() -> int:
     try:
         import torch
@@ -686,8 +1061,13 @@ def main() -> int:
     krows = kernel_phase()
     # 4. the main path
     mrows, launches = main_path_phase()
+    # 5. the batched kernel against its plain version and the solo kernel
+    brows = batched_kernel_phase()
+    # 6. the batched main path
+    bmain = batched_main_path_phase()
 
     k50 = krows[0]
+    kp = next(r for r in brows if r["tenants"] == FLEET_GROUPS[0])
     kernels = {"kernels": [{
         "name": "ffd_step",
         "route": "cuda",
@@ -707,6 +1087,27 @@ def main() -> int:
         "plain_ms_per_step": k50["plain_ms_per_step"],
         "shapes": krows,
         "main_path": mrows,
+    }, {
+        "name": "ffd_step_batched",
+        "route": "cuda",
+        "source": "karpenter_core_tpu_torch/csrc/ffd_step.cu",
+        "replaces": "karpenter_core_tpu/ops/pallas_ffd.py:135",
+        "replaces_route": "batched: _pallas_ffd_solve_batched_impl"
+                          " (pallas_ffd.py:197-216)",
+        "launches": sum(bmain["launches"].values()),
+        "launches_by_kernel": bmain["launches"],
+        "rows": bmain["rows"],
+        "max_abs_err": max(r["max_abs_err"] for r in brows),
+        "ms": kp["ms"],
+        "plain_ms": kp["plain_ms"],
+        "bound_ms": kp["bound_ms"],
+        "bound_by": kp["bound_by"],
+        "library_ms": None,
+        "unequal": sum(r["unequal"] for r in brows),
+        "solo_sum_ms": kp["solo_sum_ms"],
+        "ms_per_step": kp["ms_per_step"],
+        "groups": brows,
+        "main_path": bmain,
     }]}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -1,10 +1,18 @@
 // One first-fit-decreasing class step of the provisioning solve, for Hopper
-// (sm_90a).
+// (sm_90a), for B independent problems at once.
 //
-// Replaces karpenter_core_tpu/ops/pallas_ffd.py::_fused_step (solo path,
-// the pl.pallas_call at :135), whose body is ops/ffd.py::ffd_step; that
-// function is this kernel's specification, and the port's plain version of
-// it (karpenter_core_tpu_torch/ops/ffd.py) is its oracle. The arithmetic is
+// Replaces karpenter_core_tpu/ops/pallas_ffd.py::_fused_step (the
+// pl.pallas_call at :135) on both of its routes: solo, and batched
+// (batched=True, the vmap of ffd_step over a leading problem axis that
+// _pallas_ffd_solve_batched_impl drives). Its body is ops/ffd.py::ffd_step;
+// that function is this kernel's specification, and the port's plain
+// version of it (karpenter_core_tpu_torch/ops/ffd.py) is its oracle. The
+// problem axis B rides the grid: the slot-parallel kernels take a grid
+// (warp blocks, B) with the problem b = blockIdx.y, the one-block kernels a
+// grid (B) with b = blockIdx.x, and each block first offsets every pointer
+// of FfdArgs to problem b's planes (problem(), 64-bit offsets), so each
+// problem has its own state, class steps, statics, outputs and scratch. A
+// solo scan is B = 1. The arithmetic is
 // integer-exact float32: every division is IEEE round-to-nearest
 // (__fdiv_rn), every product and sum is rounded on its own (__fmul_rn,
 // __fadd_rn; the build also passes -fmad=false), and the counts that JAX
@@ -32,6 +40,9 @@
 //      hcount; zcount deltas go in by integer atomicAdd (order-free).
 // Fresh slots never write past N: an overflowing step fills [next_free, N)
 // and raises the overflow flag, and the host retries with more slots.
+// Batched, one class step is still four launches, whatever B is: the
+// blocks of the B problems run side by side, so a step of B latency-bound
+// problems costs about one step while the card has SMs to spare.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,7 +75,9 @@ enum {
 extern "C" {
 
 // Field order is mirrored by ops/cuda_ffd.py::_Args (pointers, then ints);
-// ffd_args_size() lets the wrapper check the two layouts agree.
+// ffd_args_size() lets the wrapper check the two layouts agree. Every
+// pointer is to problem 0 of B problems laid out one after another, each
+// plane's per-problem size as the comments say.
 struct FfdArgs {
   // slot state, updated in place
   uint8_t* valmask;     // [N,K,V]
@@ -144,13 +157,100 @@ struct FfdArgs {
   int32_t* k_eff;               // [N]
   uint8_t* feas;                // [N]
   int32_t* take;                // [N]
-  // dims
-  int32_t N, K, V, T, R, S, Z, CT, Gh, Gz, level_iters, pad_;
+  // dims; B problems of J class steps each
+  int32_t N, K, V, T, R, S, Z, CT, Gh, Gz, level_iters, B, J, pad_;
 };
 
 }  // extern "C"
 
 namespace {
+
+// the arguments with every pointer moved to problem b's planes
+__device__ __forceinline__ FfdArgs problem(const FfdArgs& a, int b) {
+  FfdArgs p = a;
+  const size_t ub = (size_t)b;
+  const size_t N = a.N, K = a.K, V = a.V, T = a.T, R = a.R, S = a.S;
+  const size_t Gh = a.Gh, Gz = a.Gz, J = a.J;
+  // slot state
+  p.valmask += ub * N * K * V;
+  p.defines += ub * N * K;
+  p.complement += ub * N * K;
+  p.negative += ub * N * K;
+  p.gt += ub * N * K;
+  p.lt += ub * N * K;
+  p.itmask += ub * N * T;
+  p.requests += ub * N * R;
+  p.capacity += ub * N * R;
+  p.kind += ub * N;
+  p.tmpl += ub * N;
+  p.podcount += ub * N;
+  p.next_free += ub;
+  p.overflow += ub;
+  p.hcount += ub * N * Gh;
+  p.zcount += ub * Gz * V;
+  p.carry += ub;
+  // class steps
+  p.c_mask += ub * J * K * V;
+  p.c_defines += ub * J * K;
+  p.c_concrete += ub * J * K;
+  p.c_negative += ub * J * K;
+  p.c_gt += ub * J * K;
+  p.c_lt += ub * J * K;
+  p.c_count += ub * J;
+  p.c_requests += ub * J * R;
+  p.c_class_it += ub * J * T;
+  p.c_tmpl_ok += ub * J * S;
+  p.c_exist_taint_ok += ub * J * N;
+  p.c_new_template += ub * J;
+  p.c_kstar += ub * J;
+  p.c_smask += ub * J * K * V;
+  p.c_h_sel += ub * J * Gh;
+  p.c_h_owner += ub * J * Gh;
+  p.c_z_sel += ub * J * Gz;
+  p.c_z_owner += ub * J * Gz;
+  p.c_sub_value += ub * J;
+  p.c_sub_first += ub * J;
+  p.c_sub_last += ub * J;
+  p.c_wf_group += ub * J;
+  p.c_wf_key += ub * J;
+  p.c_zone_rest += ub * J * V;
+  // statics
+  p.it_alloc += ub * T * R;
+  p.off_avail += ub * T * (size_t)a.Z * (size_t)a.CT;
+  p.zone_key += ub;
+  p.ct_key += ub;
+  p.t_mask += ub * S * K * V;
+  p.t_defines += ub * S * K;
+  p.t_complement += ub * S * K;
+  p.t_negative += ub * S * K;
+  p.t_gt += ub * S * K;
+  p.t_lt += ub * S * K;
+  p.t_it += ub * S * T;
+  p.t_overhead += ub * S * R;
+  p.well_known += ub * K;
+  p.h_type += ub * Gh;
+  p.h_skew += ub * Gh;
+  p.h_possel0 += ub * Gh;
+  p.z_type += ub * Gz;
+  p.z_skew += ub * Gz;
+  p.z_key += ub * Gz;
+  p.z_mindom += ub * Gz;
+  p.z_domains += ub * Gz * V;
+  p.z_rank += ub * Gz * V;
+  // outputs
+  p.takes += ub * J * N;
+  p.unplaced += ub * J;
+  // scratch
+  p.sc += ub * SC_COUNT_;
+  p.eff += ub * (K * V + 3 * K);
+  p.hboot += ub * Gh;
+  p.k_fresh += ub * T;
+  p.off_fresh += ub * T;
+  p.k_eff += ub * N;
+  p.feas += ub * N;
+  p.take += ub * N;
+  return p;
+}
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
@@ -290,9 +390,10 @@ __device__ int block_excl_scan(int x, int* sh) {
 }
 
 // ---------------------------------------------------------------------------
-// 1. class prologue (one block)
+// 1. class prologue (one block per problem)
 
-__global__ void k_prologue(FfdArgs a, int j) {
+__global__ void k_prologue(FfdArgs args, int j) {
+  const FfdArgs a = problem(args, blockIdx.x);
   const int K = a.K, V = a.V, Gz = a.Gz, Gh = a.Gh, T = a.T, R = a.R;
   extern __shared__ int smem[];
   int* s_pos = smem;                 // [Gh]
@@ -509,9 +610,10 @@ __global__ void k_prologue(FfdArgs a, int j) {
 }
 
 // ---------------------------------------------------------------------------
-// 2. slot-parallel feasibility (one warp per slot)
+// 2. slot-parallel feasibility (one warp per slot, a block row per problem)
 
-__global__ void k_feasible(FfdArgs a, int j) {
+__global__ void k_feasible(FfdArgs args, int j) {
+  const FfdArgs a = problem(args, blockIdx.y);
   const int n = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (n >= a.N) return;
@@ -613,9 +715,10 @@ __global__ void k_feasible(FfdArgs a, int j) {
 }
 
 // ---------------------------------------------------------------------------
-// 3. cross-slot decisions (one block)
+// 3. cross-slot decisions (one block per problem)
 
-__global__ void k_decide(FfdArgs a, int j) {
+__global__ void k_decide(FfdArgs args, int j) {
+  const FfdArgs a = problem(args, blockIdx.x);
   __shared__ int sh[33];
   const int N = a.N;
   const int tid = threadIdx.x;
@@ -729,9 +832,10 @@ __global__ void k_decide(FfdArgs a, int j) {
 }
 
 // ---------------------------------------------------------------------------
-// 4. slot-parallel merge (one warp per slot)
+// 4. slot-parallel merge (one warp per slot, a block row per problem)
 
-__global__ void k_merge(FfdArgs a, int j) {
+__global__ void k_merge(FfdArgs args, int j) {
+  const FfdArgs a = problem(args, blockIdx.y);
   const int n = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (n >= a.N) return;
@@ -838,6 +942,11 @@ __global__ void k_merge(FfdArgs a, int j) {
   }
 }
 
+// the slot-parallel kernels' grid: warp blocks over slots x problems
+dim3 warp_grid(const FfdArgs& a) {
+  return dim3((a.N + (WARP_BLOCK / 32) - 1) / (WARP_BLOCK / 32), a.B);
+}
+
 }  // namespace
 
 extern "C" {
@@ -849,34 +958,31 @@ int ffd_prologue_smem(int K, int V, int Gh, int Gz) {
 }
 
 // One entry per kernel; class step j runs the four in this order on
-// `stream`, with no host synchronisation. Each launches its kernel once and
-// returns cudaGetLastError() (0 on success).
-static int warp_blocks(const FfdArgs& a) {
-  return (a.N + (WARP_BLOCK / 32) - 1) / (WARP_BLOCK / 32);
-}
-
+// `stream`, with no host synchronisation, for all B problems of `args`.
+// Each launches its kernel once and returns cudaGetLastError() (0 on
+// success).
 int launch_k_prologue(const FfdArgs* args, int j, cudaStream_t stream) {
   const FfdArgs a = *args;
   const int smem = ffd_prologue_smem(a.K, a.V, a.Gh, a.Gz);
-  k_prologue<<<1, 256, smem, stream>>>(a, j);
+  k_prologue<<<a.B, 256, smem, stream>>>(a, j);
   return (int)cudaGetLastError();
 }
 
 int launch_k_feasible(const FfdArgs* args, int j, cudaStream_t stream) {
   const FfdArgs a = *args;
-  k_feasible<<<warp_blocks(a), WARP_BLOCK, 0, stream>>>(a, j);
+  k_feasible<<<warp_grid(a), WARP_BLOCK, 0, stream>>>(a, j);
   return (int)cudaGetLastError();
 }
 
 int launch_k_decide(const FfdArgs* args, int j, cudaStream_t stream) {
   const FfdArgs a = *args;
-  k_decide<<<1, DECIDE_THREADS, 0, stream>>>(a, j);
+  k_decide<<<a.B, DECIDE_THREADS, 0, stream>>>(a, j);
   return (int)cudaGetLastError();
 }
 
 int launch_k_merge(const FfdArgs* args, int j, cudaStream_t stream) {
   const FfdArgs a = *args;
-  k_merge<<<warp_blocks(a), WARP_BLOCK, 0, stream>>>(a, j);
+  k_merge<<<warp_grid(a), WARP_BLOCK, 0, stream>>>(a, j);
   return (int)cudaGetLastError();
 }
 

@@ -23,10 +23,14 @@ Every tensor shape, pad and bucket matches the JAX package's, so each
 device plane compares one to one with the reference's. NodePool limits
 are enforced at claim creation (provision()), exactly as there.
 
+``solve_batch(entries)`` solves several independent problems together,
+answering equal-shape scan dispatches from one batched kernel launch
+sequence (``cuda_ffd.cuda_ffd_solve_batched``).
+
 Outside this slice, and raising ``NotImplementedError`` that names the
 ROADMAP item that ports it: ``solver_mode="relax"`` (A.9), ``devices != 1``
 (A.13), gangs and non-zero priority tiers (A.8, which also brings the
-rack-topology gangs of A.10), and cross-problem batching (A.7).
+rack-topology gangs of A.10).
 """
 from __future__ import annotations
 
@@ -79,7 +83,9 @@ from karpenter_core_tpu_torch.ops.ffd import (
     FFDStatics,
     SlotState,
     aggregate_takes,
+    aggregate_takes_batched,
     ffd_solve,
+    ffd_solve_batched,
 )
 from karpenter_core_tpu_torch.scheduling import Requirement, Requirements
 from karpenter_core_tpu_torch.solver import gangs as gangmod
@@ -242,14 +248,16 @@ class _Prepared:
 # DeviceScheduler.solve runs as a generator that YIELDS one _KernelRequest
 # per device dispatch; a dispatcher answers each request with (final
 # SlotState, takes-by-class, unplaced-by-class, seconds). The solo
-# dispatcher (_drive_solo) is the only one of this slice; cross-problem
-# batching (ROADMAP A.7) adds a second one over the same seam.
+# dispatcher (_drive_solo) answers one problem's requests one by one; the
+# batch dispatcher (solve_batch) interleaves several problems' generators,
+# groups their outstanding requests by exact shape (shape_key), and answers
+# each group of two or more from one batched scan (_run_kernel_batched).
 
 
 @dataclass
 class _KernelRequest:
     """One device dispatch of the FFD scan, reified so a dispatcher outside the
-    generator can answer it."""
+    generator can answer it — solo, or stacked into a batch of problems."""
 
     init_state: SlotState
     steps: ClassStep
@@ -258,15 +266,63 @@ class _KernelRequest:
     step_class: torch.Tensor  # [Jp] step -> class index
     num_classes: int  # Cp, the bucketed class axis
     n_slots: int
+    # the kernel family; only the FFD scan ("solve") is in this port so far
+    # (the gangsched "preempt" pass is ROADMAP A.8, "relax" A.9)
+    kind: str = "solve"
+    # the solver backend that made the request ("ffd" | "relax")
+    mode: str = "ffd"
     # "cuda": the hand kernel (ops/cuda_ffd.py); "reference": the plain
     # torch scan (ops/ffd.py), the kernel's oracle
     backend: str = "cuda"
+    devices: int = 1
+
+    def shape_key(self) -> tuple:
+        """Exact shape identity: requests with equal keys stack into one
+        batched dispatch. Every tensor axis is padded to a power-of-two
+        bucket upstream (_bucket), so equal keys across tenants are the
+        common case. Each leaf's device is part of the key, so a CPU and a
+        CUDA problem never stack, and the backend is, so a "cuda" request
+        never rides a "reference" one's dispatch."""
+        leaves = [
+            x for tree in (self.init_state, self.steps, self.statics)
+            for x in tree if x is not None
+        ]
+        return (
+            self.kind,
+            self.mode,
+            self.backend,
+            tuple(
+                (tuple(x.shape), str(x.dtype), str(x.device)) for x in leaves
+            ),
+            self.level_iters,
+            self.num_classes,
+            self.devices,
+        )
+
+
+# request kinds of later slices, by the ROADMAP item that ports them
+_LATER_KINDS = {"preempt": "A.8", "relax": "A.9"}
+
+
+def _check_ported(req: _KernelRequest) -> None:
+    item = _LATER_KINDS.get(req.kind) or _LATER_KINDS.get(req.mode)
+    if item:
+        raise NotImplementedError(
+            f"{req.kind}/{req.mode} dispatches are ported by ROADMAP item"
+            f" {item}"
+        )
+    if req.devices != 1:
+        raise NotImplementedError(
+            f"devices={req.devices}: multi-GPU dispatches are ported by"
+            " ROADMAP item A.13"
+        )
 
 
 def _run_kernel_solo(req: _KernelRequest):
     """Answer one request; the trailing element is the dispatch seconds
     (host enqueue time on the card — the fetch that follows waits for the
     device)."""
+    _check_ported(req)
     t0 = time.perf_counter()
     if req.backend == "cuda":
         state, takes, unplaced = cuda_ffd.cuda_ffd_solve(
@@ -294,6 +350,180 @@ def _drive_solo(gen):
         except StopIteration as stop:
             return stop.value
         out = _run_kernel_solo(req)
+
+
+def _stack_trees(trees):
+    return type(trees[0])(*(
+        None if xs[0] is None else torch.stack(xs) for xs in zip(*trees)
+    ))
+
+
+# batch-axis pad floor: padded batch sizes are powers of two (2, 4, 8, ...),
+# the JAX package's, so the batch stats agree with it
+_BATCH_PAD_LO = 1
+
+
+def _run_kernel_batched(reqs: List[_KernelRequest]):
+    """Answer N equal-shape requests from ONE batched scan.
+
+    The problem axis pads to a power of two with copies of the first
+    request's tensors (their outputs are sliced off before anyone reads
+    them). Returns (per-request (state, takes_bc, unplaced_bc, seconds)
+    list, padded B)."""
+    head = reqs[0]
+    _check_ported(head)
+    B = len(reqs)
+    t0 = time.perf_counter()
+    Bp = _bucket(B, lo=_BATCH_PAD_LO)
+    reqs_p = list(reqs) + [head] * (Bp - B)
+    # the stack is a fresh copy, so the kernel updates it in place
+    state = _stack_trees([r.init_state for r in reqs_p])
+    steps = _stack_trees([r.steps for r in reqs_p])
+    statics = _stack_trees([r.statics for r in reqs_p])
+    step_class = torch.stack([r.step_class for r in reqs_p])
+    if head.backend == "cuda":
+        state_b, takes_b, unplaced_b = cuda_ffd.cuda_ffd_solve_batched(
+            state, steps, statics, level_iters=head.level_iters
+        )
+    else:
+        state_b, takes_b, unplaced_b = ffd_solve_batched(
+            state, steps, statics, level_iters=head.level_iters
+        )
+    takes_bc, unplaced_bc = aggregate_takes_batched(
+        takes_b, unplaced_b, step_class, num_classes=head.num_classes
+    )
+    # each member's kernel share is an equal split of the batched dispatch
+    # (every row does the same padded work)
+    share = (time.perf_counter() - t0) / B
+    outs = [
+        (
+            SlotState(*(x[b] for x in state_b)),
+            takes_bc[b],
+            unplaced_bc[b],
+            share,
+        )
+        for b in range(B)
+    ]
+    return outs, Bp
+
+
+def solve_batch(entries):
+    """Solve N independent problems together, coalescing compatible scan
+    dispatches into batched ones.
+
+    ``entries``: ``[(scheduler, pods), ...]`` — one DISTINCT DeviceScheduler
+    per problem (a scheduler carries per-solve mutable state and is not
+    reentrant).
+
+    Every problem runs the identical per-problem pipeline as
+    ``scheduler.solve(pods)`` — same host prepare, same decode, same
+    relaxation loop, same verification — only equal-shape scan dispatches
+    are answered together. Problems whose shapes diverge (different
+    buckets, or one needs an overflow-retry round the others don't) fall
+    back to solo dispatches inside the same call.
+
+    Failure is per-problem: a member whose dispatch or decode raises gets
+    an ("error", exc) outcome while its batch-mates complete ("ok",
+    Results). A failing batched dispatch (which cannot attribute blame) is
+    retried solo per member, so the poisoned problem fails alone. A fault
+    on the card inside a kernel poisons the CUDA context, so there the solo
+    retries fail as well.
+
+    Returns (outcomes, stats): outcomes aligned with entries; stats counts
+    dispatches, batched problems, and batch-axis padding.
+    """
+    if len({id(s) for s, _ in entries}) != len(entries):
+        raise ValueError(
+            "solve_batch requires a distinct DeviceScheduler per problem"
+            " (schedulers are single-solve stateful)"
+        )
+
+    def _gen_for(scheduler, pods):
+        if hasattr(scheduler, "_solve_gen"):
+            return scheduler._solve_gen(pods)
+
+        # duck-typed scheduler (test fakes, alternate backends): no kernel
+        # seam to interleave, so it runs whole at its batch slot — a
+        # zero-yield generator keeps the dispatch loop uniform
+        def _compat():
+            return scheduler.solve(pods)
+            yield  # unreachable; makes _compat a generator
+
+        return _compat()
+
+    gens = []
+    outcomes: List[Optional[tuple]] = [None] * len(entries)
+    pending: Dict[int, _KernelRequest] = {}
+    for i, (scheduler, pods) in enumerate(entries):
+        gen = _gen_for(scheduler, pods)
+        gens.append(gen)
+        try:
+            pending[i] = gen.send(None)
+        except StopIteration as stop:
+            outcomes[i] = ("ok", stop.value)
+        except Exception as e:  # per-problem isolation
+            outcomes[i] = ("error", e)
+    stats = {
+        "problems": len(entries),
+        "dispatches": 0,
+        "batched_dispatches": 0,
+        "batched_problems": 0,
+        "padded_rows": 0,
+        "padded_total_rows": 0,
+    }
+    while pending:
+        groups: Dict[tuple, List[int]] = {}
+        for i in sorted(pending):
+            groups.setdefault(pending[i].shape_key(), []).append(i)
+        answers: Dict[int, tuple] = {}
+        for idxs in groups.values():
+            if len(idxs) == 1:
+                i = idxs[0]
+                stats["dispatches"] += 1
+                try:
+                    answers[i] = ("ok", _run_kernel_solo(pending[i]))
+                except Exception as e:
+                    answers[i] = ("error", e)
+                continue
+            stats["dispatches"] += 1
+            try:
+                outs, padded = _run_kernel_batched(
+                    [pending[i] for i in idxs]
+                )
+            except Exception:
+                # the batched dispatch failed as a unit — blame is
+                # unattributable, so re-run each member solo inside the
+                # same call: the poison fails alone, the rest still solve
+                for i in idxs:
+                    stats["dispatches"] += 1
+                    try:
+                        answers[i] = ("ok", _run_kernel_solo(pending[i]))
+                    except Exception as e:
+                        answers[i] = ("error", e)
+            else:
+                stats["batched_dispatches"] += 1
+                stats["batched_problems"] += len(idxs)
+                stats["padded_rows"] += padded - len(idxs)
+                stats["padded_total_rows"] += padded
+                for i, out in zip(idxs, outs):
+                    answers[i] = ("ok", out)
+        nxt: Dict[int, _KernelRequest] = {}
+        for i, (status, out) in answers.items():
+            gen = gens[i]
+            try:
+                if status == "ok":
+                    nxt[i] = gen.send(out)
+                else:
+                    # surface the kernel failure INSIDE the generator so
+                    # its cleanup runs and the error lands per-problem
+                    nxt[i] = gen.throw(out)
+            except StopIteration as stop:
+                outcomes[i] = ("ok", stop.value)
+            except Exception as e:
+                outcomes[i] = ("error", e)
+        pending = nxt
+    return outcomes, stats
+
 
 class DeviceScheduler:
     """Same construction surface as the greedy Scheduler, device solve."""
@@ -704,7 +934,9 @@ class DeviceScheduler:
             step_class=prep.step_class,
             num_classes=prep.n_classes_padded,
             n_slots=prep.n_slots,
+            mode=self.solver_mode,
             backend=self.kernel_backend,
+            devices=self.devices,
         )
         prep.init_state = None
         t0 = time.perf_counter()

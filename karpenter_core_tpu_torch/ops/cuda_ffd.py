@@ -1,29 +1,37 @@
 """The FFD class scan through the hand-written CUDA kernel.
 
-Replaces the solo path of ``karpenter_core_tpu/ops/pallas_ffd.py``:
-``_fused_step`` (the ``pl.pallas_call`` at :135), ``_pallas_ffd_solve_impl``
-and ``pallas_ffd_solve[_donated]``. The kernel is ``csrc/ffd_step.cu``; its
-specification and oracle is the plain ``ops/ffd.ffd_step``. The source
-note there says what bounds a step on the card (latency of the dependent
-stages and of the cross-slot decisions; the ~11 MB slot state of the
-50k-pod problem stays in L2) and how the design answers it (four kernels
-launched per step on the current stream, slot state updated in place, no
-host synchronisation inside the scan).
+Replaces both routes of ``karpenter_core_tpu/ops/pallas_ffd.py``'s
+``_fused_step`` (the ``pl.pallas_call`` at :135): the solo route
+(``_pallas_ffd_solve_impl``, ``pallas_ffd_solve[_donated]``) and the
+batched one (``_pallas_ffd_solve_batched_impl``,
+``pallas_ffd_solve_batched[_donated]``). The kernel is
+``csrc/ffd_step.cu``; its specification and oracle is the plain
+``ops/ffd.ffd_step``. The source note there says what bounds a step on the
+card (latency of the dependent stages and of the cross-slot decisions; the
+~11 MB slot state of the 50k-pod problem stays in L2) and how the design
+answers it (four kernels launched per step on the current stream, slot
+state updated in place, no host synchronisation inside the scan, the
+problem axis in the grid).
 
 Build: ``nvcc`` compiles the source into a shared library with a C
 interface at first use, into ``karpenter_core_tpu_torch/build/`` (listed
 in ``.gitignore``), keyed by a hash of the source and flags; ``ctypes``
 loads it. Nothing is built or imported at module import.
 
-``cuda_ffd_solve`` takes the plain version for tensors on the CPU, launches
-the kernels for tensors on a CUDA device, and raises for anything else; on
-the card it never runs the plain version. ``counter.launches[name]`` counts
-the launches of each of the four kernels (``KERNELS``): each C entry
-``launch_<name>`` launches its kernel once, and the wrapper adds one to that
-kernel's count after the entry reports success.
+``cuda_ffd_solve`` (one problem) and ``cuda_ffd_solve_batched`` (B stacked
+problems) take the plain version for tensors on the CPU, launch the
+kernels for tensors on a CUDA device, and raise for anything else; on the
+card they never run the plain version. A solo scan is the batched kernel
+at B = 1. ``counter.launches[name]`` counts the launches of each of the
+four kernels (``KERNELS``): each C entry ``launch_<name>`` launches its
+kernel once, for all B problems, and the wrapper adds one to that
+kernel's count after the entry reports success. ``counter.rows`` counts
+the problem rows the launched scans served (B per scan, pad rows
+included), which tells one batched scan from B solo ones.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,6 +60,8 @@ NVCC_FLAGS = (
 # Z and CT (zone and capacity-type vocab widths) ride 64-bit masks
 _MAX_ZONE_CT = 64
 _PROLOGUE_SMEM_MAX = 48 * 1024
+# the problem axis is gridDim.y of the slot-parallel kernels
+_MAX_PROBLEMS = 65535
 
 
 # the step's kernels, in launch order (csrc/ffd_step.cu)
@@ -59,13 +69,15 @@ KERNELS = ("k_prologue", "k_feasible", "k_decide", "k_merge")
 
 
 class LaunchCounter:
-    """Launches on the card of each of the step's kernels; plain integers."""
+    """Launches on the card of each of the step's kernels, and the problem
+    rows the launched scans served; plain integers."""
 
     def __init__(self) -> None:
-        self.launches = dict.fromkeys(KERNELS, 0)
+        self.reset()
 
     def reset(self) -> None:
         self.launches = dict.fromkeys(KERNELS, 0)
+        self.rows = 0
 
     def total(self) -> int:
         return sum(self.launches.values())
@@ -95,7 +107,7 @@ _POINTERS = (
     "sc", "eff", "hboot", "k_fresh", "off_fresh", "k_eff", "feas", "take",
 )
 _DIMS = ("N", "K", "V", "T", "R", "S", "Z", "CT", "Gh", "Gz", "level_iters",
-         "pad_")
+         "B", "J", "pad_")
 _SC_COUNT = 7  # csrc/ffd_step.cu SC_COUNT_
 
 
@@ -192,29 +204,71 @@ def cuda_ffd_solve(state: SlotState, steps: ClassStep, statics: FFDStatics,
     return _launch(state, steps, statics, level_iters)
 
 
+def cuda_ffd_solve_batched(state: SlotState, steps: ClassStep,
+                           statics: FFDStatics,
+                           level_iters: int = LEVEL_ITERS):
+    """Scan B stacked problems (every leaf with a leading [B] axis);
+    returns (final states [B, ...], takes [B, J, N] int32, unplaced [B, J]
+    int32) exactly as ``ops/ffd.ffd_solve_batched``. On the card the
+    kernels write the final states into ``state``'s own tensors, which are
+    returned: the caller hands a fresh stack (``_run_kernel_batched`` does)
+    and keeps no other use of it."""
+    dev = state.kind.device
+    if dev.type == "cpu":
+        return ffd_ops.ffd_solve_batched(state, steps, statics, level_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"cuda_ffd_solve_batched: unsupported device {dev}")
+    return _launch_batched(state, steps, statics, level_iters)
+
+
 def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
             level_iters: int):
-    """The scan on the card: J class steps, four kernels each."""
+    """The solo scan on the card: the batched kernel at B = 1, over a copy
+    of the state."""
+    st = SlotState(*(x.clone() for x in state))
+
+    def one(tree):
+        return type(tree)(*(None if x is None else x.unsqueeze(0)
+                            for x in tree))
+
+    _, takes, unplaced = _launch_batched(one(st), one(steps), one(statics),
+                                         level_iters)
+    return st, takes[0], unplaced[0]
+
+
+@contextlib.contextmanager
+def _device_stream(dev):
+    """The current stream of ``dev`` as a handle for the C entries."""
+    with torch.cuda.device(dev):
+        yield ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch_batched(state: SlotState, steps: ClassStep, statics: FFDStatics,
+                    level_iters: int):
+    """The scan on the card: J class steps, four kernels each, every launch
+    serving all B problems; the state is updated in place."""
     dev = state.kind.device
     if steps.topo_rank is not None:
         raise NotImplementedError(
             "ClassStep.topo_rank is ported with the topoaware slice,"
             " ROADMAP A.10"
         )
-    N, K, V = state.valmask.shape
-    T = state.itmask.shape[1]
-    R = state.requests.shape[1]
-    Gh = state.hcount.shape[1]
-    Gz = state.zcount.shape[0]
-    S = statics.tmpl_it.shape[0]
-    _, Z, CT = statics.off_avail.shape
-    J = steps.count.shape[0]
+    B, N, K, V = state.valmask.shape
+    T = state.itmask.shape[2]
+    R = state.requests.shape[2]
+    Gh = state.hcount.shape[2]
+    Gz = state.zcount.shape[1]
+    S = statics.tmpl_it.shape[1]
+    _, _, Z, CT = statics.off_avail.shape
+    J = steps.count.shape[1]
+    if B <= 0 or B > _MAX_PROBLEMS:
+        raise ValueError(f"cuda_ffd_solve_batched: {B} problem rows")
     if N <= 0:
         raise ValueError(f"cuda_ffd_solve: {N} slots")
     if J == 0:  # no class step: nothing to launch
-        return (SlotState(*(x.clone() for x in state)),
-                torch.empty((0, N), dtype=torch.int32, device=dev),
-                torch.empty((0,), dtype=torch.int32, device=dev))
+        return (state,
+                torch.empty((B, 0, N), dtype=torch.int32, device=dev),
+                torch.empty((B, 0), dtype=torch.int32, device=dev))
     if Z > _MAX_ZONE_CT or CT > _MAX_ZONE_CT:
         raise ValueError(f"zone/capacity-type widths {Z}/{CT} exceed 64")
     lib = build()
@@ -222,26 +276,25 @@ def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
         raise ValueError("prologue shared memory above 48 KB")
 
     b, i8, i32, f32 = torch.bool, torch.int8, torch.int32, torch.float32
-    st = SlotState(*(x.clone() for x in state))
     p = {}
     for name, x, dt, shape in (
-        ("valmask", st.valmask, b, (N, K, V)),
-        ("defines", st.defines, b, (N, K)),
-        ("complement", st.complement, b, (N, K)),
-        ("negative", st.negative, b, (N, K)),
-        ("gt", st.gt, i32, (N, K)),
-        ("lt", st.lt, i32, (N, K)),
-        ("itmask", st.itmask, b, (N, T)),
-        ("requests", st.requests, f32, (N, R)),
-        ("capacity", st.capacity, f32, (N, R)),
-        ("kind", st.kind, i8, (N,)),
-        ("tmpl", st.template, i32, (N,)),
-        ("podcount", st.podcount, i32, (N,)),
-        ("next_free", st.next_free, i32, ()),
-        ("overflow", st.overflow, b, ()),
-        ("hcount", st.hcount, i32, (N, Gh)),
-        ("zcount", st.zcount, i32, (Gz, V)),
-        ("carry", st.carry, i32, ()),
+        ("valmask", state.valmask, b, (N, K, V)),
+        ("defines", state.defines, b, (N, K)),
+        ("complement", state.complement, b, (N, K)),
+        ("negative", state.negative, b, (N, K)),
+        ("gt", state.gt, i32, (N, K)),
+        ("lt", state.lt, i32, (N, K)),
+        ("itmask", state.itmask, b, (N, T)),
+        ("requests", state.requests, f32, (N, R)),
+        ("capacity", state.capacity, f32, (N, R)),
+        ("kind", state.kind, i8, (N,)),
+        ("tmpl", state.template, i32, (N,)),
+        ("podcount", state.podcount, i32, (N,)),
+        ("next_free", state.next_free, i32, ()),
+        ("overflow", state.overflow, b, ()),
+        ("hcount", state.hcount, i32, (N, Gh)),
+        ("zcount", state.zcount, i32, (Gz, V)),
+        ("carry", state.carry, i32, ()),
         ("c_mask", steps.mask, b, (J, K, V)),
         ("c_defines", steps.defines, b, (J, K)),
         ("c_concrete", steps.concrete, b, (J, K)),
@@ -289,20 +342,20 @@ def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
         ("z_domains", statics.z_domains, b, (Gz, V)),
         ("z_rank", statics.z_rank, i32, (Gz, V)),
     ):
-        p[name] = _check(name, x, dt, shape, dev)
+        p[name] = _check(name, x, dt, (B, *shape), dev)
 
-    # outputs and scratch (the kernel allocates nothing itself)
-    takes = torch.empty((J, N), dtype=i32, device=dev)
-    unplaced = torch.empty((J,), dtype=i32, device=dev)
+    # outputs and per-problem scratch (the kernel allocates nothing itself)
+    takes = torch.empty((B, J, N), dtype=i32, device=dev)
+    unplaced = torch.empty((B, J), dtype=i32, device=dev)
     scratch = dict(
-        sc=torch.empty((_SC_COUNT,), dtype=i32, device=dev),
-        eff=torch.empty((K * V + 3 * K,), dtype=torch.uint8, device=dev),
-        hboot=torch.empty((Gh,), dtype=torch.uint8, device=dev),
-        k_fresh=torch.empty((T,), dtype=f32, device=dev),
-        off_fresh=torch.empty((T,), dtype=torch.uint8, device=dev),
-        k_eff=torch.empty((N,), dtype=i32, device=dev),
-        feas=torch.empty((N,), dtype=torch.uint8, device=dev),
-        take=torch.empty((N,), dtype=i32, device=dev),
+        sc=torch.empty((B, _SC_COUNT), dtype=i32, device=dev),
+        eff=torch.empty((B, K * V + 3 * K), dtype=torch.uint8, device=dev),
+        hboot=torch.empty((B, Gh), dtype=torch.uint8, device=dev),
+        k_fresh=torch.empty((B, T), dtype=f32, device=dev),
+        off_fresh=torch.empty((B, T), dtype=torch.uint8, device=dev),
+        k_eff=torch.empty((B, N), dtype=i32, device=dev),
+        feas=torch.empty((B, N), dtype=torch.uint8, device=dev),
+        take=torch.empty((B, N), dtype=i32, device=dev),
     )
     p["takes"] = takes.data_ptr()
     p["unplaced"] = unplaced.data_ptr()
@@ -310,11 +363,10 @@ def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
         p[name] = x.data_ptr()
     args = _Args(
         **p, N=N, K=K, V=V, T=T, R=R, S=S, Z=Z, CT=CT, Gh=Gh, Gz=Gz,
-        level_iters=int(level_iters), pad_=0,
+        level_iters=int(level_iters), B=B, J=J, pad_=0,
     )
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     entries = [(name, getattr(lib, f"launch_{name}")) for name in KERNELS]
-    with torch.cuda.device(dev):
+    with _device_stream(dev) as stream:
         for j in range(J):
             for name, entry in entries:
                 rc = entry(ctypes.byref(args), j, stream)
@@ -324,4 +376,5 @@ def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
                         f" {lib.ffd_error_string(rc).decode()}"
                     )
                 counter.launches[name] += 1
-    return st, takes, unplaced
+    counter.rows += B
+    return state, takes, unplaced

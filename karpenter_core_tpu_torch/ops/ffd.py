@@ -26,6 +26,10 @@ int32 sum). ``_offering_ok`` and the zcount deltas, float32 products in
 JAX, are boolean and integer reductions here: exact, and no TF32 can
 reach them.
 
+``ffd_solve_batched`` and ``aggregate_takes_batched`` take B independent
+problems stacked on a leading axis (cross-tenant batching); the plain
+batched scan is ``ffd_solve`` row by row, the oracle of the batched kernel.
+
 Only the classic first-fit (``ClassStep.topo_rank is None``) is ported; a
 step carrying ``topo_rank`` raises (ROADMAP A.10, the topoaware slice).
 """
@@ -642,3 +646,48 @@ def aggregate_takes(takes, unplaced, step_class, num_classes: int):
         (num_classes,), dtype=unplaced.dtype, device=unplaced.device
     ).index_add_(0, idx, unplaced)
     return tbc, ubc
+
+
+# ---------------------------------------------------------------------------
+# the problem batch axis (cross-tenant batching): every leaf of SlotState /
+# ClassStep / FFDStatics gains a leading [B] axis, one row per independent
+# problem of equal padded shapes
+
+
+def _row(tree, b: int):
+    return type(tree)(*(None if x is None else x[b] for x in tree))
+
+
+def ffd_solve_batched(state: SlotState, classes: ClassStep,
+                      statics: FFDStatics, level_iters: int = LEVEL_ITERS):
+    """``ffd_solve`` over stacked problems, row by row; returns (final
+    states [B, ...], takes [B, J, N] int32, unplaced [B, J] int32). The
+    input state is not modified."""
+    B = state.kind.shape[0]
+    if B == 0:
+        raise ValueError("ffd_solve_batched: no problem rows")
+    rows = [
+        ffd_solve(_row(state, b), _row(classes, b), _row(statics, b),
+                  level_iters)
+        for b in range(B)
+    ]
+    final = SlotState(*(torch.stack(xs) for xs in zip(*(r[0] for r in rows))))
+    return (final, torch.stack([r[1] for r in rows]),
+            torch.stack([r[2] for r in rows]))
+
+
+def aggregate_takes_batched(takes, unplaced, step_class, num_classes: int):
+    """``aggregate_takes`` over a leading problem axis: takes [B, J, N],
+    unplaced [B, J], step_class [B, J] (each problem has its own step ->
+    class index) -> ([B, Cp, N], [B, Cp]); one segment sum over the
+    flattened (problem, class) index."""
+    B, J, N = takes.shape
+    rows = torch.arange(B, device=step_class.device)[:, None] * num_classes
+    idx = (step_class.long() + rows).reshape(-1)
+    tbc = torch.zeros(
+        (B * num_classes, N), dtype=takes.dtype, device=takes.device
+    ).index_add_(0, idx, takes.reshape(B * J, N))
+    ubc = torch.zeros(
+        (B * num_classes,), dtype=unplaced.dtype, device=unplaced.device
+    ).index_add_(0, idx, unplaced.reshape(B * J))
+    return tbc.reshape(B, num_classes, N), ubc.reshape(B, num_classes)

@@ -1,0 +1,489 @@
+"""The port's cross-tenant batched solves against the JAX package's.
+
+* The plain batched scan (``ops/ffd.ffd_solve_batched``) and the batched
+  per-class sum (``aggregate_takes_batched``) on three distinct stacked
+  requests are bit-equal, plane for plane, to the JAX ``ffd_solve_batched``
+  and ``aggregate_takes_batched``; at a tiny size also to the JAX
+  package's batched Pallas step (``pallas_ffd.pallas_ffd_solve_batched``,
+  interpreted on the CPU as tests/test_pallas.py runs it).
+* ``models/provisioner.solve_batch`` on the batches of tests/test_batch.py
+  (mixed, topology member and shape split, batch of one, a poisoned
+  member): every member's result wire (``codec.encode_solve_results`` with
+  solve_seconds pinned to 0.0) is byte-identical to the JAX
+  ``solve_batch`` member's, and the batch stats are equal.
+* "cuda" and "reference" problems never share a batched dispatch; the
+  shape key splits on backend and on device.
+* ``ops/cuda_ffd.cuda_ffd_solve_batched`` takes the plain version for CPU
+  tensors and rejects other devices; its card path, with the kernel
+  library mocked, launches each of the four kernels once per class step
+  for all B problems, counts B rows, and never runs the plain version.
+
+The CUDA kernel itself runs only on the card (``chip_smoke.py``).
+"""
+import ast
+import contextlib
+import copy
+import dataclasses
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_batch import _catalog, _problem
+from tests.test_torch_ffd import assert_planes_equal, reference_request
+from tests.test_torch_provisioner import _align_hostnames, to_reference
+
+from karpenter_core_tpu.models import provisioner as jprov
+from karpenter_core_tpu.ops import ffd as jffd
+from karpenter_core_tpu.ops import pallas_ffd
+from karpenter_core_tpu.solver import codec
+from karpenter_core_tpu_torch import interop
+from karpenter_core_tpu_torch.models import provisioner as tprov
+from karpenter_core_tpu_torch.ops import cuda_ffd
+from karpenter_core_tpu_torch.ops import ffd as tffd
+
+MIXED = [("pa", 20, 0.25), ("pb", 24, 0.3), ("pc", 20, 0.2)]
+
+
+def _wire(results):
+    return codec.encode_solve_results(results, 0.0)
+
+
+def _stack_np(trees):
+    return type(trees[0])(*(
+        None if xs[0] is None else np.stack([np.asarray(x) for x in xs])
+        for xs in zip(*trees)
+    ))
+
+
+def _jax_requests(specs, max_slots=64):
+    reqs = []
+    for name, n_pods, cpu_step in specs:
+        pool, pods = _problem(name, n_pods, cpu_step)
+        reqs.append(reference_request(
+            ([pool], {name: list(_catalog())}, [], pods, max_slots)))
+    assert len({r.shape_key() for r in reqs}) == 1
+    return reqs
+
+
+def _stacked(reqs):
+    return (
+        _stack_np([r.init_state for r in reqs]),
+        _stack_np([r.steps for r in reqs]),
+        _stack_np([r.statics for r in reqs]),
+        np.stack([np.asarray(r.step_class) for r in reqs]),
+    )
+
+
+def _planes(state, takes, unplaced, tbc, ubc):
+    out = dict(state._asdict())
+    out.update(takes=takes, unplaced=unplaced, takes_bc=tbc, unplaced_bc=ubc)
+    return out
+
+
+def _reference_batched(reqs, solve=jffd.ffd_solve_batched):
+    init, steps, statics, step_class = _stacked(reqs)
+    state, takes, unplaced = solve(init, steps, statics,
+                                   level_iters=reqs[0].level_iters)
+    tbc, ubc = jffd.aggregate_takes_batched(
+        takes, unplaced, step_class, num_classes=reqs[0].num_classes)
+    return _planes(state, takes, unplaced, tbc, ubc)
+
+
+def _port_inputs(reqs):
+    init, steps, statics, step_class = _stacked(reqs)
+    return (*interop.tensors_from_numpy((init, steps, statics), "cpu"),
+            torch.tensor(step_class))
+
+
+def _port_batched(reqs):
+    init, steps, statics, step_class = _port_inputs(reqs)
+    state, takes, unplaced = tffd.ffd_solve_batched(
+        init, steps, statics, level_iters=reqs[0].level_iters)
+    tbc, ubc = tffd.aggregate_takes_batched(
+        takes, unplaced, step_class, num_classes=reqs[0].num_classes)
+    return _planes(state, takes, unplaced, tbc, ubc)
+
+
+# ---------------------------------------------------------------------------
+# the plain batched scan and the batched per-class sum
+
+
+def test_plain_batched_scan_bit_equal():
+    reqs = _jax_requests(MIXED)
+    assert_planes_equal(_port_batched(reqs), _reference_batched(reqs),
+                        "batched scan")
+
+
+def test_plain_batched_scan_matches_pallas_interpret():
+    reqs = _jax_requests([("ta", 8, 0.25), ("tb", 7, 0.3)], max_slots=16)
+    ref = _reference_batched(reqs, solve=pallas_ffd.pallas_ffd_solve_batched)
+    assert_planes_equal(_port_batched(reqs), ref, "batched vs pallas")
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_aggregate_takes_batched_equal(seed):
+    rng = np.random.default_rng(seed)
+    B, J, N, Cp = 3, 12, 16, 8
+    takes = rng.integers(-5, 50, (B, J, N)).astype(np.int32)
+    unplaced = rng.integers(0, 9, (B, J)).astype(np.int32)
+    step_class = rng.integers(0, Cp, (B, J)).astype(np.int32)
+    rt, ru = jffd.aggregate_takes_batched(takes, unplaced, step_class,
+                                          num_classes=Cp)
+    pt, pu = tffd.aggregate_takes_batched(
+        torch.tensor(takes), torch.tensor(unplaced),
+        torch.tensor(step_class), num_classes=Cp)
+    assert np.array_equal(pt.numpy(), np.asarray(rt))
+    assert np.array_equal(pu.numpy(), np.asarray(ru))
+    assert pt.dtype == torch.int32 and pu.dtype == torch.int32
+
+
+def test_plain_batched_scan_needs_rows():
+    reqs = _jax_requests(MIXED)
+    init, steps, statics, _ = _port_inputs(reqs)
+    empty = [type(t)(*(None if x is None else x[:0] for x in t))
+             for t in (init, steps, statics)]
+    with pytest.raises(ValueError, match="no problem rows"):
+        tffd.ffd_solve_batched(*empty)
+
+
+# ---------------------------------------------------------------------------
+# solve_batch against the JAX package's
+
+
+def _members(case):
+    if case == "mixed":
+        return [(n, *_problem(n, k, c)) for n, k, c in MIXED]
+    if case == "split":
+        return [("pt", *_problem("pt", 18, spread=True)),
+                ("pp", *_problem("pp", 18))]
+    return [("one", *_problem("one", 16))]
+
+
+def _jax_sched(name, pool, cls=jprov.DeviceScheduler):
+    return cls([pool], {name: list(_catalog())}, max_slots=64)
+
+
+def _port_sched(name, pool, backend="reference", cls=tprov.DeviceScheduler):
+    pools, its = interop.from_reference(([pool], {name: list(_catalog())}))
+    return cls(pools, its, max_slots=64, device="cpu",
+               kernel_backend=backend)
+
+
+def _both(members, backends=None, jax_cls=None, port_cls=None):
+    """The same members through the JAX solve_batch and the port's, with
+    the hostname counters aligned; returns (jax, port) (outcomes, stats)."""
+    k = len(members)
+    backends = backends or ["reference"] * k
+    jax_cls = jax_cls or [jprov.DeviceScheduler] * k
+    port_cls = port_cls or [tprov.DeviceScheduler] * k
+    j_entries = [
+        (_jax_sched(n, pool, jc), copy.deepcopy(pods))
+        for (n, pool, pods), jc in zip(members, jax_cls)
+    ]
+    p_entries = [
+        (_port_sched(n, pool, be, pc), interop.from_reference(pods))
+        for (n, pool, pods), be, pc in zip(members, backends, port_cls)
+    ]
+    _align_hostnames()
+    j = jprov.solve_batch(j_entries)
+    p = tprov.solve_batch(p_entries)
+    return j, p
+
+
+def _assert_same_outcomes(j_out, p_out):
+    assert [s for s, _ in p_out] == [s for s, _ in j_out]
+    for (js, jr), (ps, pr) in zip(j_out, p_out):
+        if js == "ok":
+            assert _wire(to_reference(pr)) == _wire(jr)
+        else:
+            assert type(pr).__name__ == type(jr).__name__
+            assert str(pr) == str(jr)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+@pytest.mark.parametrize("case", ["mixed", "split", "one"])
+def test_solve_batch_wire_and_stats_identical(case, backend):
+    members = _members(case)
+    (j_out, j_stats), (p_out, p_stats) = _both(
+        members, backends=[backend] * len(members))
+    assert all(s == "ok" for s, _ in p_out), p_out
+    _assert_same_outcomes(j_out, p_out)
+    assert p_stats == j_stats
+    if case == "mixed":
+        assert p_stats["batched_dispatches"] == 1
+        assert p_stats["padded_rows"] == 1
+    if case == "one":
+        assert p_stats["batched_dispatches"] == 0
+
+
+def test_distinct_scheduler_instances_required():
+    name, pool, pods = _members("one")[0]
+    sched = _port_sched(name, pool)
+    pods = interop.from_reference(pods)
+    with pytest.raises(ValueError, match="distinct"):
+        tprov.solve_batch([(sched, list(pods)), (sched, list(pods))])
+
+
+class _JaxPoisoned(jprov.DeviceScheduler):
+    def _class_steps(self, prep):
+        raise RuntimeError("poisoned problem")
+
+
+class _PortPoisoned(tprov.DeviceScheduler):
+    def _class_steps(self, prep):
+        raise RuntimeError("poisoned problem")
+
+
+def test_poisoned_member_fails_alone():
+    members = [(n, *_problem(n, 20)) for n in ("ia", "ix", "ib")]
+    jax_cls = [jprov.DeviceScheduler, _JaxPoisoned, jprov.DeviceScheduler]
+    port_cls = [tprov.DeviceScheduler, _PortPoisoned, tprov.DeviceScheduler]
+    (j_out, j_stats), (p_out, p_stats) = _both(
+        members, jax_cls=jax_cls, port_cls=port_cls)
+    assert [s for s, _ in p_out] == ["ok", "error", "ok"]
+    assert "poisoned problem" in repr(p_out[1][1])
+    _assert_same_outcomes(j_out, p_out)
+    assert p_stats == j_stats
+
+
+def test_failed_batched_dispatch_retries_each_member_solo(monkeypatch):
+    """A batched scan that raises is retried per member through the solo
+    path inside the same call; every member still matches the JAX
+    package's answer."""
+    def broken(*args, **kwargs):
+        raise RuntimeError("batched scan failed")
+
+    monkeypatch.setattr(cuda_ffd, "cuda_ffd_solve_batched", broken)
+    members = _members("mixed")
+    (j_out, _), (p_out, p_stats) = _both(
+        members, backends=["cuda"] * len(members))
+    _assert_same_outcomes(j_out, p_out)
+    assert p_stats["batched_dispatches"] == 0
+    assert p_stats["dispatches"] == 1 + len(members)
+
+
+def test_cuda_and_reference_members_never_coalesce():
+    """Two "cuda" and two "reference" problems of identical shapes split
+    into two batched dispatches, and every member's wire still equals the
+    JAX package's."""
+    members = [(n, *_problem(n, 20)) for n in ("bca", "bcb", "bra", "brb")]
+    (j_out, j_stats), (p_out, p_stats) = _both(
+        members, backends=["cuda", "cuda", "reference", "reference"])
+    assert j_stats["batched_dispatches"] == 1
+    assert p_stats["batched_dispatches"] == 2
+    assert p_stats["batched_problems"] == 4
+    _assert_same_outcomes(j_out, p_out)
+
+
+def _port_request(backend="cuda"):
+    name, pool, pods = _members("one")[0]
+    gen = _port_sched(name, pool, backend)._solve_gen(
+        interop.from_reference(pods))
+    req = gen.send(None)
+    gen.close()
+    return req
+
+
+def test_shape_key_splits_on_backend_and_device():
+    req = _port_request()
+    assert req.shape_key() == _port_request().shape_key()
+    assert (dataclasses.replace(req, backend="reference").shape_key()
+            != req.shape_key())
+    meta = dataclasses.replace(
+        req, init_state=tffd.SlotState(*(x.to("meta")
+                                          for x in req.init_state)))
+    assert meta.shape_key() != req.shape_key()
+    assert req.kind == "solve" and req.mode == "ffd" and req.devices == 1
+
+
+@pytest.mark.parametrize("change,item", [
+    (dict(kind="preempt"), "A.8"),
+    (dict(kind="relax", mode="relax"), "A.9"),
+    (dict(mode="relax"), "A.9"),
+    (dict(devices=2), "A.13"),
+])
+def test_later_dispatch_kinds_raise(change, item):
+    req = dataclasses.replace(_port_request(), **change)
+    with pytest.raises(NotImplementedError, match=item):
+        tprov._run_kernel_batched([req, req])
+    with pytest.raises(NotImplementedError, match=item):
+        tprov._run_kernel_solo(req)
+
+
+# ---------------------------------------------------------------------------
+# the batched kernel wrapper
+
+
+def _wrapper_inputs():
+    reqs = _jax_requests(MIXED)
+    reqs = reqs + [reqs[0]]  # a pad row, as _run_kernel_batched makes
+    init, steps, statics, _ = _port_inputs(reqs)
+    return init, steps, statics, reqs[0].level_iters
+
+
+def test_batched_wrapper_takes_plain_version_on_cpu():
+    init, steps, statics, li = _wrapper_inputs()
+    launches, rows = dict(cuda_ffd.counter.launches), cuda_ffd.counter.rows
+    k = cuda_ffd.cuda_ffd_solve_batched(init, steps, statics, li)
+    p = tffd.ffd_solve_batched(init, steps, statics, li)
+    assert cuda_ffd.counter.launches == launches
+    assert cuda_ffd.counter.rows == rows
+    for a, b in zip(list(k[0]) + [k[1], k[2]], list(p[0]) + [p[1], p[2]]):
+        assert torch.equal(a, b)
+
+
+def test_batched_wrapper_rejects_other_devices():
+    init, steps, statics, li = _wrapper_inputs()
+    meta = tffd.SlotState(*(x.to("meta") for x in init))
+    with pytest.raises(ValueError, match="device"):
+        cuda_ffd.cuda_ffd_solve_batched(meta, steps, statics, li)
+
+
+def _no_plain(*args, **kwargs):
+    raise AssertionError("the card path ran the plain version")
+
+
+def _forbid_plain(monkeypatch):
+    for name in ("ffd_solve", "ffd_solve_batched", "ffd_step"):
+        monkeypatch.setattr(cuda_ffd.ffd_ops, name, _no_plain)
+
+
+def test_batched_card_path_with_no_steps_launches_nothing(monkeypatch):
+    init, steps, statics, li = _wrapper_inputs()
+    empty = type(steps)(*(None if x is None else x[:, :0] for x in steps))
+    _forbid_plain(monkeypatch)
+    monkeypatch.setattr(cuda_ffd, "build", _no_plain)
+    launches, rows = dict(cuda_ffd.counter.launches), cuda_ffd.counter.rows
+    state, takes, unplaced = cuda_ffd._launch_batched(init, empty, statics,
+                                                      li)
+    B, N = init.kind.shape
+    assert takes.shape == (B, 0, N) and takes.dtype == torch.int32
+    assert unplaced.shape == (B, 0) and unplaced.dtype == torch.int32
+    assert state is init
+    assert cuda_ffd.counter.launches == launches
+    assert cuda_ffd.counter.rows == rows
+
+
+def test_batched_card_path_needs_rows(monkeypatch):
+    init, steps, statics, li = _wrapper_inputs()
+    monkeypatch.setattr(cuda_ffd, "build", _no_plain)
+    empty = [type(t)(*(None if x is None else x[:0] for x in t))
+             for t in (init, steps, statics)]
+    with pytest.raises(ValueError, match="problem rows"):
+        cuda_ffd._launch_batched(*empty, li)
+
+
+class _FakeLib:
+    """The kernel library's C surface, recording each launch."""
+
+    def __init__(self):
+        self.calls = []
+        for name in cuda_ffd.KERNELS:
+            setattr(self, f"launch_{name}", self._entry(name))
+
+    def _entry(self, name):
+        def launch(args_ref, j, stream):
+            args = args_ref._obj
+            self.calls.append((name, j, args.B, args.J, args.valmask,
+                               args.takes))
+            return 0
+        return launch
+
+    @staticmethod
+    def ffd_prologue_smem(K, V, Gh, Gz):
+        return 0
+
+    @staticmethod
+    def ffd_error_string(rc):
+        return b"fake"
+
+
+def test_batched_card_path_launches_each_kernel_once_per_step(monkeypatch):
+    """With the library mocked, one batched scan of B problems and J steps
+    makes J launches of each kernel (not J x B), counts B rows, hands the
+    kernels the stacked tensors, and never runs the plain version."""
+    init, steps, statics, li = _wrapper_inputs()
+    B, J = steps.count.shape
+    lib = _FakeLib()
+    _forbid_plain(monkeypatch)
+    monkeypatch.setattr(cuda_ffd, "build", lambda: lib)
+    monkeypatch.setattr(cuda_ffd, "_device_stream",
+                        lambda dev: contextlib.nullcontext(None))
+    cuda_ffd.counter.reset()
+    _, takes, unplaced = cuda_ffd._launch_batched(init, steps, statics, li)
+    assert cuda_ffd.counter.launches == dict.fromkeys(cuda_ffd.KERNELS, J)
+    assert cuda_ffd.counter.rows == B == 4
+    assert [c[:2] for c in lib.calls] == [
+        (name, j) for j in range(J) for name in cuda_ffd.KERNELS]
+    assert {c[2:] for c in lib.calls} == {
+        (B, J, init.valmask.data_ptr(), takes.data_ptr())}
+    assert takes.shape == (B, J, init.kind.shape[1])
+    assert unplaced.shape == (B, J)
+    cuda_ffd.counter.reset()
+
+
+def test_solo_card_path_is_the_batched_kernel_at_one_row(monkeypatch):
+    init, steps, statics, li = _wrapper_inputs()
+    row = [tffd._row(t, 0) for t in (init, steps, statics)]
+    J = row[1].count.shape[0]
+    lib = _FakeLib()
+    _forbid_plain(monkeypatch)
+    monkeypatch.setattr(cuda_ffd, "build", lambda: lib)
+    monkeypatch.setattr(cuda_ffd, "_device_stream",
+                        lambda dev: contextlib.nullcontext(None))
+    cuda_ffd.counter.reset()
+    state, takes, unplaced = cuda_ffd._launch(*row, li)
+    assert cuda_ffd.counter.launches == dict.fromkeys(cuda_ffd.KERNELS, J)
+    assert cuda_ffd.counter.rows == 1
+    assert {c[2:4] for c in lib.calls} == {(1, J)}
+    assert takes.shape == (J, row[0].kind.shape[0]) and unplaced.shape == (J,)
+    for a, b in zip(state, row[0]):  # a copy, untouched by the fake
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    cuda_ffd.counter.reset()
+
+
+def test_batched_wrapper_calls_plain_version_only_for_cpu_tensors():
+    """In ops/cuda_ffd.py the plain batched scan is reached from one place:
+    the ``dev.type == "cpu"`` branch of ``cuda_ffd_solve_batched``."""
+    tree = ast.parse(Path(cuda_ffd.__file__).read_text())
+    uses = [n for n in ast.walk(tree)
+            if isinstance(n, ast.Attribute) and n.attr == "ffd_solve_batched"]
+    assert len(uses) == 1
+    (fn,) = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+             and n.name == "cuda_ffd_solve_batched"]
+    cpu_branch = [n for n in ast.walk(fn) if isinstance(n, ast.If)
+                  and "cpu" in ast.unparse(n.test)]
+    assert len(cpu_branch) == 1
+    assert uses[0] in list(ast.walk(cpu_branch[0]))
+
+
+def test_args_struct_matches_the_kernel_source():
+    """The C struct FfdArgs and the wrapper's ctypes mirror list the same
+    fields in the same order (ffd_args_size() checks the sizes on the
+    card)."""
+    src = cuda_ffd.SOURCE.read_text()
+    body = re.search(r"struct FfdArgs \{(.*?)\n\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names, pointers = [], 0
+    for stmt in filter(None, (s.strip() for s in body.split(";"))):
+        pointers += "*" in stmt
+        decl = re.sub(r"^(?:const\s+)?\w+\s*\*?\s*", "", stmt)
+        names += [n.strip() for n in decl.split(",")]
+    assert names == list(cuda_ffd._POINTERS + cuda_ffd._DIMS)
+    assert pointers == len(cuda_ffd._POINTERS)
+    assert len(cuda_ffd._DIMS) % 2 == 0  # no tail padding to disagree on
+
+
+def test_problem_axis_is_in_every_grid():
+    src = cuda_ffd.SOURCE.read_text()
+    assert "k_prologue<<<a.B," in src and "k_decide<<<a.B," in src
+    assert "k_feasible<<<warp_grid(a)," in src
+    assert "k_merge<<<warp_grid(a)," in src
+    assert re.search(r"return dim3\([^;]*, a\.B\);", src)
+    for kernel, axis in (("k_prologue", "x"), ("k_feasible", "y"),
+                         ("k_decide", "x"), ("k_merge", "y")):
+        assert (f"__global__ void {kernel}(FfdArgs args, int j) {{\n"
+                f"  const FfdArgs a = problem(args, blockIdx.{axis});") in src
