@@ -35,25 +35,34 @@ on failure:
    to the solo kernel scan of its request, and each pad row equal to row
    0; times the batched scan, the same requests' solo scans one after
    another, and the plain batched scan;
-6. batched main path: ``solve_batch`` over the 11 tenants, one cold round
-   and three warm, with the plain step made to raise. Every tenant's node
-   count must be the JAX package's (``FLEET_EXPECTED_NODES``) and its
-   result the same as the tenant solved alone through the kernel and
-   through the plain version; the cold round must batch at least 8
-   problems in one dispatch; no batched dispatch may fail (so none is
-   retried solo); each kernel's launches must grow by the scans' steps and
-   the problem rows counted by their rows; the verifier's rejection
-   counter must not move. Times each round, the tenants solved one after
-   another, and the device idle share of a profiled warm round.
+6. batched main path: ``solve_batch`` over the 11 tenants, one cold round,
+   three warm and a warm one with the garbage collector off, with the
+   plain step made to raise. Every tenant's node count must be the JAX
+   package's (``FLEET_EXPECTED_NODES``) and its result the same as the
+   tenant solved alone through the kernel and through the plain version;
+   the cold round must batch at least 8 problems in one dispatch; no
+   batched dispatch may fail (so none is retried solo); each kernel's
+   launches must grow by the scans' steps and the problem rows counted by
+   their rows; the verifier's rejection counter must not move. The last
+   round's batched scans, at the slot widths every warm round ran at, are
+   then held bit-equal to the plain batched scan, row by row to the solo
+   kernel, and pad rows to row 0. Times each round and splits its wall
+   (the tenants' phase timers, the time inside their solve generators,
+   the dispatches, the shape keys, the garbage collector's passes), times
+   the tenants solved one after another, and the device idle share of a
+   profiled warm round. The last round's results are freed, and the heap
+   collected, before each timed round or pass starts.
 
 It prints a sha256 digest of the sources it runs (``source_digest``), a
 ``{"kernels": [...]}`` line, the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. The problems are
-built here, from a fixed recipe (no randomness).
+built here, from a fixed recipe (no randomness). ``fleet_expected.py``
+computes ``FLEET_EXPECTED_NODES`` with the JAX package on the CPU.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import statistics
@@ -362,7 +371,7 @@ def fleet():
 FLEET_TYPES, FLEET_SLOTS = 400, 2048
 # the JAX package's node count for each fleet tenant (its DeviceScheduler,
 # xla backend, each tenant solved alone and all 11 through its solve_batch,
-# on the CPU)
+# on the CPU): ``JAX_PLATFORMS=cpu python3 fleet_expected.py`` prints them
 FLEET_EXPECTED_NODES = {
     "fleet-plain-0": 171, "fleet-plain-1": 168, "fleet-plain-2": 164,
     "fleet-plain-3": 161, "fleet-plain-4": 157, "fleet-plain-5": 154,
@@ -405,20 +414,18 @@ def plain_forbidden():
 
 def hold_bit_equal(req, what):
     """Run one request's scan through the kernel and the plain version on
-    the card; raise unless every plane is bit-equal. Returns the planes'
-    largest absolute difference (0.0)."""
-    import torch
-
+    the card; raise unless every plane is bit-equal. Returns (the planes'
+    largest absolute difference (0.0), plain scan ms)."""
     from karpenter_core_tpu_torch.ops import cuda_ffd, ffd
 
     args = (req.init_state, req.steps, req.statics, req.level_iters)
     kp = _planes(*cuda_ffd.cuda_ffd_solve(*args))
-    pp = _planes(*ffd.ffd_solve(*args))
-    torch.cuda.synchronize()
+    p_out, plain_ms = _time_once(lambda: ffd.ffd_solve(*args))
+    pp = _planes(*p_out)
     bad = {k: n for k in kp if (n := _unequal(kp[k], pp[k]))}
     if bad:
         raise AssertionError(f"{what}: kernel != plain on {bad}")
-    return max(_max_abs_err(kp[k], pp[k]) for k in kp)
+    return max(_max_abs_err(kp[k], pp[k]) for k in kp), plain_ms
 
 
 def _planes(state, takes, unplaced):
@@ -518,7 +525,7 @@ def kernel_phase():
     """Kernel vs plain version on the port's prepared inputs."""
     import torch
 
-    from karpenter_core_tpu_torch.ops import cuda_ffd, ffd
+    from karpenter_core_tpu_torch.ops import cuda_ffd
 
     rows = []
     for name in ("plain_50k_800", "topology_5k_400"):
@@ -526,13 +533,13 @@ def kernel_phase():
         req = first_request(scheduler(n_types, max_slots, "reference"),
                             make())
         args = (req.init_state, req.steps, req.statics, req.level_iters)
-        err = hold_bit_equal(req, name)
+        # the plain scan is timed once, by CUDA events, in this check
+        err, plain_ms = hold_bit_equal(req, name)
         k_out = cuda_ffd.cuda_ffd_solve(*args)
         J = req.steps.count.shape[0]
         N, K, V = req.init_state.valmask.shape
         T = req.init_state.itmask.shape[1]
         ms = _time_ms(lambda: cuda_ffd.cuda_ffd_solve(*args), 10)
-        plain_ms = _time_ms(lambda: ffd.ffd_solve(*args), 2)
         bound_ms, bound_by = _bound(req, *k_out)
         stages = _stage_profile(lambda: cuda_ffd.cuda_ffd_solve(*args), J)
         rows.append(dict(
@@ -756,6 +763,38 @@ def fleet_groups(reqs):
     return list(groups.values())
 
 
+def hold_batched_bit_equal(state, steps, statics, li, names):
+    """Run a stacked scan through the batched kernel (on a copy of the
+    state, which it updates in place) and through the plain batched scan on
+    the card; raise unless every plane is bit-equal, row b is bit-equal to
+    the solo kernel's scan of row b for each member ``names[b]``, and each
+    pad row past the members equals row 0. Returns (kernel outputs, the
+    planes' largest absolute difference (0.0), plain scan ms)."""
+    from karpenter_core_tpu_torch.ops import cuda_ffd, ffd
+    from karpenter_core_tpu_torch.ops.ffd import _row
+
+    k_out = cuda_ffd.cuda_ffd_solve_batched(_copy(state), steps, statics, li)
+    kb = _planes(*k_out)
+    p_out, plain_ms = _time_once(
+        lambda: ffd.ffd_solve_batched(state, steps, statics, li))
+    pb = _planes(*p_out)
+    bad = {k: n for k in kb if (n := _unequal(kb[k], pb[k]))}
+    if bad:
+        raise AssertionError(f"{names}: batched kernel != plain on {bad}")
+    err = max(_max_abs_err(kb[k], pb[k]) for k in kb)
+    for b, name in enumerate(names):
+        sp = _planes(*cuda_ffd.cuda_ffd_solve(
+            _row(state, b), _row(steps, b), _row(statics, b), li))
+        bad = {k: n for k in sp if (n := _unequal(kb[k][b], sp[k]))}
+        if bad:
+            raise AssertionError(f"{name}: batched row != solo kernel on {bad}")
+    for b in range(len(names), int(state.kind.shape[0])):
+        bad = {k: n for k in kb if (n := _unequal(kb[k][b], kb[k][0]))}
+        if bad:
+            raise AssertionError(f"pad row {b} != row 0 on {bad}")
+    return k_out, err, plain_ms
+
+
 def batched_kernel_phase():
     """The batched kernel on the fleet batch's stacked requests, held
     bit-equal to the plain batched scan, row by row to the solo kernel, and
@@ -765,7 +804,7 @@ def batched_kernel_phase():
         _bucket,
         _stack_trees,
     )
-    from karpenter_core_tpu_torch.ops import cuda_ffd, ffd
+    from karpenter_core_tpu_torch.ops import cuda_ffd
 
     reqs = {name: first_request(fleet_scheduler(name, "reference"), make())
             for name, (make, _n) in fleet().items()}
@@ -786,26 +825,8 @@ def batched_kernel_phase():
             return cuda_ffd.cuda_ffd_solve_batched(_copy(state), steps,
                                                    statics, li)
 
-        k_out = batched()
-        kb = _planes(*k_out)
-        p_out, plain_ms = _time_once(
-            lambda: ffd.ffd_solve_batched(state, steps, statics, li))
-        pb = _planes(*p_out)
-        bad = {k: n for k in kb if (n := _unequal(kb[k], pb[k]))}
-        if bad:
-            raise AssertionError(f"{names}: batched kernel != plain on {bad}")
-        err = max(_max_abs_err(kb[k], pb[k]) for k in kb)
-        for b, r in enumerate(rs):
-            sp = _planes(*cuda_ffd.cuda_ffd_solve(r.init_state, r.steps,
-                                                  r.statics, li))
-            bad = {k: n for k in sp if (n := _unequal(kb[k][b], sp[k]))}
-            if bad:
-                raise AssertionError(
-                    f"{names[b]}: batched row != solo kernel on {bad}")
-        for b in range(B, Bp):
-            bad = {k: n for k in kb if (n := _unequal(kb[k][b], kb[k][0]))}
-            if bad:
-                raise AssertionError(f"pad row {b} != row 0 on {bad}")
+        k_out, err, plain_ms = hold_batched_bit_equal(state, steps, statics,
+                                                      li, names)
         ms = _time_ms(batched, 10)
         solo_ms = _time_ms(
             lambda: [cuda_ffd.cuda_ffd_solve(r.init_state, r.steps,
@@ -830,55 +851,133 @@ def batched_kernel_phase():
 
 @contextlib.contextmanager
 def dispatch_spy():
-    """Record the scan dispatches solve_batch makes: batched ones (and
-    whether one raised), solo ones, and the (rows, steps) of each scan the
-    kernel wrappers take. Calls straight through and counts no launch."""
+    """Record what solve_batch does: its batched dispatches (and whether
+    one raised), its solo ones, the (rows, steps) of each scan the kernel
+    wrappers take, and the seconds spent in the dispatches, in the shape
+    keys and in the garbage collector's passes (``gc.callbacks``), with the
+    passes counted by generation. While ``log["capture"]`` is true, each
+    batched scan's inputs are kept, its state copied before the kernel
+    updates it, with the names the requests were tagged with
+    (``_instrument``). Calls straight through and counts no launch."""
     from karpenter_core_tpu_torch.models import provisioner as prov
     from karpenter_core_tpu_torch.ops import cuda_ffd
 
-    log = dict(batched=0, batched_failed=0, solo=0, scans=[], padded=[])
+    log = dict(batched=0, batched_failed=0, solo=0, scans=[], padded=[],
+               dispatch_s=0.0, key_s=0.0, gen_s=0.0, gc_s=0.0,
+               gc_passes=[0, 0, 0], capture=False, captured=[], names=None)
     run_b, run_1 = prov._run_kernel_batched, prov._run_kernel_solo
     scan_b, scan_1 = cuda_ffd.cuda_ffd_solve_batched, cuda_ffd.cuda_ffd_solve
+    key = prov._KernelRequest.shape_key
+    gc_t0 = [0.0]
 
     def batched(reqs):
         log["batched"] += 1
+        log["names"] = [getattr(r, "tenant", None) for r in reqs]
+        t0 = time.perf_counter()
         try:
             outs, padded = run_b(reqs)
         except Exception:
             log["batched_failed"] += 1
             raise
+        finally:
+            log["dispatch_s"] += time.perf_counter() - t0
         log["padded"].append(padded)
         return outs, padded
 
     def solo(req):
         log["solo"] += 1
-        return run_1(req)
+        t0 = time.perf_counter()
+        try:
+            return run_1(req)
+        finally:
+            log["dispatch_s"] += time.perf_counter() - t0
 
-    def kernel_b(state, steps, *args, **kwargs):
+    def kernel_b(state, steps, statics, level_iters):
         log["scans"].append((int(state.kind.shape[0]),
                              int(steps.count.shape[1])))
-        return scan_b(state, steps, *args, **kwargs)
+        if log["capture"]:
+            log["captured"].append((log["names"], _copy(state), steps,
+                                    statics, level_iters))
+        return scan_b(state, steps, statics, level_iters)
 
     def kernel_1(state, steps, *args, **kwargs):
         log["scans"].append((1, int(steps.count.shape[0])))
         return scan_1(state, steps, *args, **kwargs)
 
+    def shape_key(req):
+        t0 = time.perf_counter()
+        try:
+            return key(req)
+        finally:
+            log["key_s"] += time.perf_counter() - t0
+
+    def gc_pass(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            log["gc_s"] += time.perf_counter() - gc_t0[0]
+            log["gc_passes"][info["generation"]] += 1
+
     prov._run_kernel_batched, prov._run_kernel_solo = batched, solo
     cuda_ffd.cuda_ffd_solve_batched, cuda_ffd.cuda_ffd_solve = (
         kernel_b, kernel_1)
+    prov._KernelRequest.shape_key = shape_key
+    gc.callbacks.append(gc_pass)
     try:
         yield log
     finally:
+        gc.callbacks.remove(gc_pass)
+        prov._KernelRequest.shape_key = key
         prov._run_kernel_batched, prov._run_kernel_solo = run_b, run_1
         cuda_ffd.cuda_ffd_solve_batched, cuda_ffd.cuda_ffd_solve = (
             scan_b, scan_1)
 
 
+def _instrument(sched, name, log):
+    """Wrap a scheduler's solve generator: tag each kernel request it
+    yields with the tenant's name, and add the seconds spent inside the
+    generator (its host phases and everything between them) to
+    ``log["gen_s"]``."""
+    solve_gen = sched._solve_gen
+
+    def gen(pods):
+        inner = solve_gen(pods)
+        step, arg = inner.send, None
+        while True:
+            t0 = time.perf_counter()
+            try:
+                req = step(arg)
+            except StopIteration as stop:
+                return stop.value
+            finally:
+                log["gen_s"] += time.perf_counter() - t0
+            req.tenant = name
+            try:
+                step, arg = inner.send, (yield req)
+            except Exception as e:  # a failed dispatch, thrown in
+                step, arg = inner.throw, e
+
+    sched._solve_gen = gen
+
+
+def _split(log, before):
+    """The seconds and garbage collector passes that ``log`` gained since
+    the copy ``before``."""
+    out = {k: log[k] - before[k]
+           for k in ("gen_s", "dispatch_s", "key_s", "gc_s")}
+    out["gc_passes"] = [a - b for a, b in zip(log["gc_passes"],
+                                              before["gc_passes"])]
+    return out
+
+
 def batched_main_path_phase():
-    """``solve_batch`` over the fleet's 11 tenants on the card: one cold and
-    three warm rounds, held to the JAX package's node counts and to each
-    tenant solved alone through the kernel and through the plain version,
-    with every launch and problem row accounted for and no solo retry."""
+    """``solve_batch`` over the fleet's 11 tenants on the card: one cold,
+    three warm rounds and a warm round with the garbage collector off, held
+    to the JAX package's node counts and to each tenant solved alone
+    through the kernel and through the plain version, with every launch and
+    problem row accounted for and no solo retry; then the last round's
+    batched scans held bit-equal to the plain batched scan at the warm
+    slot widths."""
     import torch
 
     from karpenter_core_tpu_torch.metrics import wiring as m
@@ -888,129 +987,202 @@ def batched_main_path_phase():
     tenants = fleet()
     total_pods = sum(n for _make, n in tenants.values())
     rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+    with dispatch_spy() as log:
+        # the tenants solved alone, one after another, through the kernel:
+        # a cold pass and a warm one before the batched rounds, two warm
+        # passes after them
+        alone = {n: fleet_scheduler(n) for n in tenants}
+        expected = {}
 
-    # the tenants solved alone, one after another, through the kernel: a
-    # cold pass, then timed warm passes before and after the batched rounds
-    alone = {n: fleet_scheduler(n) for n in tenants}
-    expected = {}
+        def one_by_one():
+            pods = {n: make() for n, (make, _k) in tenants.items()}
+            gc.collect()  # each timed window starts from a collected heap
+            before = {k: (list(v) if isinstance(v, list) else v)
+                      for k, v in log.items()}
+            with plain_forbidden():
+                t0 = time.perf_counter()
+                res = {n: alone[n].solve(pods[n]) for n in tenants}
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            for n, r in res.items():
+                expected.setdefault(n, _canonical(r))
+                if _canonical(r) != expected[n] or r.pod_errors:
+                    raise AssertionError(f"{n}: a warm solve alone changed")
+            phases = _phase_sums(alone.values())
+            split = _split(log, before)
+            return dict(wall_s=wall, phases=phases,
+                        outside_s=wall - sum(phases.values()),
+                        gc_s=split["gc_s"], gc_passes=split["gc_passes"])
 
-    def one_by_one():
-        pods = {n: make() for n, (make, _k) in tenants.items()}
+        seq = [one_by_one() for _ in range(2)]
+        # and through the plain version
+        for n, (make, _k) in tenants.items():
+            ref = fleet_scheduler(n, "reference").solve(make())
+            if _canonical(ref) != expected[n]:
+                raise AssertionError(f"{n}: cuda result != reference result")
+
+        scheds = [fleet_scheduler(n) for n in tenants]
+        for sched, n in zip(scheds, tenants):
+            _instrument(sched, n, log)
+        rounds = []
+        outcomes = res = pods = None
+        cuda_ffd.counter.reset()
         with plain_forbidden():
-            t0 = time.perf_counter()
-            res = {n: alone[n].solve(pods[n]) for n in tenants}
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        for n, r in res.items():
-            expected.setdefault(n, _canonical(r))
-            if _canonical(r) != expected[n] or r.pod_errors:
-                raise AssertionError(f"{n}: a warm solve alone changed")
-        return wall, _phase_sums(alone.values())
+            # one cold round, three warm, and a warm round with the garbage
+            # collector off, whose batched scans are kept for the check below
+            for rnd in range(5):
+                t1 = time.perf_counter()
+                outcomes = res = pods = None  # the last round's, freed here
+                freed_s = time.perf_counter() - t1
+                pods = [make() for make, _k in tenants.values()]
+                gc.collect()
+                log["capture"] = rnd == 4
+                before = {k: (list(v) if isinstance(v, list) else v)
+                          for k, v in log.items()}
+                launches0, rows0 = (dict(cuda_ffd.counter.launches),
+                                    cuda_ffd.counter.rows)
+                if rnd == 4:
+                    gc.disable()
+                try:
+                    t0 = time.perf_counter()
+                    outcomes, stats = solve_batch(list(zip(scheds, pods)))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                finally:
+                    gc.enable()
+                log["capture"] = False
+                for n, (status, res) in zip(tenants, outcomes):
+                    if status != "ok":
+                        raise AssertionError(f"round {rnd} {n}: {res!r}")
+                    if res.pod_errors:
+                        raise AssertionError(f"round {rnd} {n}:"
+                                             f" {len(res.pod_errors)} pod"
+                                             " errors")
+                    if res.node_count() != FLEET_EXPECTED_NODES[n]:
+                        raise AssertionError(
+                            f"round {rnd} {n}: {res.node_count()} nodes,"
+                            f" expected {FLEET_EXPECTED_NODES[n]}")
+                    if _canonical(res) != expected[n]:
+                        raise AssertionError(
+                            f"round {rnd} {n}: batched result != the tenant"
+                            " solved alone")
+                scans = log["scans"][len(before["scans"]):]
+                n_batched = log["batched"] - before["batched"]
+                n_solo = log["solo"] - before["solo"]
+                padded = log["padded"][len(before["padded"]):]
+                if log["batched_failed"]:
+                    raise AssertionError("a batched dispatch failed and was"
+                                         " retried solo")
+                if (stats["dispatches"] != n_batched + n_solo
+                        or stats["batched_dispatches"] != n_batched
+                        or stats["padded_total_rows"] != sum(padded)):
+                    raise AssertionError(f"round {rnd}: stats {stats} against"
+                                         f" {n_batched} batched and {n_solo}"
+                                         " solo dispatches")
+                if rnd == 0 and (stats["batched_dispatches"] < 1
+                                 or stats["batched_problems"] < 8):
+                    raise AssertionError(
+                        f"cold round batched too little: {stats}")
+                grew = {k: v - launches0[k]
+                        for k, v in cuda_ffd.counter.launches.items()}
+                steps = sum(j for _b, j in scans)
+                if set(grew.values()) != {steps} or steps <= 0:
+                    raise AssertionError(f"round {rnd}: launches {grew}, the"
+                                         f" scans had {steps} steps")
+                rows = cuda_ffd.counter.rows - rows0
+                if rows != sum(b for b, _j in scans):
+                    raise AssertionError(f"round {rnd}: rows counted {rows},"
+                                         f" scans {scans}")
+                if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
+                    raise AssertionError(f"round {rnd}: the verifier"
+                                         " rejected")
+                phases = _phase_sums(scheds)
+                split = _split(log, before)
+                rounds.append(dict(
+                    wall_s=wall, pods_per_s=total_pods / wall, stats=stats,
+                    scans=scans, launches=grew, rows=rows, phases=phases,
+                    outside_s=wall - sum(phases.values()), split=split,
+                    # the wall outside the generators, dispatches and keys
+                    loop_s=(wall - split["gen_s"] - split["dispatch_s"]
+                            - split["key_s"]),
+                    freed_s=freed_s, gc_off=rnd == 4,
+                    slots={n: s.last_phase_stats["slots"]
+                           for n, s in zip(tenants, scheds)},
+                ))
+                kind = ("cold" if rnd == 0 else
+                        "warm, garbage collector off" if rnd == 4 else "warm")
+                print(f"solve_batch round {rnd} ({kind}): {wall:.3f} s,"
+                      f" {total_pods / wall:.0f} pods/s; scans (rows, steps)"
+                      f" {scans}; stats {json.dumps(stats)}; launches"
+                      f" {json.dumps(grew)}; outside the phase timers"
+                      f" {rounds[-1]['outside_s']:.4f} s, split"
+                      f" {json.dumps(split)}, driver loop"
+                      f" {rounds[-1]['loop_s']:.4f} s; the last round's"
+                      f" results freed before the timer in {freed_s:.4f} s;"
+                      " node counts equal the JAX package's; results equal"
+                      " each tenant solved alone; no solo retry; verifier"
+                      " rejections unmoved", flush=True)
+        launches = dict(cuda_ffd.counter.launches)
+        rows_served = cuda_ffd.counter.rows
+        outcomes = res = pods = None
+        seq += [one_by_one() for _ in range(2)]
 
-    seq = [one_by_one() for _ in range(4)]
-    # and through the plain version
-    for n, (make, _k) in tenants.items():
-        ref = fleet_scheduler(n, "reference").solve(make())
-        if _canonical(ref) != expected[n]:
-            raise AssertionError(f"{n}: cuda result != reference result")
+    # the batched kernel against its plain version at the warm rounds'
+    # slot widths, on the inputs the last round's batched scans were given
+    warm_checks = []
+    for names, state, steps, statics, li in log["captured"]:
+        N = int(state.kind.shape[1])
+        off = {n: [r["slots"][n] for r in rounds[1:]] for n in names
+               if any(r["slots"][n] != N for r in rounds[1:])}
+        if off:
+            raise AssertionError(f"{names}: a warm batched scan at {N} slots,"
+                                 f" the warm rounds ran at {off}")
+        _k, err, plain_ms = hold_batched_bit_equal(state, steps, statics, li,
+                                                   names)
+        warm_checks.append(dict(
+            tenants=names, B=len(names), Bp=int(state.kind.shape[0]),
+            J=int(steps.count.shape[1]), N=N, unequal=0, max_abs_err=err,
+            plain_ms=plain_ms))
+        print(f"batched kernel at the warm width [{names[0]}..{names[-1]}]"
+              f" B={len(names)} Bp={warm_checks[-1]['Bp']}"
+              f" J={warm_checks[-1]['J']} N={N} (every warm round's slots):"
+              " 0 unequal elements against the plain batched scan, each row"
+              " equal to its solo kernel scan, pad rows equal to row 0;"
+              f" plain {plain_ms:.1f} ms", flush=True)
+    if not warm_checks:
+        raise AssertionError("the last round made no batched scan")
 
-    scheds = [fleet_scheduler(n) for n in tenants]
-    rounds = []
-    cuda_ffd.counter.reset()
-    with dispatch_spy() as log, plain_forbidden():
-        for rnd in range(4):  # one cold round, three warm
-            pods = [make() for make, _k in tenants.values()]
-            before = (dict(cuda_ffd.counter.launches), cuda_ffd.counter.rows,
-                      len(log["scans"]), log["batched"], log["solo"],
-                      len(log["padded"]))
-            t0 = time.perf_counter()
-            outcomes, stats = solve_batch(list(zip(scheds, pods)))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            for n, (status, res) in zip(tenants, outcomes):
-                if status != "ok":
-                    raise AssertionError(f"round {rnd} {n}: {res!r}")
-                if res.pod_errors:
-                    raise AssertionError(
-                        f"round {rnd} {n}: {len(res.pod_errors)} pod errors")
-                if res.node_count() != FLEET_EXPECTED_NODES[n]:
-                    raise AssertionError(
-                        f"round {rnd} {n}: {res.node_count()} nodes,"
-                        f" expected {FLEET_EXPECTED_NODES[n]}")
-                if _canonical(res) != expected[n]:
-                    raise AssertionError(
-                        f"round {rnd} {n}: batched result != the tenant"
-                        " solved alone")
-            scans = log["scans"][before[2]:]
-            n_batched = log["batched"] - before[3]
-            n_solo = log["solo"] - before[4]
-            padded = log["padded"][before[5]:]
-            if log["batched_failed"]:
-                raise AssertionError("a batched dispatch failed and was"
-                                     " retried solo")
-            if (stats["dispatches"] != n_batched + n_solo
-                    or stats["batched_dispatches"] != n_batched
-                    or stats["padded_total_rows"] != sum(padded)):
-                raise AssertionError(f"round {rnd}: stats {stats} against"
-                                     f" {n_batched} batched and {n_solo}"
-                                     " solo dispatches")
-            if rnd == 0 and (stats["batched_dispatches"] < 1
-                             or stats["batched_problems"] < 8):
-                raise AssertionError(f"cold round batched too little: {stats}")
-            grew = {k: v - before[0][k]
-                    for k, v in cuda_ffd.counter.launches.items()}
-            steps = sum(j for _b, j in scans)
-            if set(grew.values()) != {steps} or steps <= 0:
-                raise AssertionError(f"round {rnd}: launches {grew}, the"
-                                     f" scans had {steps} steps")
-            if cuda_ffd.counter.rows - before[1] != sum(b for b, _j in scans):
-                raise AssertionError(f"round {rnd}: rows counted"
-                                     f" {cuda_ffd.counter.rows - before[1]},"
-                                     f" scans {scans}")
-            if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
-                raise AssertionError(f"round {rnd}: the verifier rejected")
-            rounds.append(dict(
-                wall_s=wall, pods_per_s=total_pods / wall, stats=stats,
-                scans=scans, launches=grew,
-                rows=cuda_ffd.counter.rows - before[1],
-                phases=_phase_sums(scheds),
-            ))
-            print(f"solve_batch round {rnd} ({'cold' if rnd == 0 else 'warm'}):"
-                  f" {wall:.3f} s, {total_pods / wall:.0f} pods/s; scans"
-                  f" (rows, steps) {scans}; stats {json.dumps(stats)};"
-                  f" launches {json.dumps(grew)}; node counts equal the JAX"
-                  " package's; results equal each tenant solved alone;"
-                  " no solo retry; verifier rejections unmoved", flush=True)
-    launches = dict(cuda_ffd.counter.launches)
-    rows_served = cuda_ffd.counter.rows
-    seq += [one_by_one() for _ in range(3)]
     with plain_forbidden():
         pods = [make() for make, _k in tenants.values()]
         idle = _idle_share(lambda: solve_batch(list(zip(scheds, pods))))
-    warm = [r["wall_s"] for r in rounds[1:]]
-    seq_warm = [s[0] for s in seq[1:]]  # 3 passes before, 3 after
+    warm = [r["wall_s"] for r in rounds[1:4]]
+    seq_warm = [s["wall_s"] for s in seq[1:]]  # 1 pass before, 2 after
     out = dict(
         tenants=list(tenants), pods=total_pods,
         nodes=dict(FLEET_EXPECTED_NODES), rounds=rounds,
         cold_s=rounds[0]["wall_s"], warm_s=warm,
         warm_p50_s=statistics.median(warm),
-        one_by_one_cold_s=seq[0][0], one_by_one_warm_s=seq_warm,
+        gc_off_s=rounds[4]["wall_s"],
+        one_by_one=seq, one_by_one_cold_s=seq[0]["wall_s"],
+        one_by_one_warm_s=seq_warm,
         one_by_one_warm_p50_s=statistics.median(seq_warm),
-        one_by_one_phases=seq[-1][1],
         pods_per_s_batched_warm_p50=total_pods / statistics.median(warm),
         pods_per_s_one_by_one_warm_p50=(total_pods
                                         / statistics.median(seq_warm)),
         device_idle_share=idle, launches=launches, rows=rows_served,
+        warm_bit_equal=warm_checks,
     )
     print(f"solve_batch over {len(tenants)} tenants ({total_pods} pods):"
           f" cold {out['cold_s']:.3f} s, warm p50 {out['warm_p50_s']:.3f} s"
-          f" ({out['pods_per_s_batched_warm_p50']:.0f} pods/s), phases of"
-          f" the last round {json.dumps(rounds[-1]['phases'])}; one by one"
-          f" cold {seq[0][0]:.3f} s, warm {json.dumps(seq_warm)} (p50"
-          f" {out['pods_per_s_one_by_one_warm_p50']:.0f} pods/s), phases of"
-          f" the last pass {json.dumps(seq[-1][1])}; device idle share"
-          f" {idle}; launches {json.dumps(launches)}, rows {rows_served}",
-          flush=True)
+          f" ({out['pods_per_s_batched_warm_p50']:.0f} pods/s), garbage"
+          f" collector off {out['gc_off_s']:.3f} s; one by one cold"
+          f" {seq[0]['wall_s']:.3f} s, warm {json.dumps(seq_warm)} (p50"
+          f" {out['pods_per_s_one_by_one_warm_p50']:.0f} pods/s), outside"
+          f" the phase timers {json.dumps([s['outside_s'] for s in seq])} s,"
+          f" garbage collector {json.dumps([s['gc_s'] for s in seq])} s in"
+          f" passes by generation {json.dumps([s['gc_passes'] for s in seq])};"
+          f" device idle share {idle}; launches {json.dumps(launches)}, rows"
+          f" {rows_served}", flush=True)
     return out
 
 
@@ -1057,14 +1229,23 @@ def main() -> int:
           f" {cuda_ffd.SOURCE.relative_to(cuda_ffd.SOURCE.parents[2])} in"
           f" {time.perf_counter() - t0:.2f} s", flush=True)
 
+    def done(phase):
+        print(f"phase {phase} done, {time.perf_counter() - t0:.1f} s since"
+              " the build began", flush=True)
+
+    done(2)
     # 3. kernel against its plain version
     krows = kernel_phase()
+    done(3)
     # 4. the main path
     mrows, launches = main_path_phase()
+    done(4)
     # 5. the batched kernel against its plain version and the solo kernel
     brows = batched_kernel_phase()
+    done(5)
     # 6. the batched main path
     bmain = batched_main_path_phase()
+    done(6)
 
     k50 = krows[0]
     kp = next(r for r in brows if r["tenants"] == FLEET_GROUPS[0])
@@ -1097,13 +1278,15 @@ def main() -> int:
         "launches": sum(bmain["launches"].values()),
         "launches_by_kernel": bmain["launches"],
         "rows": bmain["rows"],
-        "max_abs_err": max(r["max_abs_err"] for r in brows),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in brows + bmain["warm_bit_equal"]),
         "ms": kp["ms"],
         "plain_ms": kp["plain_ms"],
         "bound_ms": kp["bound_ms"],
         "bound_by": kp["bound_by"],
         "library_ms": None,
-        "unequal": sum(r["unequal"] for r in brows),
+        "unequal": sum(r["unequal"]
+                       for r in brows + bmain["warm_bit_equal"]),
         "solo_sum_ms": kp["solo_sum_ms"],
         "ms_per_step": kp["ms_per_step"],
         "groups": brows,
