@@ -9,19 +9,21 @@ It needs a CUDA device and exits non-zero without one. Phases, each fatal
 on failure:
 
 1. device: torch and CUDA versions, the card's name and power limit;
-2. build: compiles the FFD step kernel from csrc/ffd_step.cu;
+2. build: compiles the FFD scan kernel from csrc/ffd_step.cu;
 3. kernel against its plain version on the card, on the tensors the
    port's own prepare hands the scan at the 50k-pod x 800-type plain shape
    and the 5k-pod x 400-type topology shape: every plane of the final slot
-   state, the takes and the unplaced counts must be bit-equal; times the
-   kernel's scan and the plain scan with CUDA events;
+   state, the takes and the unplaced counts must be bit-equal, on the full
+   grid and on a grid forced down to 2 blocks; times the kernel's scan and
+   the plain scan with CUDA events, and splits a step by stage from the
+   kernel's own device clock stamps;
 4. main path: ``DeviceScheduler(device="cuda").solve`` on the three bench
    problems (50k plain pods x 800 types, 5k plain x 400, 5k topology x
    400), one cold solve and three warm ones each, with the plain step
    made to raise if anything calls it. Node counts must be 444, 171 and
-   91 with no pod errors (the JAX package's answers), each of the step's
-   four kernels must be launched on every solve once per padded step of
-   each dispatch, the verifier's rejection counter must not move, and the
+   91 with no pod errors (the JAX package's answers), the scan kernel must
+   be launched once per dispatch of every solve (one launch a scan), the
+   verifier's rejection counter must not move, and the
    result must equal the same solve through the plain version
    (``kernel_backend="reference"``). The scan inputs of a warm solve, at
    the adaptive slot width the warm solves run at, are then held
@@ -33,17 +35,18 @@ on failure:
    each group the batched scan (``cuda_ffd_solve_batched``) must be
    bit-equal to the plain batched scan on every plane, each row bit-equal
    to the solo kernel scan of its request, and each pad row equal to row
-   0; times the batched scan, the same requests' solo scans one after
-   another, and the plain batched scan;
+   0, on the full grid and on 2 blocks; times the batched scan, the same
+   requests' solo scans one after another, and the plain batched scan,
+   and splits a step by stage from the stamps;
 6. batched main path: ``solve_batch`` over the 11 tenants, one cold round,
    three warm and a warm one with the garbage collector off, with the
    plain step made to raise. Every tenant's node count must be the JAX
    package's (``FLEET_EXPECTED_NODES``) and its result the same as the
    tenant solved alone through the kernel and through the plain version;
    the cold round must batch at least 8 problems in one dispatch; no
-   batched dispatch may fail (so none is retried solo); each kernel's
-   launches must grow by the scans' steps and the problem rows counted by
-   their rows; the verifier's rejection counter must not move. The last
+   batched dispatch may fail (so none is retried solo); the kernel's
+   launches must grow by one a scan and the problem rows counted by the
+   scans' rows; the verifier's rejection counter must not move. The last
    round's batched scans, at the slot widths every warm round ran at, are
    then held bit-equal to the plain batched scan, row by row to the solo
    kernel, and pad rows to row 0. Times each round and splits its wall
@@ -412,20 +415,26 @@ def plain_forbidden():
         ffd.ffd_step = saved
 
 
-def hold_bit_equal(req, what):
-    """Run one request's scan through the kernel and the plain version on
-    the card; raise unless every plane is bit-equal. Returns (the planes'
+def hold_bit_equal(req, what, grids=(0,)):
+    """Run one request's scan through the kernel, once for each grid cap in
+    ``grids`` (0: the full grid), and once through the plain version on the
+    card; raise unless every plane is bit-equal. Returns (the planes'
     largest absolute difference (0.0), plain scan ms)."""
     from karpenter_core_tpu_torch.ops import cuda_ffd, ffd
 
     args = (req.init_state, req.steps, req.statics, req.level_iters)
-    kp = _planes(*cuda_ffd.cuda_ffd_solve(*args))
     p_out, plain_ms = _time_once(lambda: ffd.ffd_solve(*args))
     pp = _planes(*p_out)
-    bad = {k: n for k in kp if (n := _unequal(kp[k], pp[k]))}
-    if bad:
-        raise AssertionError(f"{what}: kernel != plain on {bad}")
-    return max(_max_abs_err(kp[k], pp[k]) for k in kp), plain_ms
+    err = 0.0
+    for grid in grids:
+        kp = _planes(*cuda_ffd.cuda_ffd_solve(*args, _max_blocks=grid))
+        bad = {k: n for k in kp if (n := _unequal(kp[k], pp[k]))}
+        if bad:
+            raise AssertionError(f"{what} (grid cap {grid}, blocks"
+                                 f" {cuda_ffd.counter.blocks}): kernel !="
+                                 f" plain on {bad}")
+        err = max(err, max(_max_abs_err(kp[k], pp[k]) for k in kp))
+    return err, plain_ms
 
 
 def _planes(state, takes, unplaced):
@@ -533,27 +542,31 @@ def kernel_phase():
         req = first_request(scheduler(n_types, max_slots, "reference"),
                             make())
         args = (req.init_state, req.steps, req.statics, req.level_iters)
-        # the plain scan is timed once, by CUDA events, in this check
-        err, plain_ms = hold_bit_equal(req, name)
+        # the plain scan is timed once, by CUDA events, in this check; the
+        # kernel runs on the full grid and on 2 blocks
+        err, plain_ms = hold_bit_equal(req, name, grids=(0, 2))
         k_out = cuda_ffd.cuda_ffd_solve(*args)
+        blocks = cuda_ffd.counter.blocks
         J = req.steps.count.shape[0]
         N, K, V = req.init_state.valmask.shape
         T = req.init_state.itmask.shape[1]
         ms = _time_ms(lambda: cuda_ffd.cuda_ffd_solve(*args), 10)
         bound_ms, bound_by = _bound(req, *k_out)
-        stages = _stage_profile(lambda: cuda_ffd.cuda_ffd_solve(*args), J)
+        stages = _stage_stamps(
+            lambda st: cuda_ffd.cuda_ffd_solve(*args, _stamps=st), J)
         rows.append(dict(
-            problem=name, J=J, N=N, T=T, K=K, V=V,
+            problem=name, J=J, N=N, T=T, K=K, V=V, blocks=blocks,
             unequal=0, max_abs_err=err,
             ms=ms, ms_per_step=ms / J, plain_ms=plain_ms,
             plain_ms_per_step=plain_ms / J,
             bound_ms=bound_ms, bound_by=bound_by, stage_us_per_step=stages,
         ))
         print(f"kernel vs plain [{name}] J={J} N={N} T={T} K={K} V={V}:"
-              f" 0 unequal elements; scan {ms:.3f} ms ({ms / J * 1e3:.2f}"
-              f" us/step) vs plain {plain_ms:.1f} ms; bound {bound_ms:.4f}"
-              f" ms ({bound_by}); device us/step by stage"
-              f" {json.dumps(stages)}", flush=True)
+              f" 0 unequal elements on {blocks} blocks and on 2; scan"
+              f" {ms:.3f} ms ({ms / J * 1e3:.2f} us/step) vs plain"
+              f" {plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by});"
+              f" device us/step by stage (stamps) {json.dumps(stages)}",
+              flush=True)
 
     # every constraint family and existing nodes, at small widths
     from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
@@ -573,26 +586,24 @@ def kernel_phase():
     return rows
 
 
-def _stage_profile(fn, steps):
-    """Device microseconds per step of each of the kernel's four stages,
-    from one profiled scan (torch.profiler); None where the profiler
-    recorded no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+STAGES = ("prologue", "feasibility", "decisions", "merge")
 
+
+def _stage_stamps(fn, steps):
+    """Device microseconds per step of each of the scan's four stages, each
+    up to and through the grid barrier that ends it, and of the whole step:
+    means over the steps of one scan, from the device clock (%globaltimer)
+    that the kernel writes into a [J, 5] stamp buffer (``fn(stamps)`` runs
+    the scan)."""
+    import torch
+
+    stamps = torch.zeros((steps, 5), dtype=torch.int64, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for stage in ("k_prologue", "k_feasible", "k_decide", "k_merge"):
-        total = 0.0
-        for evt in prof.key_averages():
-            if stage in evt.key:
-                total += getattr(evt, "device_time_total",
-                                 getattr(evt, "cuda_time_total", 0.0))
-        out[stage] = total / steps if total else None
+    fn(stamps)
+    torch.cuda.synchronize()
+    d = stamps.diff(dim=1).double().mean(0) / 1e3
+    out = {name: float(d[i]) for i, name in enumerate(STAGES)}
+    out["step"] = float((stamps[:, 4] - stamps[:, 0]).double().mean() / 1e3)
     return out
 
 
@@ -667,21 +678,14 @@ def main_path_phase():
                 launches[k] += n
             st = dict(sched.last_phase_stats)
             stats.append(st)
-            jps = {
-                int(b["class_steps"].count.shape[0])
-                for b in sched._batch_cache.values()
-                if b.get("class_steps") is not None
-            }
-            idle_kernels = [k for k, n in grew.items() if n <= 0]
-            if idle_kernels:
+            # one scan, so one launch and one problem row, per dispatch
+            if (grew != dict.fromkeys(cuda_ffd.KERNELS, st["rounds"])
+                    or cuda_ffd.counter.rows != st["rounds"]
+                    or st["rounds"] < 1):
                 raise AssertionError(
-                    f"{name}: solve {rep} never launched {idle_kernels}")
-            if len(jps) == 1:
-                per_kernel = st["rounds"] * jps.pop()
-                if set(grew.values()) != {per_kernel}:
-                    raise AssertionError(
-                        f"{name}: launches {grew} for {st['rounds']}"
-                        f" dispatches of {per_kernel // st['rounds']} steps")
+                    f"{name}: solve {rep} launched {grew} over"
+                    f" {cuda_ffd.counter.rows} rows for {st['rounds']}"
+                    " dispatches")
             if res.pod_errors:
                 raise AssertionError(
                     f"{name}: {len(res.pod_errors)} pod errors")
@@ -763,25 +767,33 @@ def fleet_groups(reqs):
     return list(groups.values())
 
 
-def hold_batched_bit_equal(state, steps, statics, li, names):
+def hold_batched_bit_equal(state, steps, statics, li, names, grids=(0,)):
     """Run a stacked scan through the batched kernel (on a copy of the
-    state, which it updates in place) and through the plain batched scan on
-    the card; raise unless every plane is bit-equal, row b is bit-equal to
-    the solo kernel's scan of row b for each member ``names[b]``, and each
-    pad row past the members equals row 0. Returns (kernel outputs, the
-    planes' largest absolute difference (0.0), plain scan ms)."""
+    state, which it updates in place), once for each grid cap in ``grids``
+    (0: the full grid), and through the plain batched scan on the card;
+    raise unless every plane is bit-equal, row b is bit-equal to the solo
+    kernel's scan of row b for each member ``names[b]``, and each pad row
+    past the members equals row 0. Returns (the full grid's kernel outputs,
+    the planes' largest absolute difference (0.0), plain scan ms)."""
     from karpenter_core_tpu_torch.ops import cuda_ffd, ffd
     from karpenter_core_tpu_torch.ops.ffd import _row
 
-    k_out = cuda_ffd.cuda_ffd_solve_batched(_copy(state), steps, statics, li)
-    kb = _planes(*k_out)
     p_out, plain_ms = _time_once(
         lambda: ffd.ffd_solve_batched(state, steps, statics, li))
     pb = _planes(*p_out)
-    bad = {k: n for k in kb if (n := _unequal(kb[k], pb[k]))}
-    if bad:
-        raise AssertionError(f"{names}: batched kernel != plain on {bad}")
-    err = max(_max_abs_err(kb[k], pb[k]) for k in kb)
+    err = 0.0
+    for grid in grids:
+        out = cuda_ffd.cuda_ffd_solve_batched(_copy(state), steps, statics,
+                                              li, _max_blocks=grid)
+        kg = _planes(*out)
+        bad = {k: n for k in kg if (n := _unequal(kg[k], pb[k]))}
+        if bad:
+            raise AssertionError(f"{names} (grid cap {grid}, blocks"
+                                 f" {cuda_ffd.counter.blocks}): batched"
+                                 f" kernel != plain on {bad}")
+        err = max(err, max(_max_abs_err(kg[k], pb[k]) for k in kg))
+        if grid == grids[0]:
+            k_out, kb = out, kg
     for b, name in enumerate(names):
         sp = _planes(*cuda_ffd.cuda_ffd_solve(
             _row(state, b), _row(steps, b), _row(statics, b), li))
@@ -826,26 +838,32 @@ def batched_kernel_phase():
                                                    statics, li)
 
         k_out, err, plain_ms = hold_batched_bit_equal(state, steps, statics,
-                                                      li, names)
+                                                      li, names, (0, 2))
+        blocks = cuda_ffd.counter.blocks
         ms = _time_ms(batched, 10)
         solo_ms = _time_ms(
             lambda: [cuda_ffd.cuda_ffd_solve(r.init_state, r.steps,
                                              r.statics, li) for r in rs], 5)
         bound_ms, bound_by = _bound_batched(state, steps, statics, *k_out)
+        stages = _stage_stamps(
+            lambda st: cuda_ffd.cuda_ffd_solve_batched(
+                _copy(state), steps, statics, li, _stamps=st), J)
         row = dict(
             tenants=names, B=B, Bp=Bp, J=J, N=N,
-            T=int(state.itmask.shape[2]), unequal=0, max_abs_err=err,
-            ms=ms, ms_per_step=ms / J, solo_sum_ms=solo_ms,
+            T=int(state.itmask.shape[2]), blocks=blocks, unequal=0,
+            max_abs_err=err, ms=ms, ms_per_step=ms / J, solo_sum_ms=solo_ms,
             solo_sum_ms_per_step=solo_ms / J, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, stage_us_per_step=stages,
         )
         rows.append(row)
         print(f"batched kernel [{names[0]}..{names[-1]}] B={B} Bp={Bp} J={J}"
-              f" N={N}: 0 unequal elements against the plain batched scan,"
-              f" each row equal to its solo kernel scan, pad rows equal to"
-              f" row 0; scan {ms:.3f} ms ({ms / J * 1e3:.2f} us/step) vs"
-              f" {B} solo scans {solo_ms:.3f} ms vs plain {plain_ms:.1f} ms;"
-              f" bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+              f" N={N}: 0 unequal elements against the plain batched scan"
+              f" on {blocks} blocks and on 2, each row equal to its solo"
+              f" kernel scan, pad rows equal to row 0; scan {ms:.3f} ms"
+              f" ({ms / J * 1e3:.2f} us/step) vs {B} solo scans"
+              f" {solo_ms:.3f} ms vs plain {plain_ms:.1f} ms; bound"
+              f" {bound_ms:.4f} ms ({bound_by}); device us/step by stage"
+              f" (stamps) {json.dumps(stages)}", flush=True)
     return rows
 
 
@@ -1085,10 +1103,11 @@ def batched_main_path_phase():
                         f"cold round batched too little: {stats}")
                 grew = {k: v - launches0[k]
                         for k, v in cuda_ffd.counter.launches.items()}
-                steps = sum(j for _b, j in scans)
-                if set(grew.values()) != {steps} or steps <= 0:
-                    raise AssertionError(f"round {rnd}: launches {grew}, the"
-                                         f" scans had {steps} steps")
+                launched = sum(1 for _b, j in scans if j > 0)
+                if (grew != dict.fromkeys(cuda_ffd.KERNELS, launched)
+                        or not launched):
+                    raise AssertionError(f"round {rnd}: launches {grew} for"
+                                         f" {launched} scans")
                 rows = cuda_ffd.counter.rows - rows0
                 if rows != sum(b for b, _j in scans):
                     raise AssertionError(f"round {rnd}: rows counted {rows},"
@@ -1256,6 +1275,7 @@ def main() -> int:
         "replaces": "karpenter_core_tpu/ops/pallas_ffd.py:135",
         "launches": sum(launches.values()),
         "launches_by_kernel": launches,
+        "blocks": k50["blocks"],
         "max_abs_err": max(r["max_abs_err"] for r in krows),
         "ms": k50["ms"],
         "plain_ms": k50["plain_ms"],
@@ -1278,6 +1298,7 @@ def main() -> int:
         "launches": sum(bmain["launches"].values()),
         "launches_by_kernel": bmain["launches"],
         "rows": bmain["rows"],
+        "blocks": kp["blocks"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in brows + bmain["warm_bit_equal"]),
         "ms": kp["ms"],
@@ -1289,6 +1310,7 @@ def main() -> int:
                        for r in brows + bmain["warm_bit_equal"]),
         "solo_sum_ms": kp["solo_sum_ms"],
         "ms_per_step": kp["ms_per_step"],
+        "stage_us_per_step": kp["stage_us_per_step"],
         "groups": brows,
         "main_path": bmain,
     }]}

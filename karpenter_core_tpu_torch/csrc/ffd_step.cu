@@ -1,53 +1,95 @@
-// One first-fit-decreasing class step of the provisioning solve, for Hopper
-// (sm_90a), for B independent problems at once.
+// The first-fit-decreasing class scan of the provisioning solve, for Hopper
+// (sm_90a): all J class steps of B independent problems in one persistent
+// cooperative launch.
 //
 // Replaces karpenter_core_tpu/ops/pallas_ffd.py::_fused_step (the
 // pl.pallas_call at :135) on both of its routes: solo, and batched
 // (batched=True, the vmap of ffd_step over a leading problem axis that
 // _pallas_ffd_solve_batched_impl drives). Its body is ops/ffd.py::ffd_step;
 // that function is this kernel's specification, and the port's plain
-// version of it (karpenter_core_tpu_torch/ops/ffd.py) is its oracle. The
-// problem axis B rides the grid: the slot-parallel kernels take a grid
-// (warp blocks, B) with the problem b = blockIdx.y, the one-block kernels a
-// grid (B) with b = blockIdx.x, and each block first offsets every pointer
-// of FfdArgs to problem b's planes (problem(), 64-bit offsets), so each
-// problem has its own state, class steps, statics, outputs and scratch. A
-// solo scan is B = 1. The arithmetic is
+// version of it (karpenter_core_tpu_torch/ops/ffd.py) is its oracle: every
+// output plane is bit-equal to it. A solo scan is B = 1. The arithmetic is
 // integer-exact float32: every division is IEEE round-to-nearest
 // (__fdiv_rn), every product and sum is rounded on its own (__fmul_rn,
-// __fadd_rn; the build also passes -fmad=false), and the counts that JAX
-// forms as float32 einsums are integer sums here.
+// __fadd_rn; the build also passes -fmad=false), the counts that JAX forms
+// as float32 einsums are integer sums here, and int32 sums wrap as JAX's.
 //
-// What bounds it: one step touches the slot state once (the [N,T] itmask
-// dominates, ~11 MB at N=4096, T=1024), which the 50 MB L2 holds, so a step
-// is bound by latency: the chain of dependent stages, the serial cross-slot
-// decisions (an exclusive prefix and a binary-search water-fill over all
-// slots), and launch overhead. The design keeps every stage on the device
-// and the slot state in place, with no host synchronisation inside a step
-// or between steps; the stages are four kernels, each with its own C entry
-// (launch_<kernel>), launched in turn on one stream:
-//   1. k_prologue, one block: the class's admissible-domain restriction,
-//      host caps of a fresh slot, the water-fill quota over values, and the
-//      [T] rows k_fresh / off_fresh for the chosen template;
-//   2. k_feasible, one warp per slot: requirement compatibility, taints,
-//      the offering check, k_max over viable instance types, slot caps;
-//   3. k_decide, one block: first-fit over existing slots by an exclusive
-//      block scan, emptiest-first water-fill over in-flight claims, the
-//      single-slot rule, the fresh range, and the state scalars;
-//   4. k_merge, one warp per slot: requirement planes, requests, itmask
-//      (recomputing k_raw and the offering check for joined slots rather
-//      than storing [N,T] floats), kind/template/capacity, podcount,
-//      hcount; zcount deltas go in by integer atomicAdd (order-free).
-// Fresh slots never write past N: an overflowing step fills [next_free, N)
-// and raises the overflow flag, and the host retries with more slots.
-// Batched, one class step is still four launches, whatever B is: the
-// blocks of the B problems run side by side, so a step of B latency-bound
-// problems costs about one step while the card has SMs to spare.
+// What bounds it on this card: not bytes and not operations. A step touches
+// the slot state once (the [N,T] itmask dominates, ~11 MB at N=4096,
+// T=1024), which the 50 MB L2 holds, and its float work is a few MFLOP. A
+// step is a chain of four dependent stages, each waiting on every slot or
+// every problem before the next, and inside each a chain of dependent loads
+// and reductions: so the scan is bound by latency, J x 4 grid barriers
+// (~1.3 us each on the H100) plus the longest chain of each stage, above
+// all the serial cross-slot decisions (an exclusive prefix, and the
+// binary-search water-fill of level_iters rounds over the in-flight slots).
+//
+// What the design does about it:
+//   * One launch per scan (ffd_scan): a persistent kernel, launched with
+//     cudaLaunchCooperativeKernel on a grid sized from the occupancy
+//     calculator so that every block is resident, walks all J steps and
+//     separates the stages with grid barriers (cooperative_groups::
+//     this_grid().sync(), which also orders memory between them). No host
+//     call and no launch gap inside a scan.
+//       1. prologue, problem b on block b mod gridDim.x: the class's
+//          admissible-domain restriction (a warp per label group), the
+//          fresh-slot caps and the sub-step water-fill quota (a warp each);
+//       2. feasibility, (problem, slot, part) items, one warp each: part 0
+//          decides requirements, taints, hostname caps and an existing
+//          slot's capacity, every part the best count over its share of
+//          the slot's instance types (atomicMax into kv); on the threads
+//          the items leave free, the [T] rows k_fresh / off_fresh of the
+//          template, which only the merge reads;
+//       3. decisions, problem b on block b mod gridDim.x: k_eff from the
+//          parts, first-fit over existing slots by an exclusive block scan,
+//          the emptiest-first water-fill over in-flight slots, the
+//          single-slot rule, the fresh range and the state scalars;
+//       4. merge, (problem, slot, part) items of the slots that joined:
+//          every part its types' itmask, part 0 the requirement planes,
+//          requests, capacity, kind/template, podcount, hcount and the
+//          zcount deltas (integer atomicAdd, order-free); the other slots
+//          carry their requests over.
+//   * Width where the chain is long: the slot stages walk only the slots
+//     below an open bound (every slot with kind > 0; the decisions raise it
+//     over each fresh range), cut each slot's types into as many parts as
+//     the resident warps allow, and issue a lane's loads for TU types
+//     before using any (offerings as per-type zone masks made at scan
+//     start, allocatable and requests as float4, value rows as 8-byte
+//     words). Warp ranks interleave the blocks, so the open slots spread
+//     over all SMs. Requests are double-buffered across steps (reqs()), so
+//     a slot's parts read its old requests while part 0 writes the new.
+//   * No [N, Gh] rescan. The prologue needs, per hostname group, whether
+//     any slot has a positive count (pos_any of ops/ffd.py::_host_caps).
+//     Counts only grow inside a scan: the merge adds takes[j, n] >= 0 (the
+//     reference's new_hcount = hcount + take_all * h_sel, ops/ffd.py, with
+//     every take clamped at 0 from below and the class count a pod count),
+//     so a positive count stays positive. hflag [Gh] per problem is set
+//     once from the initial counts at scan start and then by the merge for
+//     each selected group whose slot count becomes positive; the prologue
+//     reads it instead of the plane.
+//   * Water-fills with fewer barriers. The decisions stage each slot's
+//     record and the in-flight slots' (podcount, cap) list in shared
+//     memory, and run the reference's level_iters rounds of binary search
+//     DEPTH = 4 at a time: warp w sums the fill at node w of the tree of
+//     the next four rounds' midpoints, one block barrier publishes the 15
+//     outcomes, and every thread walks the tree with them, so the level is
+//     the reference's on every input. The sub-step water-fill over values
+//     does the same on one warp, a lane a node, 5 rounds a vote.
+// Slot state changes inside the launch, so it is never read through __ldg
+// or a const __restrict__ pointer (ro() is for class steps and statics
+// only); the grid barriers order it. Fresh slots never write past N: an
+// overflowing step fills [next_free, N) and raises the overflow flag, and
+// the host retries with more slots. An optional stamp buffer [J, 5] takes
+// %globaltimer from one thread of block 0 at the start of each step and
+// after each of its four barriers.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -55,10 +97,27 @@ constexpr int BIGI = 1 << 30;
 constexpr int RANK_NONE = 1 << 30;
 constexpr float BIGF = 3.4e38f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int DECIDE_THREADS = 1024;
-constexpr int WARP_BLOCK = 256;
+// a block: 128 registers a thread at most (one block an SM at full use)
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+// in-flight slots the decisions keep in shared memory (more go to wf)
+constexpr int WF_SMEM = 8192;
+// up to this many slots the decisions stage each slot's record in shared
+// memory; above it they read the records in place
+constexpr int STAGE_MAX = 8192;
+// instance types a lane takes at once in the slot stages' type loops
+constexpr int TU = 4;
+// binary-search rounds of the claims' water-fill per block barrier: warp w
+// evaluates node w of the tree of the next rounds' midpoints
+constexpr int DEPTH = 4;
+static_assert(WARPS >= (1 << DEPTH) - 1, "a warp for every node");
+// ... and of the sub-step water-fill per warp vote (lane l, node l)
+constexpr int WF_DEPTH = 5;
+// block-reduction partials: two buffers of four values per warp
+constexpr int RED_BYTES = 2 * 4 * 32 * (int)sizeof(int);
+constexpr int STAMPS = 5;
 
-// scalar scratch slots written by k_prologue / k_decide
+// scalar scratch slots written by the prologue / the decisions
 enum {
   SC_M = 0,
   SC_CARRY0,
@@ -76,8 +135,8 @@ extern "C" {
 
 // Field order is mirrored by ops/cuda_ffd.py::_Args (pointers, then ints);
 // ffd_args_size() lets the wrapper check the two layouts agree. Every
-// pointer is to problem 0 of B problems laid out one after another, each
-// plane's per-problem size as the comments say.
+// pointer but stamps is to problem 0 of B problems laid out one after
+// another, each plane's per-problem size as the comments say.
 struct FfdArgs {
   // slot state, updated in place
   uint8_t* valmask;     // [N,K,V]
@@ -157,6 +216,15 @@ struct FfdArgs {
   int32_t* k_eff;               // [N]
   uint8_t* feas;                // [N]
   int32_t* take;                // [N]
+  uint8_t* hflag;               // [Gh], zero on entry: some slot count > 0
+  int32_t* wf;                  // [2N]: the decisions' list past WF_SMEM
+  uint64_t* offm;               // [T,CT]: zones with an available offering
+  float* req_alt;               // [N,R]: requests of odd steps (see reqs())
+  int32_t* kv;                  // [N]: best k over a slot's types, -1 none
+  int32_t* fc;                  // [N]: slot cap if compatible, else -1
+  int32_t* open;                // [1] for the whole launch: slots below
+                                // it may be open (kind > 0), all problems
+  int64_t* stamps;              // [J,STAMPS] for the whole launch, or null
   // dims; B problems of J class steps each
   int32_t N, K, V, T, R, S, Z, CT, Gh, Gz, level_iters, B, J, pad_;
 };
@@ -249,7 +317,31 @@ __device__ __forceinline__ FfdArgs problem(const FfdArgs& a, int b) {
   p.k_eff += ub * N;
   p.feas += ub * N;
   p.take += ub * N;
+  p.hflag += ub * Gh;
+  p.wf += ub * 2 * N;
+  p.offm += ub * T * (size_t)a.CT;
+  p.req_alt += ub * N * R;
+  p.kv += ub * N;
+  p.fc += ub * N;
   return p;
+}
+
+// Requests are double-buffered across steps: step j reads them from
+// reqs(a, j) and its merge writes every slot's into reqs(a, j + 1), so the
+// merge's type parts can still read a slot's old requests while its first
+// part writes the new ones. After an odd number of steps the kernel copies
+// the last buffer back into requests.
+__device__ __forceinline__ float* reqs(const FfdArgs& a, int j) {
+  return (j & 1) ? a.req_alt : a.requests;
+}
+
+// the device clock into stamps[j, k], from one thread of block 0
+__device__ __forceinline__ void stamp(const FfdArgs& a, int j, int k) {
+  if (a.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.stamps[(size_t)j * STAMPS + k] = (int64_t)t;
+  }
 }
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
@@ -262,147 +354,261 @@ __device__ __forceinline__ int wsub(int a, int b) {
   return (int)((unsigned)a - (unsigned)b);
 }
 
+// read-only for the whole launch (class steps, statics): the read-only path
+template <class T>
+__device__ __forceinline__ T ro(const T* p) {
+  return __ldg(p);
+}
+
+// the bits of the first `count` bytes (each 0 or 1) of the 8-byte words
+// at p (V is a multiple of 8, so every row of a [.., V] plane is aligned)
+__device__ __forceinline__ unsigned long long row_bits(const uint8_t* p,
+                                                      const uint8_t* mask,
+                                                      int count) {
+  unsigned long long bits = 0ull;
+  for (int w = 0; w * 8 < count; ++w) {
+    unsigned long long x = ((const unsigned long long*)p)[w];
+    if (mask != nullptr) x &= ((const unsigned long long*)mask)[w];
+    for (int b = 0; b < 8 && w * 8 + b < count; ++b) {
+      if ((x >> (8 * b)) & 0xffull) bits |= 1ull << (w * 8 + b);
+    }
+  }
+  return bits;
+}
+
 // the class's joined zone / capacity-type rows of slot n as bitmasks
 // (Z, CT <= 64, checked by the wrapper)
 __device__ __forceinline__ void joined_zone_ct(const FfdArgs& a, int n,
+                                               int zk, int ck,
                                                const uint8_t* effm,
                                                const uint8_t* effd,
                                                unsigned long long* zb,
                                                unsigned long long* cb) {
   const int K = a.K, V = a.V;
-  const int zk = *a.zone_key, ck = *a.ct_key;
-  unsigned long long z = 0ull, c = 0ull;
-  for (int i = 0; i < a.Z; ++i) {
-    bool bit = a.valmask[((size_t)n * K + zk) * V + i] &&
-               (!effd[zk] || effm[zk * V + i]);
-    if (bit) z |= 1ull << i;
-  }
-  for (int i = 0; i < a.CT; ++i) {
-    bool bit = a.valmask[((size_t)n * K + ck) * V + i] &&
-               (!effd[ck] || effm[ck * V + i]);
-    if (bit) c |= 1ull << i;
-  }
-  *zb = z;
-  *cb = c;
+  *zb = row_bits(a.valmask + ((size_t)n * K + zk) * V,
+                 effd[zk] ? effm + zk * V : nullptr, a.Z);
+  *cb = row_bits(a.valmask + ((size_t)n * K + ck) * V,
+                 effd[ck] ? effm + ck * V : nullptr, a.CT);
 }
 
+// type t has an available offering in a zone of zb and a capacity type of
+// cb: offm[t, c] holds the zones of capacity type c (set at scan start
+// from off_avail [T,Z,CT]), so the Z x CT lattice is CT word tests; every
+// load is unconditional, so a caller's unrolled loop keeps them in flight
 __device__ __forceinline__ bool offering_ok(const FfdArgs& a, int t,
                                             unsigned long long zb,
                                             unsigned long long cb) {
-  const uint8_t* row = a.off_avail + (size_t)t * a.Z * a.CT;
-  for (int z = 0; z < a.Z; ++z) {
-    if (!((zb >> z) & 1ull)) continue;
-    for (int c = 0; c < a.CT; ++c) {
-      if (((cb >> c) & 1ull) && row[z * a.CT + c]) return true;
-    }
+  const uint64_t* o = a.offm + (size_t)t * a.CT;
+  bool ok = false;
+  for (int c = 0; c < a.CT; ++c) {
+    ok = ok | ((((cb >> c) & 1ull) != 0) & ((o[c] & zb) != 0));
   }
-  return false;
+  return ok;
 }
 
-// floor(min_r head) with head = (alloc - req) / r where r > 0, else BIG
-__device__ __forceinline__ float k_raw_at(const FfdArgs& a, int t,
-                                          const float* req,
-                                          const float* creq) {
-  float kr = __int_as_float(0x7f800000);  // +inf
-  for (int r = 0; r < a.R; ++r) {
-    float rr = creq[r];
-    float h = rr > 0.f
-                  ? __fdiv_rn(__fsub_rn(a.it_alloc[(size_t)t * a.R + r], req[r]),
-                              rr)
-                  : BIGF;
-    kr = fminf(kr, h);
+// (alloc - req) / r where r > 0, else BIG
+__device__ __forceinline__ float head(float al, float q, float rr) {
+  return rr > 0.f ? __fdiv_rn(__fsub_rn(al, q), rr) : BIGF;
+}
+
+// TU types t0, t0 + 32, ... of one lane: ok[u] = type u is below hi, in
+// the slot's itmask (itm), compatible with the class (cit) and has an
+// offering; kr[u] = floor(min_r head). The loads of all TU types are issued
+// before any is used; R is a multiple of 4, so requests and allocatable
+// rows load as float4.
+__device__ __forceinline__ void types_at(const FfdArgs& a, int t0, int hi,
+                                         const uint8_t* itm,
+                                         const uint8_t* cit,
+                                         unsigned long long zb,
+                                         unsigned long long cb,
+                                         const float* req, const float* creq,
+                                         bool* ok, float* kr) {
+  const int T = a.T, R = a.R;
+  int tt[TU];
+#pragma unroll
+  for (int u = 0; u < TU; ++u) {
+    tt[u] = imin(t0 + 32 * u, T - 1);
+    ok[u] = (t0 + 32 * u < hi) & (itm[tt[u]] != 0) & (ro(cit + tt[u]) != 0) &
+            offering_ok(a, tt[u], zb, cb);
+    kr[u] = __int_as_float(0x7f800000);  // +inf
   }
-  return floorf(kr);
+  for (int r0 = 0; r0 < R; r0 += 4) {
+    const float4 rr = ro((const float4*)(creq + r0));
+    const float4 q = *(const float4*)(req + r0);
+#pragma unroll
+    for (int u = 0; u < TU; ++u) {
+      const float4 al = ro((const float4*)(a.it_alloc + (size_t)tt[u] * R + r0));
+      kr[u] = fminf(kr[u], head(al.x, q.x, rr.x));
+      kr[u] = fminf(kr[u], head(al.y, q.y, rr.y));
+      kr[u] = fminf(kr[u], head(al.z, q.z, rr.z));
+      kr[u] = fminf(kr[u], head(al.w, q.w, rr.w));
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < TU; ++u) kr[u] = floorf(kr[u]);
 }
 
 __device__ __forceinline__ int warp_min(int v) {
   for (int o = 16; o > 0; o >>= 1) v = imin(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
-__device__ __forceinline__ float warp_fmax(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+__device__ __forceinline__ int warp_max(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = imax(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+__device__ __forceinline__ unsigned warp_sum(unsigned v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+// inclusive prefix over the lanes (wrapping)
+__device__ __forceinline__ unsigned warp_scan(unsigned v, int lane) {
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned up = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += up;
+  }
   return v;
 }
 
-// block-wide reductions and scan over DECIDE_THREADS threads; sh holds >= 33
-// ints and every thread of the block must call them
-__device__ int block_sum(int x, int* sh) {
-  unsigned v = (unsigned)x;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) sh[w] = (int)v;
-  __syncthreads();
-  if (w == 0) {
-    const int nw = blockDim.x >> 5;
-    unsigned t = lane < nw ? (unsigned)sh[lane] : 0u;
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(FULL, t, o);
-    if (lane == 0) sh[32] = (int)t;
+// Block reductions with one barrier each: every warp reduces its lanes with
+// shuffles and leaves its partials in the buffer of this call, which
+// alternates between two (Red::next), so the next call can write while a
+// slow warp still reads this one; after the one barrier each warp reduces
+// the partials itself. Every thread of the block must take part.
+struct Red {
+  int* buf;   // [2][4][32]
+  int calls;  // identical in every thread of the block
+  __device__ __forceinline__ int* next() {
+    int* p = buf + (calls & 1) * 4 * 32;
+    ++calls;
+    return p;
   }
+};
+
+__device__ __forceinline__ int block_sum(int x, Red& red) {
+  int* p = red.next();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const unsigned v = warp_sum((unsigned)x);
+  if (lane == 0) p[w] = (int)v;
   __syncthreads();
-  return sh[32];
+  return (int)warp_sum(lane < WARPS ? (unsigned)p[lane] : 0u);
 }
 
-__device__ int block_max(int x, int* sh) {
-  int v = x;
-  for (int o = 16; o > 0; o >>= 1) v = imax(v, __shfl_xor_sync(FULL, v, o));
+// exclusive prefixes of x0 and x1 over the threads in thread order
+// (wrapping), their totals, and the block's max of mx and min of mn
+struct Scan2 {
+  int ex0, ex1, tot0, tot1, mx, mn;
+};
+
+__device__ __forceinline__ Scan2 block_scan2(int x0, int x1, int mx, int mn,
+                                             Red& red) {
+  int* p = red.next();
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) sh[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    const int nw = blockDim.x >> 5;
-    int t = lane < nw ? sh[lane] : INT_MIN;
-    for (int o = 16; o > 0; o >>= 1) t = imax(t, __shfl_xor_sync(FULL, t, o));
-    if (lane == 0) sh[32] = t;
+  const unsigned i0 = warp_scan((unsigned)x0, lane);
+  const unsigned i1 = warp_scan((unsigned)x1, lane);
+  mx = warp_max(mx);
+  mn = warp_min(mn);
+  if (lane == 31) {
+    p[w] = (int)i0;
+    p[32 + w] = (int)i1;
+    p[64 + w] = mx;
+    p[96 + w] = mn;
   }
   __syncthreads();
-  return sh[32];
+  const bool in = lane < WARPS;
+  const unsigned s0 = warp_scan(in ? (unsigned)p[lane] : 0u, lane);
+  const unsigned s1 = warp_scan(in ? (unsigned)p[32 + lane] : 0u, lane);
+  Scan2 out;
+  out.mx = warp_max(in ? p[64 + lane] : INT_MIN);
+  out.mn = warp_min(in ? p[96 + lane] : INT_MAX);
+  // this warp's offset: the inclusive prefix of the warps before it
+  const unsigned b0 = __shfl_sync(FULL, s0, imax(w - 1, 0));
+  const unsigned b1 = __shfl_sync(FULL, s1, imax(w - 1, 0));
+  out.ex0 = (int)((w > 0 ? b0 : 0u) + i0 - (unsigned)x0);
+  out.ex1 = (int)((w > 0 ? b1 : 0u) + i1 - (unsigned)x1);
+  out.tot0 = (int)__shfl_sync(FULL, s0, 31);
+  out.tot1 = (int)__shfl_sync(FULL, s1, 31);
+  return out;
 }
 
-__device__ int block_min(int x, int* sh) {
-  return -block_max(-x, sh);
+// One round of the reference's binary search for the largest level whose
+// fill fits: lo/hi move to the upper or lower half by the outcome ok.
+__device__ __forceinline__ int mid_of(int lo, int hi) {
+  return wadd(wadd(lo, hi), 1) >> 1;
+}
+__device__ __forceinline__ void search_step(int* lo, int* hi, bool ok) {
+  const int mid = mid_of(*lo, *hi);
+  *lo = ok ? mid : *lo;
+  *hi = ok ? *hi : mid - 1;
+}
+// The midpoint that node `node` of the tree of the next rounds (heap order:
+// node 0 the first round's, children 2i + 1 (not ok) and 2i + 2 (ok))
+// would test, replaying the outcomes on its path from (lo, hi). Evaluating
+// every node of d levels at once and then walking the tree with the actual
+// outcomes is exactly d rounds of the search.
+__device__ __forceinline__ int node_mid(int lo, int hi, int node) {
+  const int i1 = node + 1;
+  const int depth = 31 - __clz(i1);
+  for (int pos = depth - 1; pos >= 0; --pos) search_step(&lo, &hi, (i1 >> pos) & 1);
+  return mid_of(lo, hi);
+}
+__device__ __forceinline__ void walk(int* lo, int* hi, int d,
+                                     unsigned okbits) {
+  int i1 = 1;
+  for (int k = 0; k < d; ++k) {
+    const bool ok = (okbits >> (i1 - 1)) & 1u;
+    search_step(lo, hi, ok);
+    i1 = 2 * i1 + (ok ? 1 : 0);
+  }
 }
 
-// exclusive prefix of x over threads in thread order (wrapping int32)
-__device__ int block_excl_scan(int x, int* sh) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  unsigned v = (unsigned)x;
-  for (int o = 1; o < 32; o <<= 1) {
-    unsigned up = __shfl_up_sync(FULL, v, o);
-    if (lane >= o) v += up;
-  }
-  __syncthreads();
-  if (lane == 31) sh[w] = (int)v;
-  __syncthreads();
-  if (w == 0) {
-    const int nw = blockDim.x >> 5;
-    unsigned s = lane < nw ? (unsigned)sh[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      unsigned up = __shfl_up_sync(FULL, s, o);
-      if (lane >= o) s += up;
-    }
-    sh[lane] = (int)s;
-  }
-  __syncthreads();
-  unsigned before = w > 0 ? (unsigned)sh[w - 1] : 0u;
-  return (int)(before + v - (unsigned)x);
+// ---------------------------------------------------------------------------
+// shared memory of a block: the reduction partials, then one region that
+// the prologue and the decisions use in turn (grid barriers between them)
+
+__host__ __device__ __forceinline__ int align16(int x) {
+  return (x + 15) & ~15;
+}
+
+__host__ __device__ __forceinline__ int prologue_bytes(int K, int V, int Gz) {
+  return (4 * V + Gz) * (int)sizeof(int) + Gz * V + Gz + K * V + 3 * K;
+}
+
+__host__ __device__ __forceinline__ int wf_smem_entries(int N) {
+  return N < WF_SMEM ? N : WF_SMEM;
+}
+
+// the decisions' region: the in-flight list, then, when N <= STAGE_MAX,
+// each slot's k_eff, podcount, take (int32) and kind, feasibility (bytes),
+// thread-major: thread t's i-th slot at i * THREADS + t (no bank conflicts)
+__host__ __device__ __forceinline__ int staged_slots(int N) {
+  return (N + THREADS - 1) / THREADS * THREADS;
+}
+__host__ __device__ __forceinline__ int decide_bytes(int N) {
+  const int wf = wf_smem_entries(N) * (int)sizeof(int2);
+  const int P = staged_slots(N);
+  return N <= STAGE_MAX ? wf + align16(3 * P * (int)sizeof(int) + 2 * P) : wf;
+}
+
+int scan_smem(const FfdArgs& a) {
+  const int pro = align16(prologue_bytes(a.K, a.V, a.Gz));
+  const int dec = decide_bytes(a.N);
+  return RED_BYTES + (pro > dec ? pro : dec);
 }
 
 // ---------------------------------------------------------------------------
 // 1. class prologue (one block per problem)
 
-__global__ void k_prologue(FfdArgs args, int j) {
-  const FfdArgs a = problem(args, blockIdx.x);
-  const int K = a.K, V = a.V, Gz = a.Gz, Gh = a.Gh, T = a.T, R = a.R;
-  extern __shared__ int smem[];
-  int* s_pos = smem;                 // [Gh]
-  int* s_wcnt = s_pos + Gh;          // [V]
-  int* s_wcap = s_wcnt + V;          // [V]
-  int* s_wrank = s_wcap + V;         // [V]
-  int* s_wadm = s_wrank + V;         // [V]
-  uint8_t* s_adm = (uint8_t*)(s_wadm + V);  // [Gz*V]
-  uint8_t* s_effm = s_adm + Gz * V;         // [K*V]
+__device__ __forceinline__ void prologue(const FfdArgs& a, int j,
+                                         unsigned char* region) {
+  const int K = a.K, V = a.V, Gz = a.Gz, Gh = a.Gh;
+  int* s_wcnt = (int*)region;         // [V]
+  int* s_wcap = s_wcnt + V;           // [V]
+  int* s_wrank = s_wcap + V;          // [V]
+  int* s_wadm = s_wrank + V;          // [V]
+  int* s_zkey = s_wadm + V;           // [Gz]
+  uint8_t* s_adm = (uint8_t*)(s_zkey + Gz);  // [Gz*V]
+  uint8_t* s_zown = s_adm + Gz * V;          // [Gz]: owned, not the pin's
+  uint8_t* s_effm = s_zown + Gz;             // [K*V]
   uint8_t* s_effd = s_effm + K * V;         // [K]
   uint8_t* s_effc = s_effd + K;             // [K]
   uint8_t* s_effn = s_effc + K;             // [K]
@@ -416,30 +622,37 @@ __global__ void k_prologue(FfdArgs args, int j) {
   const int wf_group = a.c_wf_group[j];
   const int wf_key = a.c_wf_key[j];
   const int sub_value = a.c_sub_value[j];
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __syncthreads();  // the region may still hold the last problem's rows
 
-  for (int g = tid; g < Gh; g += blockDim.x) s_pos[g] = 0;
-  __syncthreads();
-
-  // label-group admissible domains, one thread per group
-  for (int g = tid; g < Gz; g += blockDim.x) {
+  // label-group admissible domains, one warp per group
+  for (int g = warp; g < Gz; g += WARPS) {
     const int zk = a.z_key[g];
     const uint8_t* dom = a.z_domains + (size_t)g * V;
     const int* cnt = a.zcount + (size_t)g * V;
     const int* rk = a.z_rank + (size_t)g * V;
-    int minc = INT_MAX, supported = 0, minrank = INT_MAX;
+    int minc = INT_MAX, minrank = INT_MAX;
+    unsigned supported = 0;
     bool any_pos = false;
-    for (int v = 0; v < V; ++v) {
+    for (int v = lane; v < V; v += 32) {
       const bool padm = smask[zk * V + v] && dom[v];
       minc = imin(minc, padm ? cnt[v] : BIGI);
-      supported += padm ? 1 : 0;
+      supported += padm ? 1u : 0u;
       any_pos = any_pos || (padm && cnt[v] > 0);
       minrank = imin(minrank, padm ? rk[v] : RANK_NONE);
     }
-    if (a.z_mindom[g] >= 0 && supported < a.z_mindom[g]) minc = 0;
+    minc = warp_min(minc);
+    minrank = warp_min(minrank);
+    supported = warp_sum(supported);
+    any_pos = __any_sync(FULL, any_pos);
+    if (a.z_mindom[g] >= 0 && (int)supported < a.z_mindom[g]) minc = 0;
+    if (lane == 0) {
+      s_zkey[g] = zk;
+      s_zown[g] = z_owner[g] && g != wf_group;
+    }
     const int inc = z_sel[g] ? 1 : 0;
     const int type = a.z_type[g];
-    for (int v = 0; v < V; ++v) {
+    for (int v = lane; v < V; v += 32) {
       const bool padm = smask[zk * V + v] && dom[v];
       const int c = cnt[v];
       bool adm;
@@ -449,25 +662,21 @@ __global__ void k_prologue(FfdArgs args, int j) {
         adm = padm && c == 0;
       } else {
         const bool pos = padm && c > 0;
-        const bool boot = padm && (padm ? rk[v] : RANK_NONE) == minrank;
+        const bool boot = padm && rk[v] == minrank;
         adm = any_pos ? pos : (z_sel[g] && boot);
       }
       s_adm[g * V + v] = adm;
     }
   }
-  // hostname groups with a positive count on any slot
-  for (int i = tid; i < a.N * Gh; i += blockDim.x) {
-    if (a.hcount[i] > 0) s_pos[i % Gh] = 1;
-  }
   __syncthreads();
 
   // effective class requirements: restriction by owned groups + wf pin
   const bool has_wf = wf_group >= 0;
-  for (int e = tid; e < K * V; e += blockDim.x) {
+  for (int e = tid; e < K * V; e += THREADS) {
     const int k = e / V, v = e % V;
     bool viol = false, topo_def = false;
     for (int g = 0; g < Gz; ++g) {
-      if (!(z_owner[g] && g != wf_group && a.z_key[g] == k)) continue;
+      if (!(s_zown[g] && s_zkey[g] == k)) continue;
       topo_def = true;
       viol = viol || !s_adm[g * V + v];
     }
@@ -476,83 +685,83 @@ __global__ void k_prologue(FfdArgs args, int j) {
     const bool wf_oh = k == imax(wf_key, 0) && has_wf;
     restr = restr && (!wf_oh || pin_row);
     topo_def = topo_def || wf_oh;
-    s_effm[e] = cmask[e] && restr;
+    const bool effm = cmask[e] && restr;
+    s_effm[e] = effm;
+    a.eff[e] = effm;
     if (v == 0) {
       const size_t ck = (size_t)j * K + k;
-      s_effd[k] = a.c_defines[ck] || topo_def;
-      s_effc[k] = a.c_concrete[ck] || topo_def;
-      s_effn[k] = a.c_negative[ck] && !topo_def;
+      const bool d = a.c_defines[ck] || topo_def;
+      const bool c = a.c_concrete[ck] || topo_def;
+      const bool ng = a.c_negative[ck] && !topo_def;
+      s_effd[k] = d;
+      s_effc[k] = c;
+      s_effn[k] = ng;
+      a.eff[K * V + k] = d;
+      a.eff[K * V + K + k] = c;
+      a.eff[K * V + 2 * K + k] = ng;
     }
   }
-  for (int g = tid; g < Gh; g += blockDim.x) {
-    const bool pos_any = a.h_possel0[g] || s_pos[g];
+  // affinity groups that bootstrap: no positive count anywhere yet
+  for (int g = tid; g < Gh; g += THREADS) {
+    const bool pos_any = a.h_possel0[g] || a.hflag[g];
     a.hboot[g] = !pos_any && h_sel[g] && a.h_type[g] == 2;
   }
   __syncthreads();
-  for (int e = tid; e < K * V + 3 * K; e += blockDim.x) {
-    a.eff[e] = e < K * V ? s_effm[e]
-               : e < K * V + K ? s_effd[e - K * V]
-               : e < K * V + 2 * K ? s_effc[e - K * V - K]
-                                   : s_effn[e - K * V - 2 * K];
-  }
 
   const int s = imax(a.c_new_template[j], 0);
-  if (tid == 0) {
-    // fresh-slot cap from owned hostname groups
-    int fcap = INT_MAX;
-    bool single = false;
-    for (int g = 0; g < Gh; ++g) {
-      const bool boot = a.hboot[g];
-      const int type = a.h_type[g];
-      int f = type == 0 ? (h_sel[g] ? a.h_skew[g] : BIGI)
-              : type == 1 ? (h_sel[g] ? 1 : BIGI)
-                          : (boot ? BIGI : 0);
-      if (!h_owner[g]) f = BIGI;
-      fcap = imin(fcap, f);
-      single = single || (boot && h_owner[g]);
-    }
+  if (warp == 0) {
+    // the step's pod quota: the class count, or the pinned sub-step
+    // domain's share of the water-fill over values (one warp, lanes over V)
     const int count = a.c_count[j];
     const int carry0 = a.c_sub_first[j] ? count : *a.carry;
     int m = count;
     if (has_wf) {
-      // water-fill quota of the pinned sub-step domain (serial over V)
       const int g = imax(wf_group, 0);
       const int zk = a.z_key[g];
       const uint8_t* rest = a.c_zone_rest + (size_t)j * V;
-      int supported = 0;
-      for (int v = 0; v < V; ++v) {
-        supported += (smask[zk * V + v] && a.z_domains[(size_t)g * V + v]) ? 1 : 0;
+      unsigned supported = 0;
+      for (int v = lane; v < V; v += 32) {
+        supported += (smask[zk * V + v] && a.z_domains[(size_t)g * V + v]) ? 1u : 0u;
       }
+      supported = warp_sum(supported);
       const int mindom = a.z_mindom[g];
-      const bool unsat = mindom >= 0 && supported < mindom;
-      for (int v = 0; v < V; ++v) {
+      const bool unsat = mindom >= 0 && (int)supported < mindom;
+      int hi = INT_MIN;
+      for (int v = lane; v < V; v += 32) {
         const int c = a.zcount[(size_t)g * V + v];
         s_wcnt[v] = c;
         s_wcap[v] = imax(unsat ? imax(wsub(a.z_skew[g], c), 0) : BIGI, 0);
         s_wrank[v] = a.z_rank[(size_t)g * V + v];
         s_wadm[v] = rest[v];
+        hi = imax(hi, rest[v] ? c : 0);
       }
+      hi = warp_max(hi);
+      __syncwarp();
       const int mq = carry0;
-      int hi = INT_MIN;
-      for (int v = 0; v < V; ++v) hi = imax(hi, s_wadm[v] ? s_wcnt[v] : 0);
       hi = wadd(hi, mq);
       int lo = 0;
-      for (int it = 0; it < a.level_iters; ++it) {
-        const int mid = wadd(wadd(lo, hi), 1) >> 1;
-        int sum = 0;
-        for (int v = 0; v < V; ++v) {
-          if (s_wadm[v]) sum = wadd(sum, imin(imax(wsub(mid, s_wcnt[v]), 0), s_wcap[v]));
+      // level_iters rounds of the binary search, WF_DEPTH a vote: lane l
+      // sums the fill over all values at node l's midpoint
+      for (int left = a.level_iters; left > 0; left -= WF_DEPTH) {
+        const int d = imin(left, WF_DEPTH);
+        const int nodes = (1 << d) - 1;
+        bool ok = false;
+        if (lane < nodes) {
+          const int mid = node_mid(lo, hi, lane);
+          unsigned sum = 0;
+          for (int v = 0; v < V; ++v) {
+            if (s_wadm[v]) sum += (unsigned)imin(imax(wsub(mid, s_wcnt[v]), 0), s_wcap[v]);
+          }
+          ok = (int)sum <= mq;
         }
-        const bool ok = sum <= mq;
-        lo = ok ? mid : lo;
-        hi = ok ? hi : mid - 1;
+        walk(&lo, &hi, d, __ballot_sync(FULL, ok));
       }
       const int L = lo;
-      int fsum = 0;
-      for (int v = 0; v < V; ++v) {
-        if (s_wadm[v]) fsum = wadd(fsum, imin(imax(wsub(L, s_wcnt[v]), 0), s_wcap[v]));
+      unsigned fsum = 0;
+      for (int v = lane; v < V; v += 32) {
+        if (s_wadm[v]) fsum += (unsigned)imin(imax(wsub(L, s_wcnt[v]), 0), s_wcap[v]);
       }
-      const int rleft = wsub(mq, fsum);
+      const int rleft = wsub(mq, (int)warp_sum(fsum));
       m = 0;
       if (sub_value >= 0) {
         const int q = imin(sub_value, V - 1);
@@ -565,164 +774,211 @@ __global__ void k_prologue(FfdArgs args, int j) {
         };
         const bool eq = elig_of(q);
         const int rq = eq ? s_wrank[q] : RANK_NONE;
-        int erank = 0;
-        for (int u = 0; u < V; ++u) {
+        unsigned erank = 0;
+        for (int u = lane; u < V; u += 32) {
           const bool eu = elig_of(u);
           const int ru = eu ? s_wrank[u] : RANK_NONE;
-          erank += (eu && ru < rq) ? 1 : 0;
+          erank += (eu && ru < rq) ? 1u : 0u;
         }
-        m = wadd(fill_of(q), (eq && erank < rleft) ? 1 : 0);
+        erank = warp_sum(erank);
+        m = wadd(fill_of(q), (eq && (int)erank < rleft) ? 1 : 0);
       }
     }
-    a.sc[SC_M] = m;
-    a.sc[SC_CARRY0] = carry0;
-    a.sc[SC_FRESH_CAP] = imax(fcap, 0);
-    a.sc[SC_SINGLE] = single ? 1 : 0;
-    a.sc[SC_S] = s;
+    if (lane == 0) {
+      a.sc[SC_M] = m;
+      a.sc[SC_CARRY0] = carry0;
+    }
+  } else if (warp == 1) {
+    // fresh-slot cap from owned hostname groups (lanes over groups)
+    int fcap = INT_MAX;
+    bool single = false;
+    for (int g = lane; g < Gh; g += 32) {
+      const bool boot = a.hboot[g];
+      const int type = a.h_type[g];
+      int f = type == 0 ? (h_sel[g] ? a.h_skew[g] : BIGI)
+              : type == 1 ? (h_sel[g] ? 1 : BIGI)
+                          : (boot ? BIGI : 0);
+      if (!h_owner[g]) f = BIGI;
+      fcap = imin(fcap, f);
+      single = single || (boot && h_owner[g]);
+    }
+    fcap = warp_min(fcap);
+    single = __any_sync(FULL, single);
+    if (lane == 0) {
+      a.sc[SC_FRESH_CAP] = imax(fcap, 0);
+      a.sc[SC_SINGLE] = single ? 1 : 0;
+      a.sc[SC_S] = s;
+    }
   }
 
-  // fresh-slot rows over instance types for the chosen template
+}
+
+// the fresh-slot rows of type t for the step's template (k_fresh, the
+// count a fresh slot fits, and off_fresh, its offering check), which only
+// the merge reads: they run in the feasibility stage, off the prologue
+__device__ __forceinline__ void fresh_row(const FfdArgs& a, int j, int t) {
+  const int K = a.K, V = a.V, R = a.R;
+  const int s = imax(ro(a.c_new_template + j), 0);
   const float* creq = a.c_requests + (size_t)j * R;
   const float* oh = a.t_overhead + (size_t)s * R;
-  const int zk = *a.zone_key, ck = *a.ct_key;
+  const int zk = ro(a.zone_key), ck = ro(a.ct_key);
   unsigned long long zb = 0ull, cb = 0ull;
   for (int i = 0; i < a.Z; ++i) {
-    if (a.t_mask[((size_t)s * K + zk) * V + i] && s_effm[zk * V + i]) zb |= 1ull << i;
+    if (ro(a.t_mask + ((size_t)s * K + zk) * V + i) && a.eff[zk * V + i]) zb |= 1ull << i;
   }
   for (int i = 0; i < a.CT; ++i) {
-    if (a.t_mask[((size_t)s * K + ck) * V + i] && s_effm[ck * V + i]) cb |= 1ull << i;
+    if (ro(a.t_mask + ((size_t)s * K + ck) * V + i) && a.eff[ck * V + i]) cb |= 1ull << i;
   }
-  for (int t = tid; t < T; t += blockDim.x) {
-    float kr = __int_as_float(0x7f800000);
-    for (int r = 0; r < R; ++r) {
-      const float al = a.it_alloc[(size_t)t * R + r];
-      float h;
-      if (creq[r] > 0.f) {
-        h = __fdiv_rn(__fsub_rn(al, oh[r]), creq[r]);
-      } else {
-        h = al >= oh[r] ? BIGF : -1.0f;
-      }
-      kr = fminf(kr, h);
-    }
-    a.k_fresh[t] = floorf(kr);
-    a.off_fresh[t] = offering_ok(a, t, zb, cb);
+  float kr = __int_as_float(0x7f800000);
+  for (int r = 0; r < R; ++r) {
+    const float al = ro(a.it_alloc + (size_t)t * R + r);
+    const float c = ro(creq + r), o = ro(oh + r);
+    const float h = c > 0.f ? __fdiv_rn(__fsub_rn(al, o), c)
+                            : (al >= o ? BIGF : -1.0f);
+    kr = fminf(kr, h);
   }
+  a.k_fresh[t] = floorf(kr);
+  a.off_fresh[t] = offering_ok(a, t, zb, cb);
 }
 
 // ---------------------------------------------------------------------------
-// 2. slot-parallel feasibility (one warp per slot, a block row per problem)
+// the slot stages' work items: (problem, slot, part) for the slots below the
+// open bound, each slot's instance types cut into `parts` contiguous ranges
+// of whole warps' worth, as many as the resident warps allow (up to TU types
+// a lane)
 
-__global__ void k_feasible(FfdArgs args, int j) {
-  const FfdArgs a = problem(args, blockIdx.y);
-  const int n = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (n >= a.N) return;
+__device__ __forceinline__ int parts_of(int T, long long slots,
+                                        long long warps) {
+  const int most = imax((T + 32 * TU - 1) / (32 * TU), 1);
+  const long long fit = slots > 0 ? warps / slots : most;
+  return (int)(fit < 1 ? 1 : (fit < most ? fit : most));
+}
+
+// the types [lo, hi) of part q of `parts`
+__device__ __forceinline__ void part_range(int T, int q, int parts, int* lo,
+                                           int* hi) {
+  const int per = ((T + parts - 1) / parts + 31) & ~31;
+  *lo = imin(q * per, T);
+  *hi = imin(*lo + per, T);
+}
+
+__device__ __forceinline__ int clamp_k(float k) {
+  return (int)fminf(fmaxf(k, 0.0f), 1073741824.0f);
+}
+
+// ---------------------------------------------------------------------------
+// 2. slot feasibility: part 0 of a slot decides requirement compatibility,
+// taints, the hostname caps and (existing slots) the fixed capacity into fc
+// and kv; every part takes its types' best count into kv by atomicMax (new
+// slots). The decisions combine them into k_eff.
+
+__device__ __forceinline__ void feasible(const FfdArgs& a, int j, int n,
+                                         int q, int parts, int lane) {
   const int K = a.K, V = a.V, T = a.T, R = a.R, Gh = a.Gh;
+  // the slot's keys and the ones that depend on them, loaded together
   const int kind = a.kind[n];
-  if (kind == 0) {  // pad slots never take
-    if (lane == 0) {
-      a.k_eff[n] = 0;
-      a.feas[n] = 0;
-    }
-    return;
-  }
+  const int tm = imax(a.tmpl[n], 0);
+  const int zk = ro(a.zone_key), ck = ro(a.ct_key);
+  if (kind == 0) return;  // pad slots never take (the decisions know)
   const uint8_t* effm = a.eff;
   const uint8_t* effd = a.eff + K * V;
-  const uint8_t* effc = effd + K;
-  const uint8_t* effn = effc + K;
-  const int* cgt = a.c_gt + (size_t)j * K;
-  const int* clt = a.c_lt + (size_t)j * K;
-
-  bool bad = false;
-  for (int k = lane; k < K; k += 32) {
-    const size_t nk = (size_t)n * K + k;
-    bool overlap = false;
-    for (int v = 0; v < V; ++v) {
-      overlap = overlap || (a.valmask[nk * V + v] && effm[k * V + v]);
-    }
-    const bool both = a.defines[nk] && effd[k];
-    const bool either_conc = !a.complement[nk] || effc[k];
-    const bool crossed = imax(a.gt[nk], cgt[k]) >= imin(a.lt[nk], clt[k]);
-    const bool empty = either_conc ? !overlap : crossed;
-    const bool both_neg = a.negative[nk] && effn[k];
-    const bool rule2 = both && empty && !both_neg;
-    const bool allow = a.well_known[k] && kind == 2;
-    const bool rule1 = effd[k] && !effn[k] && !a.defines[nk] && !allow;
-    bad = bad || rule1 || rule2;
-  }
-  const bool req_ok = !__any_sync(FULL, bad);
-  const bool taint_ok =
-      kind == 1 ? a.c_exist_taint_ok[(size_t)j * a.N + n] != 0
-                : a.c_tmpl_ok[(size_t)j * a.S + imax(a.tmpl[n], 0)] != 0;
-
-  unsigned long long zb, cb;
-  joined_zone_ct(a, n, effm, effd, &zb, &cb);
   const float* creq = a.c_requests + (size_t)j * R;
-  const float* req = a.requests + (size_t)n * R;
-  const uint8_t* cit = a.c_class_it + (size_t)j * T;
-  float kmax = -1.0f;
-  bool anyv = false;
-  for (int t = lane; t < T; t += 32) {
-    if (!a.itmask[(size_t)n * T + t] || !cit[t]) continue;
-    if (!offering_ok(a, t, zb, cb)) continue;
-    anyv = true;
-    kmax = fmaxf(kmax, k_raw_at(a, t, req, creq));
-  }
-  kmax = warp_fmax(kmax);
-  anyv = __any_sync(FULL, anyv);
+  const float* req = reqs(a, j) + (size_t)n * R;
 
-  int cap = INT_MAX;
-  for (int g = lane; g < Gh; g += 32) {
-    const int c = a.hcount[(size_t)n * Gh + g];
-    const bool sel = a.c_h_sel[(size_t)j * Gh + g];
-    const int skew = a.h_skew[g];
-    const int type = a.h_type[g];
-    int cg;
-    if (type == 0) {
-      cg = sel ? wsub(skew, c) : (c <= skew ? BIGI : 0);
-    } else if (type == 1) {
-      cg = c == 0 ? (sel ? 1 : BIGI) : 0;
-    } else {
-      cg = a.hboot[g] ? BIGI : (c > 0 ? BIGI : 0);
+  if (q == 0) {
+    const bool taint_ok =
+        kind == 1 ? ro(a.c_exist_taint_ok + (size_t)j * a.N + n) != 0
+                  : ro(a.c_tmpl_ok + (size_t)j * a.S + tm) != 0;
+    const uint8_t* effc = effd + K;
+    const uint8_t* effn = effc + K;
+    const int* cgt = a.c_gt + (size_t)j * K;
+    const int* clt = a.c_lt + (size_t)j * K;
+    bool bad = false;
+    for (int k = lane; k < K; k += 32) {
+      const size_t nk = (size_t)n * K + k;
+      const unsigned long long* vm = (const unsigned long long*)(a.valmask + nk * V);
+      const unsigned long long* em = (const unsigned long long*)(effm + k * V);
+      bool overlap = false;
+      for (int w = 0; w < V / 8; ++w) overlap = overlap | ((vm[w] & em[w]) != 0);
+      const bool both = a.defines[nk] && effd[k];
+      const bool either_conc = !a.complement[nk] || effc[k];
+      const bool crossed = imax(a.gt[nk], cgt[k]) >= imin(a.lt[nk], clt[k]);
+      const bool empty = either_conc ? !overlap : crossed;
+      const bool both_neg = a.negative[nk] && effn[k];
+      const bool rule2 = both && empty && !both_neg;
+      const bool allow = a.well_known[k] && kind == 2;
+      const bool rule1 = effd[k] && !effn[k] && !a.defines[nk] && !allow;
+      bad = bad || rule1 || rule2;
     }
-    if (!a.c_h_owner[(size_t)j * Gh + g]) cg = BIGI;
-    cap = imin(cap, cg);
-  }
-  cap = imax(warp_min(cap), 0);
-
-  if (lane == 0) {
-    float k;
-    if (kind == 1) {
-      float ke = __int_as_float(0x7f800000);
-      for (int r = 0; r < R; ++r) {
-        const float h = creq[r] > 0.f
-                            ? __fdiv_rn(__fsub_rn(a.capacity[(size_t)n * R + r],
-                                                  req[r]),
-                                        creq[r])
-                            : BIGF;
-        ke = fminf(ke, h);
+    const bool req_ok = !__any_sync(FULL, bad);
+    int cap = INT_MAX;
+    for (int g = lane; g < Gh; g += 32) {
+      const int c = a.hcount[(size_t)n * Gh + g];
+      const bool sel = a.c_h_sel[(size_t)j * Gh + g];
+      const int skew = a.h_skew[g];
+      const int type = a.h_type[g];
+      int cg;
+      if (type == 0) {
+        cg = sel ? wsub(skew, c) : (c <= skew ? BIGI : 0);
+      } else if (type == 1) {
+        cg = c == 0 ? (sel ? 1 : BIGI) : 0;
+      } else {
+        cg = a.hboot[g] ? BIGI : (c > 0 ? BIGI : 0);
       }
-      k = floorf(ke);
-    } else {
-      k = kmax;
+      if (!a.c_h_owner[(size_t)j * Gh + g]) cg = BIGI;
+      cap = imin(cap, cg);
     }
-    k = fminf(fmaxf(k, 0.0f), 1073741824.0f);
-    const int kmax_i = (int)k;
-    const bool feasible = req_ok && taint_ok && (kind == 1 || anyv);
-    a.k_eff[n] = feasible ? imin(kmax_i, cap) : 0;
-    a.feas[n] = feasible;
+    cap = imax(warp_min(cap), 0);
+    if (lane == 0) {
+      if (kind == 1) {  // an existing node's count is its fixed capacity's
+        float ke = __int_as_float(0x7f800000);
+        for (int r = 0; r < R; ++r) {
+          const float h = creq[r] > 0.f
+                              ? __fdiv_rn(__fsub_rn(a.capacity[(size_t)n * R + r],
+                                                    req[r]),
+                                          creq[r])
+                              : BIGF;
+          ke = fminf(ke, h);
+        }
+        a.kv[n] = clamp_k(floorf(ke));
+      }
+      a.fc[n] = (req_ok && taint_ok) ? cap : -1;
+    }
   }
+
+  // this part's instance types: viable (itmask, class, offering) and the
+  // count that fits; existing slots do not use them here (kind 1's count
+  // is its capacity's)
+  if (kind != 2) return;
+  unsigned long long zb, cb;
+  joined_zone_ct(a, n, zk, ck, effm, effd, &zb, &cb);
+  const uint8_t* cit = a.c_class_it + (size_t)j * T;
+  const uint8_t* itm = a.itmask + (size_t)n * T;
+  int lo, hi;
+  part_range(T, q, parts, &lo, &hi);
+  int best = -1;
+  for (int t0 = lo + lane; t0 < hi; t0 += 32 * TU) {
+    bool ok[TU];
+    float kr[TU];
+    types_at(a, t0, hi, itm, cit, zb, cb, req, creq, ok, kr);
+#pragma unroll
+    for (int u = 0; u < TU; ++u) {
+      if (ok[u]) best = imax(best, clamp_k(kr[u]));
+    }
+  }
+  best = warp_max(best);
+  if (lane == 0 && best >= 0) atomicMax(a.kv + n, best);
 }
 
 // ---------------------------------------------------------------------------
-// 3. cross-slot decisions (one block per problem)
+// 3. cross-slot decisions (one block per problem); thread tid owns the
+// contiguous slots [n0, n1), so thread order is slot order
 
-__global__ void k_decide(FfdArgs args, int j) {
-  const FfdArgs a = problem(args, blockIdx.x);
-  __shared__ int sh[33];
+__device__ __forceinline__ void decide(const FfdArgs& a, int j, Red& red,
+                                       unsigned char* region) {
   const int N = a.N;
   const int tid = threadIdx.x;
-  const int chunk = (N + blockDim.x - 1) / blockDim.x;
+  const int chunk = (N + THREADS - 1) / THREADS;
   const int n0 = imin(tid * chunk, N);
   const int n1 = imin(n0 + chunk, N);
 
@@ -733,73 +989,152 @@ __global__ void k_decide(FfdArgs args, int j) {
   const int nf = *a.next_free;
   const bool overflow0 = *a.overflow != 0;
 
-  // existing slots first-fit in slot order (exclusive prefix)
-  int local = 0;
-  for (int n = n0; n < n1; ++n) {
-    if (a.kind[n] == 1) local = wadd(local, a.k_eff[n]);
-  }
-  int run = block_excl_scan(local, sh);
-  int te_sum = 0;
-  for (int n = n0; n < n1; ++n) {
-    const int ke = a.kind[n] == 1 ? a.k_eff[n] : 0;
-    const int before = run;
-    run = wadd(run, ke);
-    const int te = imin(imax(wsub(m, before), 0), ke);
-    a.take[n] = te;
-    te_sum = wadd(te_sum, te);
-  }
-  const int rem_claims = wsub(m, block_sum(te_sum, sh));
-
-  // in-flight claims emptiest-first: binary-search water-fill
-  int hmax = INT_MIN;
-  for (int n = n0; n < n1; ++n) {
-    const int cap = a.kind[n] == 2 ? a.k_eff[n] : 0;
-    hmax = imax(hmax, cap > 0 ? a.podcount[n] : 0);
-  }
-  int hi = wadd(block_max(hmax, sh), rem_claims);
-  int lo = 0;
-  for (int it = 0; it < a.level_iters; ++it) {
-    const int mid = wadd(wadd(lo, hi), 1) >> 1;
-    int s = 0;
-    for (int n = n0; n < n1; ++n) {
-      const int cap = a.kind[n] == 2 ? a.k_eff[n] : 0;
-      if (cap > 0) s = wadd(s, imin(imax(wsub(mid, a.podcount[n]), 0), cap));
+  // each slot's record (k_eff and feasibility from the parts' fc and kv,
+  // podcount, kind, take) in shared memory when N allows (decide_bytes),
+  // else in the scratch planes; written by coalesced loads, kv reset for the
+  // next step
+  __syncthreads();  // the region may still hold the last problem's rows
+  int2* wf_smem = (int2*)region;
+  const bool staged = N <= STAGE_MAX;
+  const int P = staged_slots(N);
+  int* s_ke = (int*)(region + wf_smem_entries(N) * (int)sizeof(int2));
+  int* s_pc = s_ke + P;
+  int* s_take = s_pc + P;
+  int8_t* s_kind = (int8_t*)(s_take + P);
+  uint8_t* s_feas = (uint8_t*)(s_kind + P);
+  // where slot n's record is
+  auto at = [&](int n) { return staged ? (n % chunk) * THREADS + n / chunk : n; };
+  int* ke_of = staged ? s_ke : a.k_eff;
+  uint8_t* feas_of = staged ? s_feas : a.feas;
+  const int* pc_of = staged ? s_pc : a.podcount;
+  const int8_t* kind_of = staged ? s_kind : a.kind;
+  int* take_of = staged ? s_take : a.take;
+  constexpr int SU = 8;  // slots a thread loads at once
+  for (int n0 = tid; n0 < N; n0 += SU * THREADS) {
+    int kind[SU], pc[SU], kv[SU], fc[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int n = imin(n0 + u * THREADS, N - 1);
+      kind[u] = a.kind[n];
+      pc[u] = a.podcount[n];
+      kv[u] = a.kv[n];
+      fc[u] = a.fc[n];
     }
-    const bool ok = block_sum(s, sh) <= rem_claims;
-    lo = ok ? mid : lo;
-    hi = ok ? hi : mid - 1;
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int n = n0 + u * THREADS;
+      if (n >= N) break;
+      a.kv[n] = -1;
+      const bool fe = kind[u] != 0 && fc[u] >= 0 && (kind[u] == 1 || kv[u] >= 0);
+      const int i = at(n);
+      ke_of[i] = fe ? imin(kv[u], fc[u]) : 0;
+      feas_of[i] = fe;
+      if (staged) {
+        s_pc[i] = pc[u];
+        s_kind[i] = (int8_t)kind[u];
+      }
+    }
+  }
+  __syncthreads();
+
+  // one pass: existing capacity for the prefix, the in-flight slots that
+  // can take (cap > 0), their fullest podcount, the first feasible slot
+  int exist = 0, claims = 0, hmax = INT_MIN, first_local = N;
+  for (int n = n0; n < n1; ++n) {
+    const int i = staged ? (n - n0) * THREADS + tid : n;
+    const int kind = kind_of[i];
+    const int ke = ke_of[i];
+    if (kind == 1) exist = wadd(exist, ke);
+    const int cap = kind == 2 ? ke : 0;
+    claims += cap > 0 ? 1 : 0;
+    hmax = imax(hmax, cap > 0 ? pc_of[i] : 0);
+    if (feas_of[i] && first_local == N) first_local = n;
+  }
+  const Scan2 s1 = block_scan2(exist, claims, hmax, first_local, red);
+  const int first = s1.mn;
+  // the in-flight slots' (podcount, cap) in slot order: thread tid's are
+  // entries [s1.ex1, s1.ex1 + claims)
+  int2* wf = s1.tot1 <= WF_SMEM ? wf_smem : (int2*)a.wf;
+
+  // existing slots first-fit in slot order (exclusive prefix)
+  int run = s1.ex0, te_sum = 0, w_at = s1.ex1;
+  for (int n = n0; n < n1; ++n) {
+    const int i = staged ? (n - n0) * THREADS + tid : n;
+    const int kind = kind_of[i];
+    const int ke = ke_of[i];
+    const int kx = kind == 1 ? ke : 0;
+    const int before = run;
+    run = wadd(run, kx);
+    const int te = imin(imax(wsub(m, before), 0), kx);
+    take_of[i] = te;
+    te_sum = wadd(te_sum, te);
+    if (kind == 2 && ke > 0) wf[w_at++] = make_int2(pc_of[i], ke);
+  }
+  // (this barrier also publishes the list)
+  const int rem_claims = wsub(m, block_sum(te_sum, red));
+
+  // in-flight claims emptiest-first: level_iters rounds of the binary
+  // search for the water-fill level, DEPTH rounds a block barrier (warp w
+  // sums the fill over the list at node w's midpoint)
+  const int n_wf = s1.tot1;
+  int hi = wadd(s1.mx, rem_claims);
+  int lo = 0;
+  {
+    const int lane = tid & 31, w = tid >> 5;
+    for (int left = a.level_iters; left > 0; left -= DEPTH) {
+      const int d = imin(left, DEPTH);
+      const int nodes = (1 << d) - 1;
+      int* p = red.next();
+      if (w < nodes) {
+        const int mid = node_mid(lo, hi, w);
+        unsigned sum = 0;
+#pragma unroll 4
+        for (int i = lane; i < n_wf; i += 32) {
+          const int2 e = wf[i];
+          sum += (unsigned)imin(imax(wsub(mid, e.x), 0), e.y);
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) p[w] = (int)sum <= rem_claims;
+      }
+      __syncthreads();
+      walk(&lo, &hi, d, __ballot_sync(FULL, lane < nodes && p[imin(lane, nodes - 1)]));
+    }
   }
   const int L = lo;
   int fsum = 0, ecount = 0;
-  for (int n = n0; n < n1; ++n) {
-    const int cap = a.kind[n] == 2 ? a.k_eff[n] : 0;
-    const int f = cap > 0 ? imin(imax(wsub(L, a.podcount[n]), 0), cap) : 0;
+  for (int i = s1.ex1; i < s1.ex1 + claims; ++i) {
+    const int2 e = wf[i];
+    const int f = imin(imax(wsub(L, e.x), 0), e.y);
     fsum = wadd(fsum, f);
-    ecount += (cap > 0 && f < cap && wadd(a.podcount[n], f) == L) ? 1 : 0;
+    ecount += (f < e.y && wadd(e.x, f) == L) ? 1 : 0;
   }
-  const int rleft = wsub(rem_claims, block_sum(fsum, sh));
-  int erank = block_excl_scan(ecount, sh);
-  int first_local = N;
-  for (int n = n0; n < n1; ++n) {
-    const int cap = a.kind[n] == 2 ? a.k_eff[n] : 0;
-    const int f = cap > 0 ? imin(imax(wsub(L, a.podcount[n]), 0), cap) : 0;
-    const bool elig = cap > 0 && f < cap && wadd(a.podcount[n], f) == L;
-    const int tc = f + ((elig && erank < rleft) ? 1 : 0);
-    erank += elig ? 1 : 0;
-    a.take[n] = wadd(a.take[n], tc);  // take_exist + take_claims
-    if (a.feas[n] && first_local == N) first_local = n;
-  }
-  const int first = block_min(first_local, sh);
+  const Scan2 s2 = block_scan2(ecount, fsum, INT_MIN, INT_MAX, red);
+  const int rleft = wsub(rem_claims, s2.tot1);
+  int erank = s2.ex0;
 
-  // single-slot (affinity bootstrap) rule, then the fresh range
+  // take_exist + take_claims, then the single-slot (affinity bootstrap)
+  // rule
   int tsum = 0;
+  w_at = s1.ex1;
   for (int n = n0; n < n1; ++n) {
-    int t = a.take[n];
-    if (single) t = n == first ? imin(a.k_eff[n], m) : 0;
-    a.take[n] = t;
+    const int i = staged ? (n - n0) * THREADS + tid : n;
+    const int kind = kind_of[i];
+    const int ke = ke_of[i];
+    int t = take_of[i];
+    if (kind == 2 && ke > 0) {
+      const int2 e = wf[w_at++];
+      const int f = imin(imax(wsub(L, e.x), 0), e.y);
+      const bool elig = f < e.y && wadd(e.x, f) == L;
+      t = wadd(t, f + ((elig && erank < rleft) ? 1 : 0));
+      erank += elig ? 1 : 0;
+    }
+    if (single) t = n == first ? imin(ke, m) : 0;
+    take_of[i] = t;
     tsum = wadd(tsum, t);
   }
-  tsum = block_sum(tsum, sh);
+  tsum = block_sum(tsum, red);
+
+  // the fresh range; takes out in slot-strided (coalesced) order
   const int rem = wsub(m, tsum);
   const int new_tmpl = a.c_new_template[j];
   const bool has_template = new_tmpl >= 0 && fresh_cap > 0;
@@ -808,15 +1143,15 @@ __global__ void k_decide(FfdArgs args, int j) {
   if (single) n_new = tsum > 0 ? 0 : imin(n_new, 1);
   const long long fresh_end = (long long)nf + n_new;
   int tfsum = 0;
-  for (int n = n0; n < n1; ++n) {
+  for (int n = tid; n < N; n += THREADS) {
     int tf = 0;
     if (n >= nf && (long long)n < fresh_end) {
       tf = imin(imax(wsub(rem, (n - nf) * kstar), 0), kstar);
     }
-    a.takes[(size_t)j * N + n] = wadd(a.take[n], tf);
+    a.takes[(size_t)j * N + n] = wadd(take_of[at(n)], tf);
     tfsum = wadd(tfsum, tf);
   }
-  tfsum = block_sum(tfsum, sh);
+  tfsum = block_sum(tfsum, red);
   if (tid == 0) {
     const int unplaced_step = wsub(rem, tfsum);
     const int placed = wsub(m, unplaced_step);
@@ -826,66 +1161,75 @@ __global__ void k_decide(FfdArgs args, int j) {
     *a.carry = carry_after;
     *a.next_free = wadd(nf, n_new);
     *a.overflow = (overflow0 || fresh_end > (long long)N) ? 1 : 0;
+    // the fresh slots join the open range of the slot stages
+    atomicMax(a.open, (int)(fresh_end < (long long)N ? fresh_end : N));
     a.sc[SC_NF_OLD] = nf;
     a.sc[SC_NNEW] = n_new;
   }
 }
 
 // ---------------------------------------------------------------------------
-// 4. slot-parallel merge (one warp per slot, a block row per problem)
+// 4. slot merge: every part of a joined slot updates its types' itmask, and
+// part 0 the rest of the slot; the slots that did not join only carry their
+// requests over (merge_requests)
 
-__global__ void k_merge(FfdArgs args, int j) {
-  const FfdArgs a = problem(args, blockIdx.y);
-  const int n = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (n >= a.N) return;
+__device__ __forceinline__ void merge(const FfdArgs& a, int j, int n, int q,
+                                      int parts, int lane) {
   const int K = a.K, V = a.V, T = a.T, R = a.R;
   const int nf = a.sc[SC_NF_OLD];
   const int nn = a.sc[SC_NNEW];
-  const int s = a.sc[SC_S];
   const bool fresh = n >= nf && (long long)n < (long long)nf + nn;
   const int tk = a.takes[(size_t)j * a.N + n];
-  const bool joined = a.take[n] > 0 || fresh;
+  // a slot that is not fresh took exactly its takes entry (no fresh share)
+  if (!(fresh || tk > 0)) return;
+  const int s = a.sc[SC_S];
   const float tkf = (float)tk;
   const float* creq = a.c_requests + (size_t)j * R;
-  float* req = a.requests + (size_t)n * R;
-
-  if (!joined) {
-    // requests = requests + 0 * r on every slot, as in the plain version
-    for (int r = lane; r < R; r += 32) req[r] = __fadd_rn(req[r], __fmul_rn(tkf, creq[r]));
-    return;
-  }
+  const float* req = reqs(a, j) + (size_t)n * R;
   const uint8_t* effm = a.eff;
   const uint8_t* effd = a.eff + K * V;
-  const uint8_t* effc = effd + K;
-  const uint8_t* effn = effc + K;
   const uint8_t* cit = a.c_class_it + (size_t)j * T;
   uint8_t* itm = a.itmask + (size_t)n * T;
 
-  // itmask, from the pre-merge planes and requests
+  // itmask over this part's types, from the pre-merge planes and requests
+  int lo, hi;
+  part_range(T, q, parts, &lo, &hi);
   if (fresh) {
     const uint8_t* tit = a.t_it + (size_t)s * T;
-    for (int t = lane; t < T; t += 32) {
-      itm[t] = tit[t] && cit[t] && a.k_fresh[t] >= tkf && a.off_fresh[t];
+#pragma unroll 8
+    for (int t = lo + lane; t < hi; t += 32) {
+      itm[t] = (tit[t] != 0) & (cit[t] != 0) & (a.k_fresh[t] >= tkf) &
+               (a.off_fresh[t] != 0);
     }
   } else {
     unsigned long long zb, cb;
-    joined_zone_ct(a, n, effm, effd, &zb, &cb);
-    for (int t = lane; t < T; t += 32) {
-      if (!itm[t]) continue;
-      itm[t] = cit[t] && k_raw_at(a, t, req, creq) >= tkf &&
-               offering_ok(a, t, zb, cb);
+    joined_zone_ct(a, n, ro(a.zone_key), ro(a.ct_key), effm, effd, &zb, &cb);
+    for (int t0 = lo + lane; t0 < hi; t0 += 32 * TU) {
+      bool ok[TU];
+      float kr[TU];
+      types_at(a, t0, hi, itm, cit, zb, cb, req, creq, ok, kr);
+#pragma unroll
+      for (int u = 0; u < TU; ++u) {
+        if (t0 + 32 * u < hi) itm[t0 + 32 * u] = ok[u] && kr[u] >= tkf;
+      }
     }
   }
+  if (q != 0) return;
   __syncwarp();
 
   // requirement planes: intersect-on-add over the keys the class defines
-  for (int e = lane; e < K * V; e += 32) {
-    const int k = e / V, v = e % V;
-    const size_t idx = ((size_t)n * K + k) * V + v;
-    const bool base = fresh ? a.t_mask[((size_t)s * K + k) * V + v] != 0
-                            : a.valmask[idx] != 0;
-    a.valmask[idx] = effd[k] ? (base && effm[e]) : base;
+  const uint8_t* effc = effd + K;
+  const uint8_t* effn = effc + K;
+  {
+    unsigned long long* vm = (unsigned long long*)(a.valmask + (size_t)n * K * V);
+    const unsigned long long* tm =
+        (const unsigned long long*)(a.t_mask + (size_t)s * K * V);
+    const unsigned long long* em = (const unsigned long long*)effm;
+    for (int w = lane; w < K * V / 8; w += 32) {
+      unsigned long long base = fresh ? ro(tm + w) : vm[w];
+      if (effd[w * 8 / V]) base &= em[w];
+      vm[w] = base;
+    }
   }
   const int* cgt = a.c_gt + (size_t)j * K;
   const int* clt = a.c_lt + (size_t)j * K;
@@ -904,14 +1248,19 @@ __global__ void k_merge(FfdArgs args, int j) {
     a.gt[nk] = upd ? imax(bg, cgt[k]) : bg;
     a.lt[nk] = upd ? imin(bl, clt[k]) : bl;
   }
+  float* req_next = reqs(a, j + 1) + (size_t)n * R;
   for (int r = lane; r < R; r += 32) {
     const float base = fresh ? a.t_overhead[(size_t)s * R + r] : req[r];
-    req[r] = __fadd_rn(base, __fmul_rn(tkf, creq[r]));
+    req_next[r] = __fadd_rn(base, __fmul_rn(tkf, creq[r]));
     if (fresh) a.capacity[(size_t)n * R + r] = BIGF;
   }
+  // hostname counts, and the per-group flag of a positive count (counts
+  // never fall: tk >= 0)
   for (int g = lane; g < a.Gh; g += 32) {
     if (a.c_h_sel[(size_t)j * a.Gh + g]) {
-      a.hcount[(size_t)n * a.Gh + g] = wadd(a.hcount[(size_t)n * a.Gh + g], tk);
+      const int c = wadd(a.hcount[(size_t)n * a.Gh + g], tk);
+      a.hcount[(size_t)n * a.Gh + g] = c;
+      if (c > 0) a.hflag[g] = 1;
     }
   }
   if (lane == 0) {
@@ -932,8 +1281,10 @@ __global__ void k_merge(FfdArgs args, int j) {
       const size_t nk = (size_t)n * K + k;
       if (!(a.defines[nk] && !a.complement[nk])) continue;
       const uint8_t* row = a.valmask + nk * V;
-      int rc = 0;
-      for (int v = 0; v < V; ++v) rc += row[v] ? 1 : 0;
+      int rc = 0;  // the row's bytes are 0 or 1
+      for (int w = 0; w < V / 8; ++w) {
+        rc += __popcll(((const unsigned long long*)row)[w]);
+      }
       if (a.z_type[g] != 1 && rc != 1) continue;
       for (int v = 0; v < V; ++v) {
         if (row[v]) atomicAdd(a.zcount + (size_t)g * V + v, tk);
@@ -942,9 +1293,118 @@ __global__ void k_merge(FfdArgs args, int j) {
   }
 }
 
-// the slot-parallel kernels' grid: warp blocks over slots x problems
-dim3 warp_grid(const FfdArgs& a) {
-  return dim3((a.N + (WARP_BLOCK / 32) - 1) / (WARP_BLOCK / 32), a.B);
+// requests = requests + 0 * r for every slot that did not join, as in the
+// plain version (takes[j, n] is 0 there), one element per thread
+__device__ __forceinline__ void merge_requests(const FfdArgs& args, int j,
+                                               long long e) {
+  const int N = args.N, R = args.R;
+  const long long per = (long long)N * R;
+  const FfdArgs a = problem(args, (int)(e / per));
+  const int n = (int)(e % per) / R, r = (int)(e % R);
+  const int nf = a.sc[SC_NF_OLD];
+  const int nn = a.sc[SC_NNEW];
+  const bool fresh = n >= nf && (long long)n < (long long)nf + nn;
+  const int tk = a.takes[(size_t)j * N + n];
+  if (fresh || tk > 0) return;
+  const size_t i = (size_t)n * R + r;
+  reqs(a, j + 1)[i] = __fadd_rn(reqs(a, j)[i],
+                                __fmul_rn((float)tk, a.c_requests[(size_t)j * R + r]));
+}
+
+// ---------------------------------------------------------------------------
+// the scan: J steps of four stages for all B problems, grid barriers between
+
+__global__ void __launch_bounds__(THREADS, 1) k_ffd_scan(FfdArgs args) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Red red{(int*)smem_raw, 0};
+  unsigned char* region = smem_raw + RED_BYTES;
+  const int G = gridDim.x;
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)G * WARPS;
+  // warp rank, blocks interleaved; a thread's rank likewise
+  const long long rank = (long long)(threadIdx.x >> 5) * G + blockIdx.x;
+  const long long trank = rank * 32 + lane, threads = warps * 32;
+  const int N = args.N, B = args.B, T = args.T;
+
+  // scan start: the open bound, which hostname groups have a positive count
+  // on some slot, and the zones of each (type, capacity type) with an
+  // available offering
+  for (long long e = trank; e < (long long)B * N; e += threads) {
+    if (args.kind[e] != 0) atomicMax(args.open, (int)(e % N) + 1);
+  }
+  const long long hcells = (long long)B * N * args.Gh;
+  for (long long e = trank; e < hcells; e += threads) {
+    if (args.hcount[e] > 0) {
+      const long long b = e / ((long long)N * args.Gh);
+      args.hflag[b * args.Gh + e % args.Gh] = 1;
+    }
+  }
+  const long long ocells = (long long)B * T * args.CT;
+  for (long long e = trank; e < ocells; e += threads) {
+    const long long bt = e / args.CT;
+    const int c = (int)(e % args.CT);
+    const uint8_t* row = args.off_avail + bt * args.Z * args.CT;
+    unsigned long long zones = 0ull;
+    for (int z = 0; z < args.Z; ++z) {
+      if (row[z * args.CT + c]) zones |= 1ull << z;
+    }
+    args.offm[e] = zones;
+  }
+  grid.sync();
+
+  for (int j = 0; j < args.J; ++j) {
+    stamp(args, j, 0);
+    for (int b = blockIdx.x; b < B; b += G) {
+      prologue(problem(args, b), j, region);
+    }
+    grid.sync();
+    stamp(args, j, 1);
+    {
+      const long long slots = (long long)B * *args.open;
+      const int parts = parts_of(T, slots, warps);
+      const int open = *args.open;
+      for (long long i = rank; i < slots * parts; i += warps) {
+        const long long sl = i / parts;
+        feasible(problem(args, (int)(sl / open)), j, (int)(sl % open),
+                 (int)(i % parts), parts, lane);
+      }
+      // the fresh-slot rows, from the highest thread ranks down (the slot
+      // items take the lowest warp ranks)
+      for (long long e = threads - 1 - trank; e < (long long)B * T;
+           e += threads) {
+        fresh_row(problem(args, (int)(e / T)), j, (int)(e % T));
+      }
+    }
+    grid.sync();
+    stamp(args, j, 2);
+    for (int b = blockIdx.x; b < B; b += G) {
+      decide(problem(args, b), j, red, region);
+    }
+    grid.sync();
+    stamp(args, j, 3);
+    {
+      const long long slots = (long long)B * *args.open;
+      const int parts = parts_of(T, slots, warps);
+      const int open = *args.open;
+      for (long long i = rank; i < slots * parts; i += warps) {
+        const long long sl = i / parts;
+        merge(problem(args, (int)(sl / open)), j, (int)(sl % open),
+              (int)(i % parts), parts, lane);
+      }
+      for (long long e = trank; e < (long long)B * N * args.R; e += threads) {
+        merge_requests(args, j, e);
+      }
+    }
+    grid.sync();
+    stamp(args, j, 4);
+  }
+  // the last step's requests into the state's plane
+  if (args.J & 1) {
+    for (long long e = trank; e < (long long)B * N * args.R; e += threads) {
+      args.requests[e] = args.req_alt[e];
+    }
+  }
 }
 
 }  // namespace
@@ -953,36 +1413,48 @@ extern "C" {
 
 int ffd_args_size() { return (int)sizeof(FfdArgs); }
 
-int ffd_prologue_smem(int K, int V, int Gh, int Gz) {
-  return (Gh + 4 * V) * (int)sizeof(int) + Gz * V + K * V + 3 * K;
+// dynamic shared memory of a block at these widths
+int ffd_scan_smem(int N, int K, int V, int Gz) {
+  FfdArgs a{};
+  a.N = N;
+  a.K = K;
+  a.V = V;
+  a.Gz = Gz;
+  return scan_smem(a);
 }
 
-// One entry per kernel; class step j runs the four in this order on
-// `stream`, with no host synchronisation, for all B problems of `args`.
-// Each launches its kernel once and returns cudaGetLastError() (0 on
-// success).
-int launch_k_prologue(const FfdArgs* args, int j, cudaStream_t stream) {
-  const FfdArgs a = *args;
-  const int smem = ffd_prologue_smem(a.K, a.V, a.Gh, a.Gz);
-  k_prologue<<<a.B, 256, smem, stream>>>(a, j);
-  return (int)cudaGetLastError();
-}
-
-int launch_k_feasible(const FfdArgs* args, int j, cudaStream_t stream) {
-  const FfdArgs a = *args;
-  k_feasible<<<warp_grid(a), WARP_BLOCK, 0, stream>>>(a, j);
-  return (int)cudaGetLastError();
-}
-
-int launch_k_decide(const FfdArgs* args, int j, cudaStream_t stream) {
-  const FfdArgs a = *args;
-  k_decide<<<a.B, DECIDE_THREADS, 0, stream>>>(a, j);
-  return (int)cudaGetLastError();
-}
-
-int launch_k_merge(const FfdArgs* args, int j, cudaStream_t stream) {
-  const FfdArgs a = *args;
-  k_merge<<<warp_grid(a), WARP_BLOCK, 0, stream>>>(a, j);
+// The whole scan of `args` (all B problems, all J class steps) as one
+// cooperative launch on `stream`, with no host synchronisation. The grid is
+// every block that fits on the device at once (the occupancy calculator x
+// the SM count), or max_blocks if that is positive and smaller; the blocks
+// launched go to *blocks. Returns 0 on success, else a cudaError_t.
+int ffd_scan(const FfdArgs* args, int max_blocks, cudaStream_t stream,
+             int* blocks) {
+  FfdArgs a = *args;
+  const int smem = scan_smem(a);
+  cudaError_t rc = cudaFuncSetAttribute(
+      (const void*)k_ffd_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (rc != cudaSuccess) return (int)rc;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return (int)rc;
+  rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return (int)rc;
+  rc = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (!coop) return (int)cudaErrorNotSupported;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, k_ffd_scan, THREADS, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  int grid = per_sm * sms;
+  if (max_blocks > 0 && max_blocks < grid) grid = max_blocks;
+  *blocks = grid;
+  void* params[] = {&a};
+  rc = cudaLaunchCooperativeKernel((const void*)k_ffd_scan, dim3(grid),
+                                   dim3(THREADS), params, (size_t)smem,
+                                   stream);
+  if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }
 

@@ -6,12 +6,12 @@ Replaces both routes of ``karpenter_core_tpu/ops/pallas_ffd.py``'s
 batched one (``_pallas_ffd_solve_batched_impl``,
 ``pallas_ffd_solve_batched[_donated]``). The kernel is
 ``csrc/ffd_step.cu``; its specification and oracle is the plain
-``ops/ffd.ffd_step``. The source note there says what bounds a step on the
-card (latency of the dependent stages and of the cross-slot decisions; the
-~11 MB slot state of the 50k-pod problem stays in L2) and how the design
-answers it (four kernels launched per step on the current stream, slot
-state updated in place, no host synchronisation inside the scan, the
-problem axis in the grid).
+``ops/ffd.ffd_step``. The source note there says what bounds a scan on the
+card (latency: J x 4 grid barriers, the serial cross-slot decisions and
+the per-slot chains of loads; the ~11 MB slot state of the 50k-pod problem
+stays in L2) and how the design answers it (one persistent cooperative
+launch per scan, a kept per-hostname-group flag instead of a rescan of the
+counts, water-fill searches with one block barrier per four rounds).
 
 Build: ``nvcc`` compiles the source into a shared library with a C
 interface at first use, into ``karpenter_core_tpu_torch/build/`` (listed
@@ -20,14 +20,14 @@ loads it. Nothing is built or imported at module import.
 
 ``cuda_ffd_solve`` (one problem) and ``cuda_ffd_solve_batched`` (B stacked
 problems) take the plain version for tensors on the CPU, launch the
-kernels for tensors on a CUDA device, and raise for anything else; on the
+kernel for tensors on a CUDA device, and raise for anything else; on the
 card they never run the plain version. A solo scan is the batched kernel
-at B = 1. ``counter.launches[name]`` counts the launches of each of the
-four kernels (``KERNELS``): each C entry ``launch_<name>`` launches its
-kernel once, for all B problems, and the wrapper adds one to that
-kernel's count after the entry reports success. ``counter.rows`` counts
-the problem rows the launched scans served (B per scan, pad rows
-included), which tells one batched scan from B solo ones.
+at B = 1. The C entry ``ffd_scan`` launches the kernel (``KERNELS``) once
+for the whole scan, all B problems and all J class steps, and the wrapper
+adds one to ``counter.launches`` after the entry reports success.
+``counter.rows`` counts the problem rows the launched scans served (B per
+scan, pad rows included), which tells one batched scan from B solo ones;
+``counter.blocks`` is the grid of the last launch.
 """
 from __future__ import annotations
 
@@ -59,18 +59,18 @@ NVCC_FLAGS = (
 )
 # Z and CT (zone and capacity-type vocab widths) ride 64-bit masks
 _MAX_ZONE_CT = 64
-_PROLOGUE_SMEM_MAX = 48 * 1024
-# the problem axis is gridDim.y of the slot-parallel kernels
-_MAX_PROBLEMS = 65535
+# dynamic shared memory a block can have on Hopper
+_SMEM_MAX = 227 * 1024
 
 
-# the step's kernels, in launch order (csrc/ffd_step.cu)
-KERNELS = ("k_prologue", "k_feasible", "k_decide", "k_merge")
+# the scan's one kernel (csrc/ffd_step.cu), launched by the C entry ffd_scan
+KERNELS = ("k_ffd_scan",)
 
 
 class LaunchCounter:
-    """Launches on the card of each of the step's kernels, and the problem
-    rows the launched scans served; plain integers."""
+    """Launches of the scan kernel on the card, the problem rows the
+    launched scans served, and the grid (blocks) of the last launch; plain
+    integers."""
 
     def __init__(self) -> None:
         self.reset()
@@ -78,6 +78,7 @@ class LaunchCounter:
     def reset(self) -> None:
         self.launches = dict.fromkeys(KERNELS, 0)
         self.rows = 0
+        self.blocks = 0
 
     def total(self) -> int:
         return sum(self.launches.values())
@@ -105,10 +106,12 @@ _POINTERS = (
     "takes", "unplaced",
     # scratch
     "sc", "eff", "hboot", "k_fresh", "off_fresh", "k_eff", "feas", "take",
+    "hflag", "wf", "offm", "req_alt", "kv", "fc", "open", "stamps",
 )
 _DIMS = ("N", "K", "V", "T", "R", "S", "Z", "CT", "Gh", "Gz", "level_iters",
          "B", "J", "pad_")
 _SC_COUNT = 7  # csrc/ffd_step.cu SC_COUNT_
+_STAMPS = 5  # csrc/ffd_step.cu STAMPS: step start, then each stage's end
 
 
 class _Args(ctypes.Structure):
@@ -160,14 +163,13 @@ def build() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         lib.ffd_args_size.argtypes = []
         lib.ffd_args_size.restype = ctypes.c_int
-        lib.ffd_prologue_smem.argtypes = [ctypes.c_int] * 4
-        lib.ffd_prologue_smem.restype = ctypes.c_int
-        for name in KERNELS:
-            entry = getattr(lib, f"launch_{name}")
-            entry.argtypes = [
-                ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p
-            ]
-            entry.restype = ctypes.c_int
+        lib.ffd_scan_smem.argtypes = [ctypes.c_int] * 4
+        lib.ffd_scan_smem.restype = ctypes.c_int
+        lib.ffd_scan.argtypes = [
+            ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.ffd_scan.restype = ctypes.c_int
         lib.ffd_error_string.argtypes = [ctypes.c_int]
         lib.ffd_error_string.restype = ctypes.c_char_p
         if lib.ffd_args_size() != ctypes.sizeof(_Args):
@@ -192,37 +194,48 @@ def _check(name, x, dtype, shape, device):
 
 
 def cuda_ffd_solve(state: SlotState, steps: ClassStep, statics: FFDStatics,
-                   level_iters: int = LEVEL_ITERS):
+                   level_iters: int = LEVEL_ITERS, *, _max_blocks: int = 0,
+                   _stamps: torch.Tensor | None = None):
     """Scan all stacked class steps; returns (final state, takes [J, N]
     int32, unplaced [J] int32) exactly as ``ops/ffd.ffd_solve``. The input
-    state is not modified (the kernels update a copy in place)."""
+    state is not modified (the kernel updates a copy in place).
+
+    On the card only: ``_max_blocks`` > 0 caps the grid (a check that the
+    kernel's loops are right when the items far exceed it), and
+    ``_stamps``, a [J, 5] int64 tensor on the device, receives the device
+    clock in ns at the start of each step and after each of its four
+    stages."""
     dev = state.kind.device
     if dev.type == "cpu":
         return ffd_ops.ffd_solve(state, steps, statics, level_iters)
     if dev.type != "cuda":
         raise ValueError(f"cuda_ffd_solve: unsupported device {dev}")
-    return _launch(state, steps, statics, level_iters)
+    return _launch(state, steps, statics, level_iters, _max_blocks, _stamps)
 
 
 def cuda_ffd_solve_batched(state: SlotState, steps: ClassStep,
                            statics: FFDStatics,
-                           level_iters: int = LEVEL_ITERS):
+                           level_iters: int = LEVEL_ITERS, *,
+                           _max_blocks: int = 0,
+                           _stamps: torch.Tensor | None = None):
     """Scan B stacked problems (every leaf with a leading [B] axis);
     returns (final states [B, ...], takes [B, J, N] int32, unplaced [B, J]
     int32) exactly as ``ops/ffd.ffd_solve_batched``. On the card the
-    kernels write the final states into ``state``'s own tensors, which are
+    kernel writes the final states into ``state``'s own tensors, which are
     returned: the caller hands a fresh stack (``_run_kernel_batched`` does)
-    and keeps no other use of it."""
+    and keeps no other use of it. ``_max_blocks`` and ``_stamps`` as in
+    ``cuda_ffd_solve``."""
     dev = state.kind.device
     if dev.type == "cpu":
         return ffd_ops.ffd_solve_batched(state, steps, statics, level_iters)
     if dev.type != "cuda":
         raise ValueError(f"cuda_ffd_solve_batched: unsupported device {dev}")
-    return _launch_batched(state, steps, statics, level_iters)
+    return _launch_batched(state, steps, statics, level_iters, _max_blocks,
+                           _stamps)
 
 
 def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
-            level_iters: int):
+            level_iters: int, max_blocks: int = 0, stamps=None):
     """The solo scan on the card: the batched kernel at B = 1, over a copy
     of the state."""
     st = SlotState(*(x.clone() for x in state))
@@ -232,21 +245,21 @@ def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
                             for x in tree))
 
     _, takes, unplaced = _launch_batched(one(st), one(steps), one(statics),
-                                         level_iters)
+                                         level_iters, max_blocks, stamps)
     return st, takes[0], unplaced[0]
 
 
 @contextlib.contextmanager
 def _device_stream(dev):
-    """The current stream of ``dev`` as a handle for the C entries."""
+    """The current stream of ``dev`` as a handle for the C entry."""
     with torch.cuda.device(dev):
         yield ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _launch_batched(state: SlotState, steps: ClassStep, statics: FFDStatics,
-                    level_iters: int):
-    """The scan on the card: J class steps, four kernels each, every launch
-    serving all B problems; the state is updated in place."""
+                    level_iters: int, max_blocks: int = 0, stamps=None):
+    """The scan on the card: one launch for all J class steps of all B
+    problems; the state is updated in place."""
     dev = state.kind.device
     if steps.topo_rank is not None:
         raise NotImplementedError(
@@ -261,7 +274,7 @@ def _launch_batched(state: SlotState, steps: ClassStep, statics: FFDStatics,
     S = statics.tmpl_it.shape[1]
     _, _, Z, CT = statics.off_avail.shape
     J = steps.count.shape[1]
-    if B <= 0 or B > _MAX_PROBLEMS:
+    if B <= 0:
         raise ValueError(f"cuda_ffd_solve_batched: {B} problem rows")
     if N <= 0:
         raise ValueError(f"cuda_ffd_solve: {N} slots")
@@ -271,9 +284,14 @@ def _launch_batched(state: SlotState, steps: ClassStep, statics: FFDStatics,
                 torch.empty((B, 0), dtype=torch.int32, device=dev))
     if Z > _MAX_ZONE_CT or CT > _MAX_ZONE_CT:
         raise ValueError(f"zone/capacity-type widths {Z}/{CT} exceed 64")
+    # the kernel reads value rows as 8-byte words and request rows as float4
+    # (the prepare buckets both widths to powers of two >= 8 and >= 4)
+    if V % 8 or R % 4:
+        raise ValueError(f"value width {V} / resource width {R} not a"
+                         " multiple of 8 / 4")
     lib = build()
-    if lib.ffd_prologue_smem(K, V, Gh, Gz) > _PROLOGUE_SMEM_MAX:
-        raise ValueError("prologue shared memory above 48 KB")
+    if lib.ffd_scan_smem(N, K, V, Gz) > _SMEM_MAX:
+        raise ValueError("the scan's shared memory exceeds 227 KB a block")
 
     b, i8, i32, f32 = torch.bool, torch.int8, torch.int32, torch.float32
     p = {}
@@ -356,25 +374,32 @@ def _launch_batched(state: SlotState, steps: ClassStep, statics: FFDStatics,
         k_eff=torch.empty((B, N), dtype=i32, device=dev),
         feas=torch.empty((B, N), dtype=torch.uint8, device=dev),
         take=torch.empty((B, N), dtype=i32, device=dev),
+        hflag=torch.zeros((B, Gh), dtype=torch.uint8, device=dev),
+        wf=torch.empty((B, 2 * N), dtype=i32, device=dev),
+        offm=torch.empty((B, T * CT), dtype=torch.int64, device=dev),
+        req_alt=torch.empty((B, N * R), dtype=f32, device=dev),
+        kv=torch.full((B, N), -1, dtype=i32, device=dev),
+        fc=torch.empty((B, N), dtype=i32, device=dev),
+        open=torch.zeros((1,), dtype=i32, device=dev),
     )
     p["takes"] = takes.data_ptr()
     p["unplaced"] = unplaced.data_ptr()
     for name, x in scratch.items():
         p[name] = x.data_ptr()
+    p["stamps"] = (None if stamps is None else
+                   _check("stamps", stamps, torch.int64, (J, _STAMPS), dev))
     args = _Args(
         **p, N=N, K=K, V=V, T=T, R=R, S=S, Z=Z, CT=CT, Gh=Gh, Gz=Gz,
         level_iters=int(level_iters), B=B, J=J, pad_=0,
     )
-    entries = [(name, getattr(lib, f"launch_{name}")) for name in KERNELS]
+    blocks = ctypes.c_int(0)
     with _device_stream(dev) as stream:
-        for j in range(J):
-            for name, entry in entries:
-                rc = entry(ctypes.byref(args), j, stream)
-                if rc != 0:
-                    raise RuntimeError(
-                        f"{name} launch failed at step {j}:"
-                        f" {lib.ffd_error_string(rc).decode()}"
-                    )
-                counter.launches[name] += 1
+        rc = lib.ffd_scan(ctypes.byref(args), int(max_blocks), stream,
+                          ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(
+            f"ffd_scan launch failed: {lib.ffd_error_string(rc).decode()}")
+    counter.launches[KERNELS[0]] += 1
     counter.rows += B
+    counter.blocks = blocks.value
     return state, takes, unplaced

@@ -15,12 +15,14 @@
   shape key splits on backend and on device.
 * ``ops/cuda_ffd.cuda_ffd_solve_batched`` takes the plain version for CPU
   tensors and rejects other devices; its card path, with the kernel
-  library mocked, launches each of the four kernels once per class step
-  for all B problems, counts B rows, and never runs the plain version.
+  library mocked, makes one C call and one launch per scan for all B
+  problems and J class steps, counts B rows, passes the grid cap and the
+  stamp buffer through, and never runs the plain version.
 
 The CUDA kernel itself runs only on the card (``chip_smoke.py``).
 """
 import ast
+import ctypes
 import contextlib
 import copy
 import dataclasses
@@ -377,23 +379,24 @@ def test_batched_card_path_needs_rows(monkeypatch):
 
 
 class _FakeLib:
-    """The kernel library's C surface, recording each launch."""
+    """The kernel library's C surface, recording each scan it launches."""
+
+    BLOCKS = 132
 
     def __init__(self):
         self.calls = []
-        for name in cuda_ffd.KERNELS:
-            setattr(self, f"launch_{name}", self._entry(name))
 
-    def _entry(self, name):
-        def launch(args_ref, j, stream):
-            args = args_ref._obj
-            self.calls.append((name, j, args.B, args.J, args.valmask,
-                               args.takes))
-            return 0
-        return launch
+    def ffd_scan(self, args_ref, max_blocks, stream, blocks_ref):
+        args = args_ref._obj
+        self.calls.append(dict(B=args.B, J=args.J, valmask=args.valmask,
+                               takes=args.takes, stamps=args.stamps,
+                               max_blocks=max_blocks))
+        blocks_ref._obj.value = (min(max_blocks, self.BLOCKS) if max_blocks
+                                 else self.BLOCKS)
+        return 0
 
     @staticmethod
-    def ffd_prologue_smem(K, V, Gh, Gz):
+    def ffd_scan_smem(N, K, V, Gz):
         return 0
 
     @staticmethod
@@ -401,25 +404,32 @@ class _FakeLib:
         return b"fake"
 
 
-def test_batched_card_path_launches_each_kernel_once_per_step(monkeypatch):
-    """With the library mocked, one batched scan of B problems and J steps
-    makes J launches of each kernel (not J x B), counts B rows, hands the
-    kernels the stacked tensors, and never runs the plain version."""
-    init, steps, statics, li = _wrapper_inputs()
-    B, J = steps.count.shape
+def _fake_card(monkeypatch):
     lib = _FakeLib()
     _forbid_plain(monkeypatch)
     monkeypatch.setattr(cuda_ffd, "build", lambda: lib)
     monkeypatch.setattr(cuda_ffd, "_device_stream",
                         lambda dev: contextlib.nullcontext(None))
     cuda_ffd.counter.reset()
+    return lib
+
+
+def test_batched_card_path_launches_each_kernel_once_per_step(monkeypatch):
+    """With the library mocked, one batched scan of B problems and J steps
+    is one C call and one launch of the scan kernel, which walks all J
+    steps itself (not J launches, nor J x B); it counts B rows and the
+    grid, hands the kernel the stacked tensors, and never runs the plain
+    version."""
+    init, steps, statics, li = _wrapper_inputs()
+    B, J = steps.count.shape
+    lib = _fake_card(monkeypatch)
     _, takes, unplaced = cuda_ffd._launch_batched(init, steps, statics, li)
-    assert cuda_ffd.counter.launches == dict.fromkeys(cuda_ffd.KERNELS, J)
+    assert cuda_ffd.counter.launches == dict.fromkeys(cuda_ffd.KERNELS, 1)
     assert cuda_ffd.counter.rows == B == 4
-    assert [c[:2] for c in lib.calls] == [
-        (name, j) for j in range(J) for name in cuda_ffd.KERNELS]
-    assert {c[2:] for c in lib.calls} == {
-        (B, J, init.valmask.data_ptr(), takes.data_ptr())}
+    assert cuda_ffd.counter.blocks == _FakeLib.BLOCKS
+    assert lib.calls == [dict(B=B, J=J, valmask=init.valmask.data_ptr(),
+                              takes=takes.data_ptr(), stamps=None,
+                              max_blocks=0)]
     assert takes.shape == (B, J, init.kind.shape[1])
     assert unplaced.shape == (B, J)
     cuda_ffd.counter.reset()
@@ -429,19 +439,62 @@ def test_solo_card_path_is_the_batched_kernel_at_one_row(monkeypatch):
     init, steps, statics, li = _wrapper_inputs()
     row = [tffd._row(t, 0) for t in (init, steps, statics)]
     J = row[1].count.shape[0]
-    lib = _FakeLib()
-    _forbid_plain(monkeypatch)
-    monkeypatch.setattr(cuda_ffd, "build", lambda: lib)
-    monkeypatch.setattr(cuda_ffd, "_device_stream",
-                        lambda dev: contextlib.nullcontext(None))
-    cuda_ffd.counter.reset()
+    lib = _fake_card(monkeypatch)
     state, takes, unplaced = cuda_ffd._launch(*row, li)
-    assert cuda_ffd.counter.launches == dict.fromkeys(cuda_ffd.KERNELS, J)
+    assert cuda_ffd.counter.launches == dict.fromkeys(cuda_ffd.KERNELS, 1)
     assert cuda_ffd.counter.rows == 1
-    assert {c[2:4] for c in lib.calls} == {(1, J)}
+    assert [(c["B"], c["J"]) for c in lib.calls] == [(1, J)]
     assert takes.shape == (J, row[0].kind.shape[0]) and unplaced.shape == (J,)
     for a, b in zip(state, row[0]):  # a copy, untouched by the fake
         assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    cuda_ffd.counter.reset()
+
+
+def test_card_path_passes_grid_cap_and_stamps(monkeypatch):
+    """The private grid cap and the [J, 5] int64 stamp buffer reach the C
+    entry (the buffer's address; null when absent); a buffer of another
+    shape is refused before any launch."""
+    init, steps, statics, li = _wrapper_inputs()
+    B, J = steps.count.shape
+    lib = _fake_card(monkeypatch)
+    stamps = torch.zeros((J, 5), dtype=torch.int64)
+    cuda_ffd._launch_batched(init, steps, statics, li, 2, stamps)
+    assert lib.calls[-1]["max_blocks"] == 2
+    assert lib.calls[-1]["stamps"] == stamps.data_ptr()
+    assert cuda_ffd.counter.blocks == 2
+    with pytest.raises(ValueError, match="stamps"):
+        cuda_ffd._launch_batched(init, steps, statics, li, 0,
+                                 torch.zeros((J, 4), dtype=torch.int64))
+    assert len(lib.calls) == 1
+    assert cuda_ffd.counter.launches == dict.fromkeys(cuda_ffd.KERNELS, 1)
+    cuda_ffd.counter.reset()
+
+
+def test_card_path_scratch_starts_as_the_kernel_expects(monkeypatch):
+    """The kernel sets the hostname flags and the open bound only upward
+    and combines its type parts by atomicMax, so the wrapper hands it those
+    planes zeroed (flags, open bound) and at -1 (best counts)."""
+    init, steps, statics, li = _wrapper_inputs()
+    B, N = init.kind.shape
+    lib = _fake_card(monkeypatch)
+    seen = {}
+
+    def scan(args_ref, max_blocks, stream, blocks_ref):
+        args = args_ref._obj
+        for name, n, dt in (("hflag", B * init.hcount.shape[2], torch.uint8),
+                            ("open", 1, torch.int32),
+                            ("kv", B * N, torch.int32)):
+            addr = getattr(args, name)
+            seen[name] = torch.frombuffer(
+                (ctypes.c_byte * (n * dt.itemsize)).from_address(addr),
+                dtype=dt).clone()
+        blocks_ref._obj.value = 1
+        return 0
+
+    monkeypatch.setattr(lib, "ffd_scan", scan)
+    cuda_ffd._launch_batched(init, steps, statics, li)
+    assert not seen["hflag"].any() and not seen["open"].any()
+    assert bool((seen["kv"] == -1).all())
     cuda_ffd.counter.reset()
 
 
@@ -478,12 +531,15 @@ def test_args_struct_matches_the_kernel_source():
 
 
 def test_problem_axis_is_in_every_grid():
+    """One launch serves every problem: the per-problem stages take problem
+    b on block b mod gridDim.x, and the slot stages take (problem, slot,
+    part) items in a grid-stride loop, so B x N may exceed the grid."""
     src = cuda_ffd.SOURCE.read_text()
-    assert "k_prologue<<<a.B," in src and "k_decide<<<a.B," in src
-    assert "k_feasible<<<warp_grid(a)," in src
-    assert "k_merge<<<warp_grid(a)," in src
-    assert re.search(r"return dim3\([^;]*, a\.B\);", src)
-    for kernel, axis in (("k_prologue", "x"), ("k_feasible", "y"),
-                         ("k_decide", "x"), ("k_merge", "y")):
-        assert (f"__global__ void {kernel}(FfdArgs args, int j) {{\n"
-                f"  const FfdArgs a = problem(args, blockIdx.{axis});") in src
+    assert src.count("for (int b = blockIdx.x; b < B; b += G) {") == 2
+    assert "prologue(problem(args, b), j, region);" in src
+    assert "decide(problem(args, b), j, red, region);" in src
+    assert src.count("for (long long i = rank; i < slots * parts; i += warps)") == 2
+    for stage in ("feasible", "merge"):
+        assert (f"{stage}(problem(args, (int)(sl / open)), j, (int)(sl % open),"
+                in src)
+    assert "cg::this_grid()" in src and src.count("grid.sync();") == 5

@@ -13,7 +13,11 @@ CPU as tests/test_pallas.py runs it) is held to the same planes.
 The CUDA kernel (``ops/cuda_ffd.py``) cannot run here; ``chip_smoke.py``
 holds it to this plain version on the card. Here its wrapper is checked to
 take the plain version for CPU tensors, and its card path to reach the
-kernel build and never the plain version.
+kernel build and never the plain version. The kernel keeps, per hostname
+group, a flag of "some slot has a positive count" instead of rescanning
+the [N, Gh] counts every step; on every fixture the plain scan shows the
+claim that makes this exact: counts never fall within a scan, so the flag
+kept by the kernel's rule equals the rescan after every step.
 """
 import ast
 import copy
@@ -205,13 +209,46 @@ def test_wrapper_calls_plain_version_only_for_cpu_tensors():
 
 
 def test_each_kernel_has_its_own_entry_and_count():
+    """The scan is one kernel, launched from one C entry (``ffd_scan``) as
+    one cooperative launch, and counted under its own name."""
     src = cuda_ffd.SOURCE.read_text()
+    assert cuda_ffd.KERNELS == ("k_ffd_scan",)
+    assert "<<<" not in src
     for name in cuda_ffd.KERNELS:
-        assert f"__global__ void {name}(" in src
-        assert src.count(f"{name}<<<") == 1
-        assert f"int launch_{name}(" in src
+        assert f"__launch_bounds__(THREADS, 1) {name}(FfdArgs args)" in src
+        assert src.count(f"cudaLaunchCooperativeKernel((const void*){name},") == 1
+    assert src.count("int ffd_scan(") == 1
+    assert "launch_k_" not in src
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in src
     c = cuda_ffd.LaunchCounter()
     assert c.launches == dict.fromkeys(cuda_ffd.KERNELS, 0) and c.total() == 0
+    assert c.rows == 0 and c.blocks == 0
+
+
+@pytest.mark.parametrize(
+    "name", ["topology"] + [f"fuzz{s}" for s in range(14)])
+def test_hostname_flag_kept_incrementally_equals_rescan(name):
+    """The kernel's prologue reads, per hostname group, a flag that some
+    slot's count is positive (``pos_any`` of ``_host_caps``) which it sets
+    once from the initial counts and then only where the merge makes a
+    selected group's count positive on a slot that took pods. Step by step
+    through the plain scan, every take is >= 0, no count falls, and that
+    flag equals ``(hcount > 0).any(0)``."""
+    req = reference_request(FIXTURES[name]())
+    init, steps, statics = port_inputs(req)
+    flag = (init.hcount > 0).any(0)
+    state, changed = init, 0
+    for j in range(steps.count.shape[0]):
+        c = tffd.step_at(steps, j)
+        new, (take, _) = tffd.ffd_step(state, c, statics, req.level_iters)
+        assert bool((take >= 0).all())
+        assert bool((new.hcount >= state.hcount).all())
+        kept = flag | (c.h_sel[None, :] & (take > 0)[:, None]
+                       & (new.hcount > 0)).any(0)
+        changed += int((kept != flag).sum())
+        flag, state = kept, new
+        assert torch.equal(flag, (state.hcount > 0).any(0)), (name, j)
+    assert changed > 0  # the flag did turn on inside the scan
 
 
 def test_topo_rank_raises():
