@@ -54,13 +54,40 @@ on failure:
    the dispatches, the shape keys, the garbage collector's passes), times
    the tenants solved one after another, and the device idle share of a
    profiled warm round. The last round's results are freed, and the heap
-   collected, before each timed round or pass starts.
+   collected, before each timed round or pass starts;
+7. consolidation sweep: multi-node consolidation's prefix sweep at
+   BASELINE config 4 (2,000 nodes, 100 candidate prefixes, 400 types,
+   2560 slots) through ``models/consolidation.frontier_core``, with the
+   plain step made to raise: one kernel launch of 100 rows a sweep, and
+   the frontier equal to the JAX package's (``SWEEP_EXPECTED``). Its
+   stacked scan must be bit-equal to the plain batched scan on the full
+   grid and on 2 blocks, each row to the solo kernel, and the prepared
+   state unchanged. Prints the stacked bytes, times the kernel's scan,
+   the device sweep (stack, scan, verdicts) cold and warm, the plain
+   scan and ``frontier_core``, splits a step by stage, and the device idle
+   share of a profiled warm sweep;
+8. operator: the port's ``Operator(Options(solver="tpu"))`` with its
+   defaults (device cuda, kernel cuda) and the plain step made to raise,
+   on 5,000 pending pods over 400 types and on a 100-node under-utilized
+   fleet that multi-node consolidation sweeps over all 100 nodes. Each
+   must bind every pod and end with the JAX operator's node count and cpu
+   (``OPERATOR_EXPECTED``) and the same operator's through the plain
+   version; the kernel must be launched once a provisioning scan and once
+   (P rows) a sweep, every multi-node pass must get a frontier, and no
+   reconcile error, verifier rejection or controller fault may be
+   recorded, with ``readyz()`` true. The first sweep of each prefix count
+   (B = 100, then B = 4) is kept at the kernel's boundary and held to the
+   plain batched scan (full grid and 2 blocks, row by row to the solo
+   kernel, its verdicts to the plain scan's), and every pass's frontier
+   to the plain version's run, prefix by prefix. Times each scenario and
+   splits its wall into solves, sweeps and the rest.
 
 It prints a sha256 digest of the sources it runs (``source_digest``), a
 ``{"kernels": [...]}`` line, the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. The problems are
 built here, from a fixed recipe (no randomness). ``fleet_expected.py``
-computes ``FLEET_EXPECTED_NODES`` with the JAX package on the CPU.
+computes ``FLEET_EXPECTED_NODES``, ``SWEEP_EXPECTED`` and
+``OPERATOR_EXPECTED`` with the JAX package on the CPU.
 """
 from __future__ import annotations
 
@@ -488,13 +515,17 @@ def _bound(req, state, takes, unplaced):
 def _bound_batched(init, steps, statics, state, takes, unplaced):
     """``_bound`` of a batched scan: bytes and operations summed over its
     problem rows (pad rows included: the kernel computes them)."""
+    return _bound_ms(_batched_terms(init, steps, statics, state, takes,
+                                    unplaced))
+
+
+def _batched_terms(init, steps, statics, state, takes, unplaced):
+    """``_bound_terms`` of each problem row of a batched scan."""
     from karpenter_core_tpu_torch.ops.ffd import _row
 
-    return _bound_ms([
-        _bound_terms(_row(init, b), _row(steps, b), _row(statics, b),
-                     _row(state, b), takes[b], unplaced[b])
-        for b in range(takes.shape[0])
-    ])
+    return [_bound_terms(_row(init, b), _row(steps, b), _row(statics, b),
+                         _row(state, b), takes[b], unplaced[b])
+            for b in range(takes.shape[0])]
 
 
 def _bound_ms(terms):
@@ -733,7 +764,7 @@ def main_path_phase():
 
 
 def _copy(tree):
-    return type(tree)(*(x.clone() for x in tree))
+    return type(tree)(*(None if x is None else x.clone() for x in tree))
 
 
 def _key_digest(key):
@@ -1212,6 +1243,659 @@ def _phase_sums(schedulers):
             for k in keys}
 
 
+# ---------------------------------------------------------------------------
+# the consolidation sweep (phase 7) and the operator (phase 8)
+
+SWEEP_NODES, SWEEP_CANDIDATES, SWEEP_TYPES, SWEEP_SLOTS = 2000, 100, 400, 2560
+# the JAX package's frontier at config 4 (its frontier_core, xla backend,
+# on the CPU): per prefix (all pods placed, new nodes, fresh-node price lower
+# bound), run-length encoded as [count, (ok, n_new, price_lb)];
+# ``JAX_PLATFORMS=cpu python3 fleet_expected.py`` prints it
+SWEEP_EXPECTED = [[100, [True, 0, 0.0]]]
+# the JAX package's Operator(solver="tpu") on each phase-8 scenario: the
+# final node count and the nodes' summed cpu capacity
+OPERATOR_EXPECTED = {"provisioning": [171, 4274.0],
+                     "consolidation": [4, 64.0]}
+OPERATOR_CANDIDATES = 100
+
+
+def sweep_inputs(n_nodes=SWEEP_NODES, n_cand=SWEEP_CANDIDATES,
+                 n_types=SWEEP_TYPES):
+    """bench.py's BASELINE config 4, built with the port's classes: 2,000
+    existing nodes, of which the first 100 are under-utilized candidates
+    (7 cpu / 14 GiB free), two reschedulable pods per candidate, one pool
+    over ``bench_catalog(400)``. Keyword arguments of ``frontier_core``
+    (less ``max_slots``); candidate nodes first. The tests shrink the
+    counts."""
+    from karpenter_core_tpu_torch.api import labels as L
+    from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
+    from karpenter_core_tpu_torch.controllers.provisioning.scheduling.inflight import (
+        SimNode,
+    )
+
+    nodes = [
+        SimNode(
+            name=f"n{i}",
+            labels={
+                L.LABEL_ARCH: "amd64",
+                L.LABEL_OS: "linux",
+                L.LABEL_TOPOLOGY_ZONE: f"zone-{'abcd'[i % 4]}",
+                L.NODEPOOL_LABEL_KEY: "default",
+                L.LABEL_INSTANCE_TYPE: "s-8x-amd64-linux",
+            },
+            taints=[],
+            available={"cpu": 7.0 if i < n_cand else 1.0,
+                       "memory": 14 * GIB if i < n_cand else 2 * GIB,
+                       "pods": 200.0},
+            capacity={"cpu": 8.0, "memory": 16 * GIB, "pods": 210.0},
+        )
+        for i in range(n_nodes)
+    ]
+    resched = _plain_pods(2 * n_cand, shapes=(4, 3))
+    return dict(
+        nodepools=[_pool()],
+        instance_types={"default": list(bench_catalog(n_types))},
+        cand_nodes=nodes[:n_cand],
+        keep_nodes=nodes[n_cand:],
+        daemonset_pods=[],
+        base_pods=[],
+        candidate_pods=[resched[2 * i:2 * i + 2] for i in range(n_cand)],
+    )
+
+
+def run_length(triples):
+    """[[count, triple], ...] of consecutive equal frontier triples."""
+    out = []
+    for t in triples:
+        t = [bool(t[0]), int(t[1]), float(t[2])]
+        if out and out[-1][1] == t:
+            out[-1][0] += 1
+        else:
+            out.append([1, t])
+    return out
+
+
+def frontier_equal(got, expected_rle):
+    """The frontier against a run-length encoded one: the flags and
+    new-node counts exactly, the price bound to a relative 1e-6 (float32
+    sums in another order)."""
+    want = [t for n, t in expected_rle for _ in range(n)]
+    if len(got) != len(want):
+        return False
+    for (ok, n_new, lb), (ok2, n_new2, lb2) in zip(got, want):
+        if bool(ok) != ok2 or int(n_new) != n_new2:
+            return False
+        if lb != lb2 and abs(lb - lb2) > 1e-6 * abs(lb2):
+            return False
+    return True
+
+
+def _tree_bytes(*trees):
+    return sum(x.numel() * x.element_size() for t in trees for x in t
+               if x is not None)
+
+
+def sweep_phase():
+    """The consolidation sweep at config 4 through the kernel: the port's
+    ``frontier_core`` (one batched launch, B = 100) held to the JAX
+    package's frontier; its stacked scan held bit-equal to the plain
+    batched scan on the full grid and on 2 blocks, each row to the solo
+    kernel; timed (the kernel's scan, the whole sweep cold and warm, the
+    plain scan), split by stage from the stamps, with the device idle
+    share of one profiled warm sweep."""
+    import torch
+
+    from karpenter_core_tpu_torch.models import consolidation as cons
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+    from karpenter_core_tpu_torch.ops.ffd import LEVEL_ITERS
+
+    inputs = sweep_inputs()
+    P = len(inputs["candidate_pods"])
+
+    def sweep():
+        return cons.frontier_core(**inputs, max_slots=SWEEP_SLOTS,
+                                  device="cuda", kernel_backend="cuda")
+
+    walls = []
+    for rep in range(4):  # one cold, three warm
+        cuda_ffd.counter.reset()
+        with plain_forbidden():
+            t0 = time.perf_counter()
+            frontier = sweep()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        grew = dict(cuda_ffd.counter.launches)
+        if (grew != dict.fromkeys(cuda_ffd.KERNELS, 1)
+                or cuda_ffd.counter.rows != P):
+            raise AssertionError(f"sweep {rep}: launches {grew} over"
+                                 f" {cuda_ffd.counter.rows} rows, expected"
+                                 f" one launch over {P}")
+        if frontier is None or not frontier_equal(frontier, SWEEP_EXPECTED):
+            raise AssertionError(f"sweep {rep}: frontier"
+                                 f" {run_length(frontier or [])} != the JAX"
+                                 f" package's {SWEEP_EXPECTED}")
+    with plain_forbidden():
+        idle = _idle_share(sweep)
+
+    # the sweep's stacked scan, held to the plain batched scan
+    sched, prep, classes, kind_batch, count_batch = cons.sweep_problem(
+        **inputs, max_slots=SWEEP_SLOTS, device="cuda")
+    E = len(sched.existing_nodes)
+    it_price = torch.as_tensor(cons._it_price_vector(prep), device="cuda")
+    init0 = _copy(prep.init_state)
+    state, steps, statics = cons.prefix_stack(
+        prep.init_state, classes, prep.statics, kind_batch, count_batch)
+    li = LEVEL_ITERS
+    J = int(steps.count.shape[1])
+    N, K, V = (int(x) for x in state.valmask.shape[1:])
+    T = int(state.itmask.shape[2])
+    stacked = _tree_bytes(state, steps, statics)
+    scratch = cuda_ffd.scratch_bytes(state, statics)
+    outputs = P * J * N * 4 + P * J * 4
+    print(f"sweep [config 4] P={P} J={J} N={N} T={T} K={K} V={V}: stacked"
+          f" inputs {stacked} bytes (state {_tree_bytes(state)}, steps"
+          f" {_tree_bytes(steps)}, statics {_tree_bytes(statics)}), scratch"
+          f" {scratch}, takes and unplaced {outputs}", flush=True)
+    names = [f"prefix-{p + 1}" for p in range(P)]
+    k_out, err, plain_ms = hold_batched_bit_equal(state, steps, statics, li,
+                                                  names, (0, 2))
+    blocks = cuda_ffd.counter.blocks
+
+    def kernel_ms(reps):
+        """The batched scan alone, by CUDA events, each on a fresh copy of
+        the stacked state made outside the timed window."""
+        total = 0.0
+        for _ in range(reps):
+            st = _copy(state)
+            _out, ms = _time_once(
+                lambda: cuda_ffd.cuda_ffd_solve_batched(st, steps, statics,
+                                                        li))
+            total += ms
+        return total / reps
+
+    kernel_ms(1)  # warm
+    ms = kernel_ms(10)
+    # the bound of the stacked interface (every row's copies read and
+    # written), and the bound of the bytes the sweep needs: one prepared
+    # state, one set of class steps and statics, the per-prefix kind and
+    # count planes, the per-prefix verdicts; the same operations
+    terms = _batched_terms(state, steps, statics, *k_out)
+    bound_ms, bound_by = _bound_ms(terms)
+    unique_bytes = (_tree_bytes(prep.init_state, classes, prep.statics)
+                    + kind_batch.size * state.kind.element_size()
+                    + count_batch.size * steps.count.element_size()
+                    + P * (4 + 4 + 1 + 4))
+    unique_bound_ms, unique_bound_by = _bound_ms(
+        [(unique_bytes, sum(t[1] for t in terms))])
+    stages = _stage_stamps(
+        lambda st: cuda_ffd.cuda_ffd_solve_batched(
+            _copy(state), steps, statics, li, _stamps=st), J)
+
+    # the whole device sweep (stack, scan, verdicts), cold and warm, and
+    # its verdicts against the frontier
+    def prefix_scan():
+        return cons._prefix_scan(prep.init_state, classes, prep.statics,
+                                 kind_batch, count_batch, it_price, E)
+
+    sweep_ms = [_time_once(prefix_scan)[1] for _ in range(4)]
+    verdicts = prefix_scan()
+    if not frontier_equal([
+            (int(u) == 0 and not bool(o), int(nf) - E, float(lb))
+            for nf, u, o, lb in zip(*(x.cpu().tolist() for x in verdicts))],
+            SWEEP_EXPECTED):
+        raise AssertionError("the prefix scan's verdicts != the frontier")
+    bad = {k: n for k, n in ((k, _unequal(a, b)) for k, a, b in zip(
+        init0._fields, init0, prep.init_state)) if n}
+    if bad:
+        raise AssertionError(f"the sweep wrote the prepared state: {bad}")
+    row = dict(
+        P=P, J=J, N=N, T=T, K=K, V=V, blocks=blocks, unequal=0,
+        max_abs_err=err, stacked_bytes=stacked, scratch_bytes=scratch,
+        output_bytes=outputs, ms=ms, ms_per_step=ms / J, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, unique_bytes=unique_bytes,
+        unique_bound_ms=unique_bound_ms, unique_bound_by=unique_bound_by,
+        stage_us_per_step=stages, frontier_cold_s=walls[0], frontier_warm_s=walls[1:],
+        frontier_warm_p50_s=statistics.median(walls[1:]),
+        sweep_cold_ms=sweep_ms[0], sweep_warm_ms=sweep_ms[1:],
+        sweep_warm_p50_ms=statistics.median(sweep_ms[1:]),
+        device_idle_share=idle, frontier=run_length(frontier),
+    )
+    print(f"sweep [config 4]: frontier equals the JAX package's"
+          f" ({row['frontier']}); one launch of {P} rows a sweep; batched"
+          f" scan 0 unequal elements against the plain batched scan on"
+          f" {blocks} blocks and on 2, each row equal to its solo kernel"
+          f" scan; scan {ms:.3f} ms ({ms / J * 1e3:.2f} us/step) vs plain"
+          f" {plain_ms:.1f} ms; bound of the stacked interface"
+          f" {bound_ms:.4f} ms ({bound_by}), of the {unique_bytes} bytes the"
+          f" sweep needs {unique_bound_ms:.4f} ms ({unique_bound_by}); device"
+          f" us/step by stage (stamps) {json.dumps(stages)}; device sweep"
+          f" (stack, scan, verdicts) cold {sweep_ms[0]:.3f} ms, warm"
+          f" {json.dumps(sweep_ms[1:])} ms; frontier_core cold"
+          f" {walls[0]:.3f} s, warm {json.dumps(walls[1:])} s; device idle"
+          f" share {idle}; the prepared state unchanged", flush=True)
+    return row
+
+
+def _replicated_pod(name, cpu, memory_gib=1.0):
+    from karpenter_core_tpu_torch.api.objects import (
+        ObjectMeta,
+        OwnerReference,
+        Pod,
+    )
+
+    return Pod(
+        metadata=ObjectMeta(name=name, owner_references=[OwnerReference(
+            kind="ReplicaSet", name="rs", uid="rs-uid")]),
+        resource_requests={"cpu": cpu, "memory": memory_gib * GIB},
+    )
+
+
+def _consolidation_pool():
+    """An on-demand pool (spot-to-spot consolidation is gated off) whose
+    budget lets every node be disrupted at once, so multi-node
+    consolidation sees the whole fleet as candidates."""
+    from karpenter_core_tpu_torch.api import labels as L
+    from karpenter_core_tpu_torch.api.nodepool import Budget
+    from karpenter_core_tpu_torch.api.objects import NodeSelectorRequirement
+
+    pool = _pool()
+    pool.spec.template.requirements = [NodeSelectorRequirement(
+        L.CAPACITY_TYPE_LABEL_KEY, "In", ("on-demand",))]
+    pool.spec.disruption.budgets = [Budget(nodes="100%")]
+    return pool
+
+
+def port_classes():
+    """The classes an operator scenario needs, from the port."""
+    from types import SimpleNamespace
+
+    from karpenter_core_tpu_torch.api.objects import Pod
+    from karpenter_core_tpu_torch.cloudprovider.kwok import KwokCloudProvider
+    from karpenter_core_tpu_torch.kube.store import KubeStore
+    from karpenter_core_tpu_torch.operator import Operator
+    from karpenter_core_tpu_torch.utils.clock import FakeClock
+
+    return SimpleNamespace(Operator=Operator, KubeStore=KubeStore,
+                           KwokCloudProvider=KwokCloudProvider,
+                           FakeClock=FakeClock, Pod=Pod,
+                           convert=lambda obj: obj)
+
+
+def _new_operator(ns, catalog, options):
+    clock = ns.FakeClock()
+    kube = ns.KubeStore(clock)
+    return ns.Operator(kube=kube, clock=clock, options=options,
+                       cloud_provider=ns.KwokCloudProvider(
+                           kube, ns.convert(catalog)))
+
+
+def provisioning_scenario(ns, options):
+    """plain_5k_400's 5,000 pods created pending over one pool on
+    ``bench_catalog(400)``; returns (operator, run) where ``run()`` drives
+    ``run_until_idle(disrupt=False)``. ``ns`` names the package's classes
+    (``port_classes``), ``options`` its ``Options``."""
+    from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
+
+    op = _new_operator(ns, list(bench_catalog(400)), options)
+    op.kube.create(ns.convert(_pool()))
+    for pod in ns.convert(_plain_pods(5000)):
+        op.kube.create(pod)
+    return op, lambda: op.run_until_idle(disrupt=False)
+
+
+def consolidation_scenario(ns, options, n=OPERATOR_CANDIDATES):
+    """An under-utilized fleet of ``n`` nodes, one pod on each, then
+    ``run_until_idle(max_iters=200)``: the shape of
+    tests/test_batched_consolidation.py's ``underutilized_fleet``, sized so
+    that no node is empty (each holds a 15-cpu pod and a 0.6-cpu one, and
+    the 15-cpu pods are deleted) and the pool's budget lets all ``n`` be
+    candidates, so multi-node consolidation sweeps all ``n`` prefixes."""
+    from karpenter_core_tpu_torch.cloudprovider.kwok import build_catalog
+
+    catalog = build_catalog(cpu_grid=[1, 2, 4, 8, 16], mem_factors=[2, 4])
+    op = _new_operator(ns, catalog, options)
+    op.kube.create(ns.convert(_consolidation_pool()))
+    for i in range(n):
+        op.kube.create(ns.convert(_replicated_pod(f"big{i}", 15.0)))
+        op.kube.create(ns.convert(_replicated_pod(f"small{i}", 0.6)))
+    op.run_until_idle(disrupt=False)
+    for i in range(n):
+        pod = op.kube.get(ns.Pod, f"big{i}")
+        pod.metadata.owner_references = []
+        op.kube.delete(pod)
+    op.run_until_idle(disrupt=False)
+    return op, lambda: op.run_until_idle(max_iters=200)
+
+
+OPERATOR_SCENARIOS = {"provisioning": provisioning_scenario,
+                      "consolidation": consolidation_scenario}
+
+
+def operator_outcome(op):
+    """(node count, the nodes' summed cpu capacity, every pod bound)."""
+    nodes = op.kube.list_nodes()
+    return (len(nodes), sum(n.status.capacity.get("cpu", 0) for n in nodes),
+            all(p.node_name for p in op.kube.list_pods()))
+
+
+@contextlib.contextmanager
+def operator_spy():
+    """Record, per port DeviceScheduler solve and per multi-node
+    consolidation pass, its seconds and what the scan kernel's counters
+    gained inside it, per kernel request of a solve whether it had class
+    steps (a request with none launches nothing), each pass's frontier
+    triples and (passing, dubious) sizes, and, for the first sweep of each
+    prefix count P, its ``_prefix_scan`` arguments and verdicts and the
+    stacked inputs and outputs of its batched kernel launch (copies:
+    the kernel writes its final state into its input)."""
+    from karpenter_core_tpu_torch.controllers.disruption import methods
+    from karpenter_core_tpu_torch.models import consolidation as cons
+    from karpenter_core_tpu_torch.models import provisioner as prov
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+
+    log = dict(solves=[], sweeps=[], scans=0, frontiers=[], captured={},
+               capture=None)
+    solve, frontier = prov.DeviceScheduler.solve, (
+        methods.MultiNodeConsolidation._device_frontier)
+    run_1 = prov._run_kernel_solo
+    sched_frontier = cons.schedulability_frontier
+    prefix_scan = cons._prefix_scan
+    batched = cuda_ffd.cuda_ffd_solve_batched
+
+    def counted(fn, entry):
+        l0, r0 = cuda_ffd.counter.total(), cuda_ffd.counter.rows
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        finally:
+            entry.update(s=time.perf_counter() - t0,
+                         launches=cuda_ffd.counter.total() - l0,
+                         rows=cuda_ffd.counter.rows - r0)
+        return out
+
+    def spy_solve(self, pods):
+        entry = dict(scans0=log["scans"])
+        log["solves"].append(entry)
+        out = counted(lambda: solve(self, pods), entry)
+        entry["scans"] = log["scans"] - entry.pop("scans0")
+        return out
+
+    def spy_run(req):
+        log["scans"] += int(req.steps.count.shape[0] > 0)
+        return run_1(req)
+
+    def spy_frontier(self, candidates):
+        entry = dict(candidates=len(candidates))
+        log["sweeps"].append(entry)
+        out = counted(lambda: frontier(self, candidates), entry)
+        entry["frontier"] = out is not None
+        entry["sizes"] = out
+        return out
+
+    def spy_sched_frontier(*args, **kwargs):
+        out = sched_frontier(*args, **kwargs)
+        log["frontiers"].append(out)
+        return out
+
+    def spy_prefix_scan(state, classes, statics, kind_batch, count_batch,
+                        it_price, n_existing, kernel_backend="cuda"):
+        args = (state, classes, statics, kind_batch, count_batch, it_price,
+                n_existing, kernel_backend)
+        P = int(kind_batch.shape[0])
+        if P in log["captured"]:
+            return prefix_scan(*args)
+        cap = log["captured"][P] = dict(args=(
+            _copy(state), _copy(classes), _copy(statics), kind_batch.copy(),
+            count_batch.copy(), it_price.clone(), n_existing))
+        log["capture"] = cap
+        try:
+            out = prefix_scan(*args)
+        finally:
+            log["capture"] = None
+        cap["verdicts"] = tuple(x.clone() for x in out)
+        return out
+
+    def spy_batched(state, steps, statics, level_iters, **kwargs):
+        cap = log["capture"]
+        if cap is None:
+            return batched(state, steps, statics, level_iters, **kwargs)
+        cap["kernel_in"] = (_copy(state), _copy(steps), _copy(statics),
+                            level_iters)
+        out = batched(state, steps, statics, level_iters, **kwargs)
+        cap["kernel_out"] = (_copy(out[0]), out[1].clone(), out[2].clone())
+        return out
+
+    prov.DeviceScheduler.solve = spy_solve
+    prov._run_kernel_solo = spy_run
+    methods.MultiNodeConsolidation._device_frontier = spy_frontier
+    cons.schedulability_frontier = spy_sched_frontier
+    cons._prefix_scan = spy_prefix_scan
+    cuda_ffd.cuda_ffd_solve_batched = spy_batched
+    try:
+        yield log
+    finally:
+        prov.DeviceScheduler.solve = solve
+        prov._run_kernel_solo = run_1
+        methods.MultiNodeConsolidation._device_frontier = frontier
+        cons.schedulability_frontier = sched_frontier
+        cons._prefix_scan = prefix_scan
+        cuda_ffd.cuda_ffd_solve_batched = batched
+
+
+def hold_operator_sweeps(log, name):
+    """Hold the batched scans of the first sweep of each prefix count that
+    the operator ran through the kernel: the stacked inputs it handed the
+    kernel, run again through the batched kernel (full grid and 2 blocks),
+    the plain batched scan and the solo kernel row by row
+    (``hold_batched_bit_equal``); the main path's own launch output
+    bit-equal to them; and its verdicts (next free slot, unplaced pods,
+    overflow exactly, the price bound to a relative 1e-6) equal to
+    ``_prefix_scan`` through the plain batched scan on the same
+    arguments. Returns a row per prefix count."""
+    from karpenter_core_tpu_torch.models import consolidation as cons
+
+    rows = []
+    for P, cap in sorted(log["captured"].items()):
+        if "kernel_out" not in cap:
+            raise AssertionError(f"{name}: the sweep of {P} prefixes did"
+                                 " not reach the batched kernel")
+        state, steps, statics, li = cap["kernel_in"]
+        names = [f"{name} sweep P={P} prefix-{p + 1}" for p in range(P)]
+        k_out, err, plain_ms = hold_batched_bit_equal(state, steps, statics,
+                                                      li, names, (0, 2))
+        live, again = _planes(*cap["kernel_out"]), _planes(*k_out)
+        bad = {k: n for k in live if (n := _unequal(live[k], again[k]))}
+        if bad:
+            raise AssertionError(f"{name}: the operator's sweep launch"
+                                 f" (P={P}) != the plain batched scan on"
+                                 f" {bad}")
+        want = [x.cpu().tolist() for x in cons._prefix_scan(
+            *cap["args"], kernel_backend="reference")]
+        got = [x.cpu().tolist() for x in cap["verdicts"]]
+        if got[:3] != want[:3] or any(
+                a != b and abs(a - b) > 1e-6 * abs(b)
+                for a, b in zip(got[3], want[3])):
+            raise AssertionError(f"{name}: the sweep's verdicts (P={P})"
+                                 f" {got} != the plain scan's {want}")
+        E = cap["args"][6]
+        rows.append(dict(
+            P=P, J=int(steps.count.shape[1]), N=int(state.kind.shape[1]),
+            unequal=0, max_abs_err=err, plain_ms=plain_ms,
+            fresh_prefixes=sum(nf > E for nf in got[0]),
+            priced_prefixes=sum(lb > 0 for lb in got[3])))
+    return rows
+
+
+def same_sweeps(log, ref_log, name):
+    """Raise unless the kernel's run and the plain version's ran the same
+    multi-node passes with the same frontier, prefix by prefix (flags and
+    new-node counts exactly, the price bound to a relative 1e-6), and the
+    same (passing, dubious) sizes."""
+    got, want = log["frontiers"], ref_log["frontiers"]
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} frontiers, the plain"
+                             f" version's run {len(want)}")
+    for k, (a, b) in enumerate(zip(got, want)):
+        if (a is None) != (b is None) or (
+                a is not None and not frontier_equal(a, run_length(b))):
+            raise AssertionError(f"{name}: frontier {k} {run_length(a or [])}"
+                                 f" != the plain version's"
+                                 f" {run_length(b or [])}")
+    sizes = [s["sizes"] for s in log["sweeps"]]
+    ref_sizes = [s["sizes"] for s in ref_log["sweeps"]]
+    if sizes != ref_sizes:
+        raise AssertionError(f"{name}: (passing, dubious) {sizes} != the"
+                             f" plain version's {ref_sizes}")
+
+
+def reset_name_counters():
+    """Claim names, hostname placeholders and object uids come from
+    module-level counters: each operator run starts them from 1, so the
+    kernel's run and the plain version's see the same names."""
+    import itertools
+
+    from karpenter_core_tpu_torch.api import objects
+    from karpenter_core_tpu_torch.controllers.provisioning.scheduling import (
+        inflight,
+        nodeclaimtemplate,
+    )
+
+    nodeclaimtemplate._claim_counter = itertools.count(1)
+    inflight._hostname_counter = itertools.count(1)
+    objects._uid_counter = itertools.count(1)
+
+
+def check_operator_run(op, log, name, errors0, rejected0, expect_sweep,
+                       launched=True):
+    """Raise unless the run left no trace of a swallowed failure and went
+    through the kernel as it should: no reconcile error and no verifier
+    rejection counted, no controller fault, ``readyz()`` true, on every
+    multi-node pass a frontier (never the host binary search), a sweep over
+    ``expect_sweep`` candidates when that is not 0, and (``launched``: on
+    the card) one launch a provisioning scan and one launch of ``P`` rows a
+    sweep."""
+    from karpenter_core_tpu_torch.metrics import wiring as m
+
+    if dict(m.RECONCILE_ERRORS.values) != errors0:
+        raise AssertionError(f"{name}: reconcile errors"
+                             f" {dict(m.RECONCILE_ERRORS.values)}")
+    if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
+        raise AssertionError(f"{name}: the verifier rejected a result")
+    if op._controller_faults or m.CONTROLLER_CRASHLOOPING.value() or (
+            not op.readyz()):
+        raise AssertionError(f"{name}: controller faults"
+                             f" {op._controller_faults}, readyz"
+                             f" {op.readyz()}")
+    for s in log["solves"] if launched else ():
+        if s["launches"] != s["scans"] or s["rows"] != s["scans"]:
+            raise AssertionError(f"{name}: a solve of {s['scans']} scans"
+                                 f" launched {s['launches']} over"
+                                 f" {s['rows']} rows")
+    for s in log["sweeps"]:
+        if not s["frontier"]:
+            raise AssertionError(f"{name}: a multi-node pass over"
+                                 f" {s['candidates']} candidates had no"
+                                 " frontier")
+        if launched and (s["launches"] != 1
+                         or s["rows"] != s["candidates"]):
+            raise AssertionError(f"{name}: a sweep of {s['candidates']}"
+                                 f" prefixes launched {s['launches']} over"
+                                 f" {s['rows']} rows")
+    if expect_sweep and not any(s["candidates"] == expect_sweep
+                                for s in log["sweeps"]):
+        raise AssertionError(f"{name}: no sweep over {expect_sweep}"
+                             f" candidates ({log['sweeps']})")
+
+
+def operator_phase():
+    """``Operator(Options(solver="tpu"))`` on the card with the defaults
+    (device cuda, kernel cuda), the plain step made to raise: each
+    scenario held to the JAX operator's node count and cpu, and to the
+    same port operator with ``solver_kernel="reference"`` (its frontiers
+    too, pass by pass), with every launch accounted for, the sweeps'
+    launches held to the plain batched scan, and no swallowed failure."""
+    import torch
+
+    from karpenter_core_tpu_torch.metrics import wiring as m
+    from karpenter_core_tpu_torch.operator import Options
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+
+    ns = port_classes()
+    rows = {}
+    for name, scenario in OPERATOR_SCENARIOS.items():
+        expect_sweep = OPERATOR_CANDIDATES if name == "consolidation" else 0
+        errors0 = dict(m.RECONCILE_ERRORS.values)
+        rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+        reset_name_counters()
+        op, run = scenario(ns, Options(solver="tpu"))
+        with operator_spy() as log, plain_forbidden():
+            cuda_ffd.counter.reset()
+            t0 = time.perf_counter()
+            passes = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, rows_served = (cuda_ffd.counter.total(),
+                                     cuda_ffd.counter.rows)
+        check_operator_run(op, log, name, errors0, rejected0, expect_sweep)
+        outcome = operator_outcome(op)
+        if not outcome[2]:
+            raise AssertionError(f"{name}: a pod is not bound")
+        if list(outcome[:2]) != list(OPERATOR_EXPECTED[name]):
+            raise AssertionError(f"{name}: {outcome[:2]} (nodes, cpu),"
+                                 " the JAX operator's"
+                                 f" {OPERATOR_EXPECTED[name]}")
+        scans = sum(s["scans"] for s in log["solves"])
+        prefixes = sum(s["candidates"] for s in log["sweeps"])
+        if (launches != scans + len(log["sweeps"])
+                or rows_served != scans + prefixes):
+            raise AssertionError(f"{name}: {launches} launches over"
+                                 f" {rows_served} rows for {scans} scans and"
+                                 f" {len(log['sweeps'])} sweeps of {prefixes}"
+                                 " prefixes")
+        # the sweeps' batched scans against the plain batched scan
+        held = hold_operator_sweeps(log, name)
+        if name == "consolidation" and sorted(
+                h["P"] for h in held) != sorted({
+                    s["candidates"] for s in log["sweeps"]}):
+            raise AssertionError(f"{name}: held sweeps {held}")
+        # the same operator through the plain version on the card
+        errors0 = dict(m.RECONCILE_ERRORS.values)
+        rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+        reset_name_counters()
+        ref_op, ref_run = scenario(
+            ns, Options(solver="tpu", solver_kernel="reference"))
+        with operator_spy() as ref_log:
+            ref_run()
+        check_operator_run(ref_op, ref_log, f"{name} (reference)", errors0,
+                           rejected0, expect_sweep, launched=False)
+        if operator_outcome(ref_op) != outcome:
+            raise AssertionError(f"{name}: kernel {outcome} != reference"
+                                 f" {operator_outcome(ref_op)}")
+        same_sweeps(log, ref_log, name)
+        solve_s = sum(s["s"] for s in log["solves"])
+        sweep_s = sum(s["s"] for s in log["sweeps"])
+        rows[name] = dict(
+            nodes=outcome[0], cpu=outcome[1], passes=passes, wall_s=wall,
+            solve_s=solve_s, sweep_s=sweep_s,
+            other_s=wall - solve_s - sweep_s, solves=len(log["solves"]),
+            scans=scans, sweeps=[s["candidates"] for s in log["sweeps"]],
+            launches=launches, rows=rows_served, held=held,
+        )
+        print(f"operator [{name}]: {outcome[0]} nodes, {outcome[1]} cpu,"
+              " every pod bound (the JAX operator's, and the plain"
+              f" version's); {passes} passes in {wall:.3f} s: solves"
+              f" {solve_s:.3f} s ({len(log['solves'])} solves, {scans}"
+              f" scans), sweeps {sweep_s:.3f} s (prefixes"
+              f" {rows[name]['sweeps']}), other {rows[name]['other_s']:.3f}"
+              f" s; {launches} launches over {rows_served} rows; no"
+              " reconcile error, no verifier rejection, readyz true;"
+              f" {len(log['frontiers'])} frontiers equal to the plain"
+              " version's run, prefix by prefix; the first sweep of each"
+              " prefix count held to the plain batched scan on the full"
+              f" grid and on 2 blocks: {json.dumps(held)}", flush=True)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1265,6 +1949,12 @@ def main() -> int:
     # 6. the batched main path
     bmain = batched_main_path_phase()
     done(6)
+    # 7. the consolidation sweep kernel at config 4
+    sweep = sweep_phase()
+    done(7)
+    # 8. the operator on the card
+    operator = operator_phase()
+    done(8)
 
     k50 = krows[0]
     kp = next(r for r in brows if r["tenants"] == FLEET_GROUPS[0])
@@ -1275,6 +1965,7 @@ def main() -> int:
         "replaces": "karpenter_core_tpu/ops/pallas_ffd.py:135",
         "launches": sum(launches.values()),
         "launches_by_kernel": launches,
+        "operator_launches": sum(r["scans"] for r in operator.values()),
         "blocks": k50["blocks"],
         "max_abs_err": max(r["max_abs_err"] for r in krows),
         "ms": k50["ms"],
@@ -1313,6 +2004,34 @@ def main() -> int:
         "stage_us_per_step": kp["stage_us_per_step"],
         "groups": brows,
         "main_path": bmain,
+    }, {
+        "name": "ffd_step_sweep",
+        "route": "cuda",
+        "source": "karpenter_core_tpu_torch/csrc/ffd_step.cu",
+        "replaces": "karpenter_core_tpu/ops/pallas_ffd.py:135",
+        "replaces_route": "the consolidation sweep's batched scan:"
+                          " models/consolidation.py _prefix_scan (:61-72),"
+                          " on the problem axis of _pallas_ffd_solve_batched"
+                          "_impl (pallas_ffd.py:197-216)",
+        "launches": sum(r["launches"] - r["scans"]
+                        for r in operator.values()),
+        "rows": sum(r["rows"] - r["scans"] for r in operator.values()),
+        "blocks": sweep["blocks"],
+        "max_abs_err": max([sweep["max_abs_err"]] + [
+            h["max_abs_err"] for r in operator.values() for h in r["held"]]),
+        "ms": sweep["ms"],
+        "plain_ms": sweep["plain_ms"],
+        "bound_ms": sweep["bound_ms"],
+        "bound_by": sweep["bound_by"],
+        "unique_bound_ms": sweep["unique_bound_ms"],
+        "unique_bound_by": sweep["unique_bound_by"],
+        "library_ms": None,
+        "unequal": sweep["unequal"] + sum(
+            h["unequal"] for r in operator.values() for h in r["held"]),
+        "ms_per_step": sweep["ms_per_step"],
+        "stage_us_per_step": sweep["stage_us_per_step"],
+        "config4": sweep,
+        "operator": operator,
     }]}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
-"""The JAX package's node count for each tenant of chip_smoke.py's fleet
-batch: the numbers pinned in ``chip_smoke.FLEET_EXPECTED_NODES``.
+"""The JAX package's answers that chip_smoke.py holds the port to, on the
+same problems: ``FLEET_EXPECTED_NODES`` (phase 6), ``SWEEP_EXPECTED``
+(phase 7) and ``OPERATOR_EXPECTED`` (phase 8).
 
 Run from the root of a checkout, on the CPU:
 
-    JAX_PLATFORMS=cpu python3 fleet_expected.py
+    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator]
 
-Each tenant's pods and pool come from chip_smoke.py's own recipe (built
-with the port's classes and carried into the JAX package's by pickling,
-the inverse of ``karpenter_core_tpu_torch.interop.from_reference``). Every
-tenant is solved alone by the JAX package's ``DeviceScheduler`` (xla
-backend), and all 11 together through its ``solve_batch``. The script
-raises unless the two agree and every pod is placed, prints the counts as
-a dict, and exits 1 if they differ from the pinned ones.
+(all three when none is named). Every problem comes from chip_smoke.py's
+own recipe (built with the port's classes and carried into the JAX
+package's by pickling, the inverse of
+``karpenter_core_tpu_torch.interop.from_reference``):
+
+* fleet: each tenant of the fleet batch is solved alone by the JAX
+  package's ``DeviceScheduler`` (xla backend), and all 11 together through
+  its ``solve_batch``; the two must agree and place every pod.
+* sweep: its ``frontier_core`` over BASELINE config 4 (2,000 nodes, 100
+  candidate prefixes, ``max_slots=2560``), run-length encoded.
+* operator: its ``Operator(Options(solver="tpu"))`` on each phase-8
+  scenario; every pod must be bound. Node count and summed node cpu.
+
+The script prints each answer and exits 1 if one differs from the value
+pinned in chip_smoke.py.
 """
 from __future__ import annotations
 
 import io
 import pickle
 import sys
+import time
 
 import chip_smoke
 
@@ -36,7 +46,7 @@ def to_reference(obj):
     return _ToReference(io.BytesIO(pickle.dumps(obj))).load()
 
 
-def main() -> int:
+def fleet():
     from karpenter_core_tpu.cloudprovider.kwok import bench_catalog
     from karpenter_core_tpu.models.provisioner import (
         DeviceScheduler,
@@ -68,12 +78,55 @@ def main() -> int:
     if batched != alone:
         raise AssertionError(f"solve_batch {batched} != alone {alone}")
     print(f"solve_batch stats {stats}")
-    print(alone)
-    same = alone == chip_smoke.FLEET_EXPECTED_NODES
-    print("equal to chip_smoke.FLEET_EXPECTED_NODES" if same
-          else "DIFFERENT from chip_smoke.FLEET_EXPECTED_NODES")
+    return alone, chip_smoke.FLEET_EXPECTED_NODES
+
+
+def sweep():
+    from karpenter_core_tpu.models.consolidation import frontier_core
+
+    frontier = frontier_core(**to_reference(chip_smoke.sweep_inputs()),
+                             max_slots=chip_smoke.SWEEP_SLOTS)
+    return chip_smoke.run_length(frontier), chip_smoke.SWEEP_EXPECTED
+
+
+def operator():
+    from types import SimpleNamespace
+
+    from karpenter_core_tpu.api.objects import Pod
+    from karpenter_core_tpu.cloudprovider.kwok import KwokCloudProvider
+    from karpenter_core_tpu.kube.store import KubeStore
+    from karpenter_core_tpu.operator import Operator, Options
+    from karpenter_core_tpu.utils.clock import FakeClock
+
+    ns = SimpleNamespace(Operator=Operator, KubeStore=KubeStore,
+                         KwokCloudProvider=KwokCloudProvider,
+                         FakeClock=FakeClock, Pod=Pod, convert=to_reference)
+    out = {}
+    for name, scenario in chip_smoke.OPERATOR_SCENARIOS.items():
+        op, run = scenario(ns, Options(solver="tpu"))
+        run()
+        nodes, cpu, bound = chip_smoke.operator_outcome(op)
+        if not bound:
+            raise AssertionError(f"{name}: a pod is not bound")
+        out[name] = [nodes, cpu]
+    return out, chip_smoke.OPERATOR_EXPECTED
+
+
+PARTS = {"fleet": fleet, "sweep": sweep, "operator": operator}
+
+
+def main(argv) -> int:
+    names = argv or list(PARTS)
+    same = True
+    for name in names:
+        t0 = time.perf_counter()
+        got, pinned = PARTS[name]()
+        print(f"{name} ({time.perf_counter() - t0:.1f} s): {got}")
+        print("equal to the pinned value in chip_smoke.py" if got == pinned
+              else "DIFFERENT from the pinned value in chip_smoke.py")
+        same = same and got == pinned
     return 0 if same else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -256,6 +256,38 @@ def _device_stream(dev):
         yield ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _scratch(B, N, K, V, T, R, Gh, CT, dev):
+    """The scan's per-problem scratch, as the kernel expects it at entry."""
+    i32, f32, u8 = torch.int32, torch.float32, torch.uint8
+    return dict(
+        sc=torch.empty((B, _SC_COUNT), dtype=i32, device=dev),
+        eff=torch.empty((B, K * V + 3 * K), dtype=u8, device=dev),
+        hboot=torch.empty((B, Gh), dtype=u8, device=dev),
+        k_fresh=torch.empty((B, T), dtype=f32, device=dev),
+        off_fresh=torch.empty((B, T), dtype=u8, device=dev),
+        k_eff=torch.empty((B, N), dtype=i32, device=dev),
+        feas=torch.empty((B, N), dtype=u8, device=dev),
+        take=torch.empty((B, N), dtype=i32, device=dev),
+        hflag=torch.zeros((B, Gh), dtype=u8, device=dev),
+        wf=torch.empty((B, 2 * N), dtype=i32, device=dev),
+        offm=torch.empty((B, T * CT), dtype=torch.int64, device=dev),
+        req_alt=torch.empty((B, N * R), dtype=f32, device=dev),
+        kv=torch.full((B, N), -1, dtype=i32, device=dev),
+        fc=torch.empty((B, N), dtype=i32, device=dev),
+        open=torch.zeros((1,), dtype=i32, device=dev),
+    )
+
+
+def scratch_bytes(state: SlotState, statics: FFDStatics) -> int:
+    """Bytes of the scratch a batched scan of these stacked problems
+    allocates beside its inputs and outputs."""
+    B, N, K, V = state.valmask.shape
+    scratch = _scratch(B, N, K, V, state.itmask.shape[2],
+                       state.requests.shape[2], state.hcount.shape[2],
+                       statics.off_avail.shape[3], "meta")
+    return sum(x.numel() * x.element_size() for x in scratch.values())
+
+
 def _launch_batched(state: SlotState, steps: ClassStep, statics: FFDStatics,
                     level_iters: int, max_blocks: int = 0, stamps=None):
     """The scan on the card: one launch for all J class steps of all B
@@ -365,23 +397,7 @@ def _launch_batched(state: SlotState, steps: ClassStep, statics: FFDStatics,
     # outputs and per-problem scratch (the kernel allocates nothing itself)
     takes = torch.empty((B, J, N), dtype=i32, device=dev)
     unplaced = torch.empty((B, J), dtype=i32, device=dev)
-    scratch = dict(
-        sc=torch.empty((B, _SC_COUNT), dtype=i32, device=dev),
-        eff=torch.empty((B, K * V + 3 * K), dtype=torch.uint8, device=dev),
-        hboot=torch.empty((B, Gh), dtype=torch.uint8, device=dev),
-        k_fresh=torch.empty((B, T), dtype=f32, device=dev),
-        off_fresh=torch.empty((B, T), dtype=torch.uint8, device=dev),
-        k_eff=torch.empty((B, N), dtype=i32, device=dev),
-        feas=torch.empty((B, N), dtype=torch.uint8, device=dev),
-        take=torch.empty((B, N), dtype=i32, device=dev),
-        hflag=torch.zeros((B, Gh), dtype=torch.uint8, device=dev),
-        wf=torch.empty((B, 2 * N), dtype=i32, device=dev),
-        offm=torch.empty((B, T * CT), dtype=torch.int64, device=dev),
-        req_alt=torch.empty((B, N * R), dtype=f32, device=dev),
-        kv=torch.full((B, N), -1, dtype=i32, device=dev),
-        fc=torch.empty((B, N), dtype=i32, device=dev),
-        open=torch.zeros((1,), dtype=i32, device=dev),
-    )
+    scratch = _scratch(B, N, K, V, T, R, Gh, CT, dev)
     p["takes"] = takes.data_ptr()
     p["unplaced"] = unplaced.data_ptr()
     for name, x in scratch.items():

@@ -43,6 +43,24 @@ COPIED = [
     "solver/__init__", "solver/vocab", "solver/gangs", "solver/snapshot",
     "solver/verify",
     "ops/__init__", "ops/topoplan",
+    # the operator's import closure (slice 4)
+    "utils/pod", "utils/pdb",
+    "kube/__init__", "kube/serial", "kube/store",
+    "state/__init__", "state/cluster",
+    "cloudprovider/metrics",
+    "controllers/provisioning/scheduling/volumetopology",
+    "controllers/provisioning/batcher",
+    "controllers/nodeclaim/__init__", "controllers/nodeclaim/disruption",
+    "controllers/nodeclaim/gc", "controllers/nodeclaim/hydration",
+    "controllers/nodeclaim/lifecycle",
+    "controllers/node/__init__", "controllers/node/health",
+    "controllers/node/termination",
+    "controllers/nodepool/__init__", "controllers/nodepool/controllers",
+    "controllers/status",
+    "controllers/disruption/__init__", "controllers/disruption/types",
+    "controllers/disruption/helpers", "controllers/disruption/validation",
+    "controllers/disruption/controller", "controllers/disruption/methods",
+    "solver/fleet",
 ]
 
 
@@ -76,6 +94,9 @@ def test_port_sources_exist():
         "karpenter_core_tpu_torch/ops/masks.py",
         "karpenter_core_tpu_torch/ops/cuda_ffd.py",
         "karpenter_core_tpu_torch/models/provisioner.py",
+        "karpenter_core_tpu_torch/models/consolidation.py",
+        "karpenter_core_tpu_torch/operator.py",
+        "karpenter_core_tpu_torch/controllers/provisioning/provisioner.py",
     ):
         assert required in names, required
     assert (PORT / "csrc" / "ffd_step.cu").is_file()
