@@ -82,12 +82,43 @@ on failure:
    to the plain version's run, prefix by prefix. Times each scenario and
    splits its wall into solves, sweeps and the rest.
 
+9. gangs and preemption: bench.py's cfg11_gangs recipe at its defaults
+   (20,000 pods: 2,000 system-critical pods of 6 cpu that place only by
+   evicting tier-0 victims, 375 gangs of 8, the rest plain; 80 existing
+   nodes with four victims each; ``cpu_grid=[1, 2, 4]``, 4096 slots) plus
+   16 gangs of 8 whose 4 members of 6 cpu cannot place, so every solve
+   rolls a gang back. One cold and three warm solves through
+   ``DeviceScheduler(device="cuda")`` with the plain step made to raise:
+   each must give the JAX package's node count, evicted-uid set, gangs
+   placed, unschedulable count and result digest (``GANGS_EXPECTED``,
+   the same as through the plain version), no partially placed gang, no
+   verifier rejection, and exactly two kernel launches (the gang
+   dispatch's two scans). A further warm solve times the gang dispatch's
+   first scan, failure check (its one host read), second scan and guard,
+   and the preemption pass apart. Both scans' inputs are held bit-equal
+   to the plain scan on the full grid and on 2 blocks. Then four
+   same-shaped tenants (the recipe at 5,000 pods, their own pool names)
+   through ``solve_batch``: one batched gang dispatch of 4 rows (two
+   launches) and one batched preemption pass, each tenant equal to its
+   solo solve and to the JAX package's node count
+   (``GANG_TENANTS_EXPECTED``);
+10. rack-aware gangs: bench.py's cfg18_topoaware recipe at its defaults
+   (40 ranked gangs of 8 at 3 cpu with ``pod-group-max-hops: 2``, 2,000
+   plain pods, 168 existing nodes with rack and superpod labels,
+   ``cpu_grid=[1, 2]``). One cold and three warm solves, each equal to
+   the JAX package's node count, worst intra-gang hop count, gangs placed
+   and digest (``TOPO_EXPECTED``) and to the plain version's; the
+   ``topo_rank`` scan bit-equal to the plain scan on the full grid and on
+   2 blocks, and batched (two rows, one with the levels reversed) to the
+   plain batched scan and row by row to the solo kernel.
+
 It prints a sha256 digest of the sources it runs (``source_digest``), a
 ``{"kernels": [...]}`` line, the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. The problems are
 built here, from a fixed recipe (no randomness). ``fleet_expected.py``
-computes ``FLEET_EXPECTED_NODES``, ``SWEEP_EXPECTED`` and
-``OPERATOR_EXPECTED`` with the JAX package on the CPU.
+computes ``FLEET_EXPECTED_NODES``, ``SWEEP_EXPECTED``,
+``OPERATOR_EXPECTED``, ``GANGS_EXPECTED``, ``GANG_TENANTS_EXPECTED`` and
+``TOPO_EXPECTED`` with the JAX package on the CPU.
 """
 from __future__ import annotations
 
@@ -1896,6 +1927,592 @@ def operator_phase():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# gangs, priority tiers and preemption (phase 9); rack-aware gangs (phase 10)
+
+GANG_PODS, GANG_SLOTS, FAIL_GANGS = 20000, 4096, 16
+GANG_TENANTS = [f"gang-tenant-{i}" for i in range(4)]
+GANG_TENANT_PODS = 5000
+TOPO_GANGS, TOPO_PLAIN, TOPO_SLOTS = 40, 2000, 4096
+# the JAX package's answers on the CPU (its DeviceScheduler, xla backend;
+# the tenants also through its solve_batch):
+# ``JAX_PLATFORMS=cpu python3 fleet_expected.py gangs`` prints them
+GANGS_EXPECTED = {"nodes": 4038, "evicted": 320,
+                  "evicted_sha": "3896bb47af6a2119", "gangs_placed": 375,
+                  "violations": 0, "unschedulable": 1968,
+                  "digest": "08b496d79d87d4b2"}
+GANG_TENANTS_EXPECTED = {n: 1009 for n in GANG_TENANTS}
+TOPO_EXPECTED = {"nodes": 851, "worst_hops": 2, "gangs_placed": 40,
+                 "violations": 0, "unschedulable": 0,
+                 "digest": "3237c4931e914201"}
+
+
+def gangs_problem(n_pods=None, pool="default", fail_gangs=None):
+    """bench.py's cfg11_gangs recipe (``_gangs_bench``) with its defaults:
+    ~75% tier-0 plain pods, 10% system-critical pods of 6 cpu (past the
+    4-cpu fresh ceiling: they place only by evicting the existing nodes'
+    tier-0 victims), 15% of pods in gangs of 8, over n_pods / 250 existing
+    nodes with four victims of 3 cpu each, on a ``cpu_grid=[1, 2, 4]``
+    catalog; plus ``fail_gangs`` gangs of 8 whose 4 members of 6 cpu at
+    tier 0 cannot place, so the first scan's gang check rolls them back
+    and a second scan runs (``n_pods`` and ``fail_gangs`` default to
+    GANG_PODS and FAIL_GANGS). Returns (pool, catalog, existing, pods)."""
+    from karpenter_core_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_core_tpu_torch.cloudprovider.kwok import build_catalog
+    from karpenter_core_tpu_torch.controllers.provisioning.scheduling.inflight import (
+        EvictablePod,
+        SimNode,
+    )
+    from karpenter_core_tpu_torch.solver.gangs import GANG_ANNOTATION
+
+    n_pods = GANG_PODS if n_pods is None else n_pods
+    fail_gangs = FAIL_GANGS if fail_gangs is None else fail_gangs
+    catalog = build_catalog(cpu_grid=[1, 2, 4])
+    existing = [
+        SimNode(
+            name=f"exist-{i}",
+            labels={
+                "topology.kubernetes.io/zone": "zone-a",
+                "kubernetes.io/hostname": f"exist-{i}",
+                "kubernetes.io/os": "linux",
+                "kubernetes.io/arch": "amd64",
+                "karpenter.sh/capacity-type": "on-demand",
+                "karpenter.sh/nodepool": pool,
+            },
+            taints=[],
+            available={"cpu": 0.5, "memory": 8 * GIB, "pods": 100.0},
+            capacity={"cpu": 16.0, "memory": 16 * GIB, "pods": 110.0},
+            initialized=True,
+            evictable=tuple(
+                EvictablePod(
+                    uid=f"victim-{i}-{j}", priority=0,
+                    requests={"cpu": 3.0, "memory": 0.5 * GIB},
+                    cost=1.0 + 0.01 * j,
+                )
+                for j in range(4)
+            ),
+        )
+        for i in range(max(4, n_pods // 250))
+    ]
+    n_gang = int(n_pods * 0.15) // 8 * 8
+    pods = [
+        Pod(metadata=ObjectMeta(name=f"g{i}", annotations={
+                GANG_ANNOTATION: f"gang-{i // 8}"}),
+            resource_requests={"cpu": 0.5 * (1 + (i // 8) % 3),
+                               "memory": 0.25 * GIB * (1 + (i // 8) % 4)})
+        for i in range(n_gang)
+    ]
+    pods += [
+        Pod(metadata=ObjectMeta(name=f"c{i}"),
+            resource_requests={"cpu": 6.0,
+                               "memory": 0.25 * GIB * (1 + i % 16)},
+            priority=2_000_000_000)
+        for i in range(int(n_pods * 0.10))
+    ]
+    plain = _plain_pods(n_pods - len(pods))
+    for p in plain:
+        p.metadata.name = f"pl-{p.metadata.name}"
+    pods += plain
+    pods += [
+        Pod(metadata=ObjectMeta(name=f"fg{k}-{i}", annotations={
+                GANG_ANNOTATION: f"fgang-{k}"}),
+            resource_requests=({"cpu": 6.0, "memory": 0.5 * GIB} if i < 4
+                               else {"cpu": 0.5, "memory": 0.25 * GIB}))
+        for k in range(fail_gangs) for i in range(8)
+    ]
+    return _pool(pool), catalog, existing, pods
+
+
+def topo_problem(pool="default"):
+    """bench.py's cfg18_topoaware recipe (``_topoaware_bench``, the aware
+    run) with its defaults: 40 gangs of 8 members of 3 cpu, each member
+    declaring ``pod-group-max-hops: 2`` and its rank, and 2,000 plain
+    pods, over 168 existing nodes with rack and superpod labels (zones
+    interleaved in slot order, racks of 2 nodes, superpods of 2 racks), on
+    a ``cpu_grid=[1, 2]`` catalog (fresh nodes top out at 2 cpu, so the
+    gangs live on the fleet). Returns (pool, catalog, existing, pods)."""
+    from karpenter_core_tpu_torch.api import labels as L
+    from karpenter_core_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_core_tpu_torch.cloudprovider.kwok import build_catalog
+    from karpenter_core_tpu_torch.controllers.provisioning.scheduling.inflight import (
+        SimNode,
+    )
+    from karpenter_core_tpu_torch.solver.gangs import (
+        GANG_ANNOTATION,
+        GANG_MAX_HOPS_ANNOTATION,
+        GANG_MIN_SIZE_ANNOTATION,
+        GANG_RANK_ANNOTATION,
+    )
+
+    existing = []
+    for i in range(4 * TOPO_GANGS + 8):
+        zone = "zone-a" if i % 2 == 0 else "zone-b"
+        zi = i // 2
+        existing.append(SimNode(
+            name=f"exist-{i}",
+            labels={
+                "topology.kubernetes.io/zone": zone,
+                "kubernetes.io/hostname": f"exist-{i}",
+                "kubernetes.io/os": "linux",
+                "kubernetes.io/arch": "amd64",
+                "karpenter.sh/capacity-type": "on-demand",
+                "karpenter.sh/nodepool": pool,
+                L.LABEL_TOPOLOGY_RACK: f"{zone}-r{zi // 2}",
+                L.LABEL_TOPOLOGY_SUPERPOD: f"{zone}-s{zi // 4}",
+            },
+            taints=[],
+            available={"cpu": 6.5, "memory": 8 * GIB, "pods": 100.0},
+            capacity={"cpu": 16.0, "memory": 16 * GIB, "pods": 110.0},
+            initialized=True,
+        ))
+    pods = [
+        Pod(metadata=ObjectMeta(name=f"tg{g}-{i}", annotations={
+                GANG_ANNOTATION: f"tgang-{g}",
+                GANG_MIN_SIZE_ANNOTATION: "8",
+                GANG_MAX_HOPS_ANNOTATION: "2",
+                GANG_RANK_ANNOTATION: str(i)}),
+            resource_requests={"cpu": 3.0, "memory": 0.25 * GIB})
+        for g in range(TOPO_GANGS) for i in range(8)
+    ]
+    plain = _plain_pods(TOPO_PLAIN)
+    for p in plain:
+        p.metadata.name = f"pl-{p.metadata.name}"
+    return (_pool(pool), build_catalog(cpu_grid=[1, 2]), existing,
+            pods + plain)
+
+
+def gang_scheduler(problem, kernel_backend="cuda", device="cuda",
+                   max_slots=None):
+    from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
+
+    max_slots = GANG_SLOTS if max_slots is None else max_slots
+    pool, catalog, existing, _pods = problem
+    return DeviceScheduler(
+        [pool], {pool.name: list(catalog)}, existing_nodes=existing,
+        max_slots=max_slots, device=device, kernel_backend=kernel_backend,
+    )
+
+
+def gang_outcome(res, pods):
+    """(gangs placed at or above their min count, gangs partially placed:
+    atomicity violations) over a result."""
+    from karpenter_core_tpu_torch.solver.gangs import (
+        gang_min_count,
+        pod_gang_sig,
+    )
+
+    placed = {p.uid for c in res.new_node_claims for p in c.pods}
+    placed |= {p.uid for s in res.existing_nodes for p in s.pods}
+    by_gang = {}
+    for p in pods:
+        g = pod_gang_sig(p)
+        if g is not None:
+            by_gang.setdefault(g[0], []).append(p)
+    ok = bad = 0
+    for mpods in by_gang.values():
+        n = sum(p.uid in placed for p in mpods)
+        if n >= gang_min_count(mpods):
+            ok += 1
+        elif n > 0:
+            bad += 1
+    return ok, bad
+
+
+def _sha(obj):
+    return hashlib.sha256(json.dumps(obj).encode()).hexdigest()[:16]
+
+
+def gang_summary(res, pods):
+    """What phase 9 holds a gang solve to: node count, evictions (count and
+    a digest of the sorted victim uids), gangs placed, atomicity
+    violations, unschedulable pods, and a digest of the whole result
+    (``_canonical`` with errors keyed by pod name, plus the evictions)."""
+    name_of = {p.uid: p.name for p in pods}
+    claims, bound, errors = _canonical(res)
+    errors = sorted((name_of.get(u, u), msg) for u, msg in errors)
+    evictions = sorted((n, list(u)) for n, u in res.evictions.items())
+    evicted = sorted(u for _n, us in evictions for u in us)
+    placed, violations = gang_outcome(res, pods)
+    return dict(nodes=res.node_count(), evicted=len(evicted),
+                evicted_sha=_sha(evicted), gangs_placed=placed,
+                violations=violations, unschedulable=len(res.pod_errors),
+                digest=_sha([claims, bound, errors, evictions]))
+
+
+def topo_summary(res, pods, existing):
+    """What phase 10 holds a rack-aware solve to: node count, the worst
+    hop distance inside a gang (judged on the nodes' labels), gangs
+    placed, unschedulable pods, and the result digest."""
+    from karpenter_core_tpu_torch.solver.gangs import hop_distance
+
+    out = gang_summary(res, pods)
+    truth = {n.name: dict(n.labels) for n in existing}
+    node_of = {p.name: s.name for s in res.existing_nodes for p in s.pods}
+    worst = 0
+    for g in range(TOPO_GANGS):
+        labs = [truth[node_of[f"tg{g}-{i}"]] for i in range(8)
+                if f"tg{g}-{i}" in node_of]
+        if len(labs) == 8:
+            worst = max(worst, max(hop_distance(a, b)
+                                   for i, a in enumerate(labs)
+                                   for b in labs[i + 1:]))
+    return dict(nodes=out["nodes"], worst_hops=worst,
+                gangs_placed=out["gangs_placed"],
+                violations=out["violations"],
+                unschedulable=out["unschedulable"], digest=out["digest"])
+
+
+@contextlib.contextmanager
+def gang_spy():
+    """Record, with the device synchronised at each mark, every scan the
+    kernel wrapper launches, each gang dispatch (solo or batched), each
+    entry into the gang failure check, each preemption pass, and the host
+    backstops of the result (atomicity, distance, eviction pruning, rank
+    order): a list of (event, host seconds) in order."""
+    import torch
+
+    from karpenter_core_tpu_torch.ops import cuda_ffd, gangsched
+    from karpenter_core_tpu_torch.solver import gangs
+
+    backstops = ("enforce_atomicity", "enforce_distance", "prune_evictions",
+                 "rank_order_pods")
+    log = []
+    saved_backstops = {n: getattr(gangs, n) for n in backstops}
+    saved = dict(
+        launch=cuda_ffd._launch_batched,
+        gang=cuda_ffd.cuda_gang_solve,
+        gang_b=cuda_ffd.cuda_gang_solve_batched,
+        failed=gangsched._step_failed,
+        pre=gangsched.preempt_pass,
+        pre_b=gangsched.preempt_pass_batched,
+    )
+
+    def mark(tag):
+        torch.cuda.synchronize()
+        log.append((tag, time.perf_counter()))
+
+    def timed(tag, fn):
+        def run(*a, **k):
+            mark(tag + "_start")
+            out = fn(*a, **k)
+            mark(tag + "_end")
+            return out
+        return run
+
+    def failed(*a, **k):
+        log.append(("check", time.perf_counter()))
+        return saved["failed"](*a, **k)
+
+    cuda_ffd._launch_batched = timed("scan", saved["launch"])
+    cuda_ffd.cuda_gang_solve = timed("gang", saved["gang"])
+    cuda_ffd.cuda_gang_solve_batched = timed("gang", saved["gang_b"])
+    gangsched._step_failed = failed
+    gangsched.preempt_pass = timed("preempt", saved["pre"])
+    gangsched.preempt_pass_batched = timed("preempt", saved["pre_b"])
+    for n, fn in saved_backstops.items():
+        setattr(gangs, n, timed("backstop", fn))
+    try:
+        yield log
+    finally:
+        for n, fn in saved_backstops.items():
+            setattr(gangs, n, fn)
+        cuda_ffd._launch_batched = saved["launch"]
+        cuda_ffd.cuda_gang_solve = saved["gang"]
+        cuda_ffd.cuda_gang_solve_batched = saved["gang_b"]
+        gangsched._step_failed = saved["failed"]
+        gangsched.preempt_pass = saved["pre"]
+        gangsched.preempt_pass_batched = saved["pre_b"]
+
+
+def gang_split(log):
+    """Seconds of each gang dispatch's parts and of each preemption pass
+    from a ``gang_spy`` log: the first scan, the failure check with its
+    host read (first scan's end to the second scan's start, or to the
+    guard when no gang rolled back), the second scan, the cascade guard,
+    and the whole dispatch; and the host backstops' seconds in all."""
+    out = dict(dispatches=[], preempt_s=[], backstops_s=0.0)
+    i = 0
+    while i < len(log):
+        tag, t = log[i]
+        if tag == "backstop_start":
+            out["backstops_s"] += log[i + 1][1] - t
+            i += 2
+            continue
+        if tag == "preempt_start":
+            end = next(j for j in range(i, len(log))
+                       if log[j][0] == "preempt_end")
+            out["preempt_s"].append(log[end][1] - t)
+            i = end + 1
+            continue
+        if tag != "gang_start":
+            i += 1
+            continue
+        end = next(j for j in range(i, len(log)) if log[j][0] == "gang_end")
+        ev = log[i:end + 1]
+        scans = [(a[1], b[1]) for a, b in zip(ev, ev[1:])
+                 if a[0] == "scan_start" and b[0] == "scan_end"]
+        checks = [x[1] for x in ev if x[0] == "check"]
+        d = dict(scan1_s=scans[0][1] - scans[0][0],
+                 check_s=(scans[1][0] if len(scans) > 1 else checks[1])
+                 - scans[0][1],
+                 scan2_s=(scans[1][1] - scans[1][0]) if len(scans) > 1
+                 else 0.0,
+                 guard_s=ev[-1][1] - checks[-1],
+                 total_s=ev[-1][1] - t, scans=len(scans))
+        out["dispatches"].append(d)
+        i = end + 1
+    return out
+
+
+def gangs_phase():
+    """Phase 9: cfg11 gangs and preemption on the card."""
+    import dataclasses
+
+    import torch
+
+    from karpenter_core_tpu_torch.metrics import wiring as m
+    from karpenter_core_tpu_torch.models.provisioner import solve_batch
+    from karpenter_core_tpu_torch.ops import cuda_ffd, gangsched
+
+    problem = gangs_problem()
+    pods = problem[3]
+    sched = gang_scheduler(problem)
+    rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+    t0 = time.perf_counter()
+    ref = gang_summary(gang_scheduler(problem, "reference").solve(pods), pods)
+    ref_s = time.perf_counter() - t0
+    if ref != GANGS_EXPECTED:
+        raise AssertionError(f"gangs (reference backend): {ref} !="
+                             f" {GANGS_EXPECTED}")
+    times, stats, launches, rows = [], [], 0, 0
+    for rep in range(4):  # one cold solve, three warm
+        cuda_ffd.counter.reset()
+        with plain_forbidden():
+            t0 = time.perf_counter()
+            res = sched.solve(pods)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        st = dict(sched.last_phase_stats)
+        stats.append(st)
+        launches += cuda_ffd.counter.total()
+        rows += cuda_ffd.counter.rows
+        # one gang dispatch a round (the 4096-slot round overflows and the
+        # solve retries at 8192), each a rollback: two scans of one row
+        if (cuda_ffd.counter.total() != 2 * st["rounds"]
+                or cuda_ffd.counter.rows != 2 * st["rounds"]):
+            raise AssertionError(
+                f"gangs: solve {rep} launched {cuda_ffd.counter.launches}"
+                f" over {cuda_ffd.counter.rows} rows in {st['rounds']}"
+                " rounds")
+        got = gang_summary(res, pods)
+        if got != GANGS_EXPECTED:
+            raise AssertionError(f"gangs: solve {rep} {got} !="
+                                 f" {GANGS_EXPECTED}")
+    # one more warm solve with every gang dispatch part and the
+    # preemption pass timed apart (the marks synchronise the device)
+    with plain_forbidden(), gang_spy() as log:
+        t0 = time.perf_counter()
+        spied = gang_summary(sched.solve(pods), pods)
+        spied_s = time.perf_counter() - t0
+    split = gang_split(log)
+    split.update(wall_s=spied_s, phases=_phase_keys(sched.last_phase_stats))
+    if spied != GANGS_EXPECTED:
+        raise AssertionError(f"gangs (timed apart): {spied}")
+    with plain_forbidden():
+        idle = _idle_share(lambda: sched.solve(pods))
+    if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
+        raise AssertionError("gangs: the verifier rejected a result")
+
+    # both scans' inputs of a warm solve, held bit-equal to the plain scan
+    wreq = first_request(sched, pods)
+    args = (wreq.init_state, wreq.steps, wreq.statics, wreq.level_iters)
+    J = int(wreq.steps.count.shape[0])
+    err1, plain_ms = hold_bit_equal(wreq, "gangs scan 1", grids=(0, 2))
+    _, takes1, _ = cuda_ffd.cuda_ffd_solve(*args)
+    failed = gangsched._step_failed(takes1, wreq.gang_of_step, wreq.gang_min)
+    if not bool(failed.any()):
+        raise AssertionError("gangs: no gang rolled back")
+    req2 = dataclasses.replace(wreq, steps=wreq.steps._replace(
+        count=torch.where(failed, torch.zeros_like(wreq.steps.count),
+                          wreq.steps.count)))
+    err2, plain2_ms = hold_bit_equal(req2, "gangs scan 2", grids=(0, 2))
+    ms = _time_ms(lambda: cuda_ffd.cuda_ffd_solve(*args), 5)
+    blocks = cuda_ffd.counter.blocks  # the full grid's
+    gang_ms = _time_ms(lambda: cuda_ffd.cuda_gang_solve(
+        wreq.init_state, wreq.steps, wreq.statics, wreq.gang_of_step,
+        wreq.gang_min, wreq.level_iters), 3)
+    bound_ms, bound_by = _bound(wreq, *cuda_ffd.cuda_ffd_solve(*args))
+    stages = _stage_stamps(
+        lambda st: cuda_ffd.cuda_ffd_solve(*args, _stamps=st), J)
+    N = int(wreq.init_state.kind.shape[0])
+    print(f"gangs [cfg11, {len(pods)} pods, {len(problem[2])} existing"
+          f" nodes]: {json.dumps(GANGS_EXPECTED)} on every solve (the JAX"
+          " package's), as through the plain version; two launches a"
+          f" gang dispatch (a rollback), {st['rounds']} dispatches a solve"
+          f" (slots {st['slots']}); cold"
+          f" {times[0]:.3f} s, warm p50 {statistics.median(times[1:]):.3f} s;"
+          f" phases cold {json.dumps(_phase_keys(stats[0]))} warm"
+          f" {json.dumps(_phase_keys(stats[-1]))}; timed apart"
+          f" {json.dumps(split)}; device idle share {idle}; both scans"
+          f" bit-equal to the plain scan on {blocks} blocks and on 2 (J={J},"
+          f" N={N}); scan {ms:.3f} ms ({ms / J * 1e3:.2f} us/step), gang"
+          f" dispatch {gang_ms:.3f} ms, plain {plain_ms:.1f} ms; bound"
+          f" {bound_ms:.4f} ms ({bound_by}); device us/step by stage"
+          f" (stamps) {json.dumps(stages)}", flush=True)
+    solo = dict(
+        problem="cfg11_gangs", pods=len(pods), J=J, N=N,
+        T=int(wreq.init_state.itmask.shape[1]), blocks=blocks,
+        summary=GANGS_EXPECTED, rounds=st["rounds"], slots=st["slots"],
+        cold_s=times[0],
+        warm_p50_s=statistics.median(times[1:]), warm_s=times[1:],
+        reference_solve_s=ref_s, phases_cold=_phase_keys(stats[0]),
+        phases_warm=_phase_keys(stats[-1]), timed_apart=split,
+        device_idle_share=idle, launches=launches, rows=rows, unequal=0,
+        max_abs_err=max(err1, err2), ms=ms, ms_per_step=ms / J,
+        gang_dispatch_ms=gang_ms, plain_ms=plain_ms,
+        plain2_ms=plain2_ms, bound_ms=bound_ms, bound_by=bound_by,
+        stage_us_per_step=stages,
+    )
+
+    # four same-shaped gang tenants through solve_batch
+    tenants = {n: gangs_problem(GANG_TENANT_PODS, pool=n)
+               for n in GANG_TENANTS}
+    alone = {}
+    for n, prob in tenants.items():
+        alone[n] = gang_summary(gang_scheduler(prob).solve(prob[3]), prob[3])
+    entries = [(gang_scheduler(prob), prob[3]) for prob in tenants.values()]
+    cuda_ffd.counter.reset()
+    with plain_forbidden(), gang_spy() as blog:
+        t0 = time.perf_counter()
+        outcomes, bstats = solve_batch(entries)
+        batch_s = time.perf_counter() - t0
+    got = {}
+    for n, (status, res) in zip(tenants, outcomes):
+        if status != "ok":
+            raise AssertionError(f"{n}: {status} {res!r}")
+        got[n] = gang_summary(res, tenants[n][3])
+    if got != alone:
+        raise AssertionError(f"gang tenants batched {got} != alone {alone}")
+    nodes = {n: s["nodes"] for n, s in got.items()}
+    if nodes != GANG_TENANTS_EXPECTED:
+        raise AssertionError(f"gang tenants {nodes} !="
+                             f" {GANG_TENANTS_EXPECTED}")
+    # one batched gang dispatch of 4 rows (two scans: a rollback), one
+    # batched preemption pass
+    if (cuda_ffd.counter.total() != 2 or cuda_ffd.counter.rows != 8
+            or bstats["batched_problems"] != 8):
+        raise AssertionError(
+            f"gang tenants: {cuda_ffd.counter.launches} launches over"
+            f" {cuda_ffd.counter.rows} rows, stats {bstats}")
+    if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
+        raise AssertionError("gang tenants: the verifier rejected a result")
+    bsplit = gang_split(blog)
+    print(f"gang tenants [4 x {GANG_TENANT_PODS} pods]: one batched gang"
+          " dispatch of 4 rows (2 launches, 8 rows) and one batched"
+          f" preemption pass; each equals its solo solve; nodes {nodes};"
+          f" {batch_s:.3f} s; stats {json.dumps(bstats)}; timed apart"
+          f" {json.dumps(bsplit)}", flush=True)
+    batched = dict(tenants=GANG_TENANTS, nodes=nodes, wall_s=batch_s,
+                   stats=bstats, timed_apart=bsplit, launches=2, rows=8)
+    return dict(solo=solo, batched=batched)
+
+
+def _phase_keys(st):
+    return {k: st.get(k) for k in ("plan_s", "prepare_s", "kernel_s",
+                                   "decode_s", "verify_s")}
+
+
+def topo_phase():
+    """Phase 10: cfg18 rack-aware gangs on the card."""
+    import torch
+
+    from karpenter_core_tpu_torch.metrics import wiring as m
+    from karpenter_core_tpu_torch.models.provisioner import _stack_trees
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+
+    problem = topo_problem()
+    pods, existing = problem[3], problem[2]
+    sched = gang_scheduler(problem, max_slots=TOPO_SLOTS)
+    rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+    ref = topo_summary(gang_scheduler(problem, "reference",
+                                      max_slots=TOPO_SLOTS).solve(pods),
+                       pods, existing)
+    if ref != TOPO_EXPECTED:
+        raise AssertionError(f"topo (reference backend): {ref} !="
+                             f" {TOPO_EXPECTED}")
+    times, launches, rows = [], 0, 0
+    for rep in range(4):
+        cuda_ffd.counter.reset()
+        with plain_forbidden():
+            t0 = time.perf_counter()
+            res = sched.solve(pods)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        st = sched.last_phase_stats
+        launches += cuda_ffd.counter.total()
+        rows += cuda_ffd.counter.rows
+        if st["rounds"] != 1 or cuda_ffd.counter.total() not in (1, 2):
+            raise AssertionError(f"topo: solve {rep} launched"
+                                 f" {cuda_ffd.counter.launches} in"
+                                 f" {st['rounds']} rounds")
+        got = topo_summary(res, pods, existing)
+        if got != TOPO_EXPECTED:
+            raise AssertionError(f"topo: solve {rep} {got} !="
+                                 f" {TOPO_EXPECTED}")
+    if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
+        raise AssertionError("topo: the verifier rejected a result")
+    phases = _phase_keys(sched.last_phase_stats)
+
+    req = first_request(sched, pods)
+    if req.steps.topo_rank is None:
+        raise AssertionError("topo: the scan carries no level plane")
+    args = (req.init_state, req.steps, req.statics, req.level_iters)
+    J = int(req.steps.count.shape[0])
+    N = int(req.init_state.kind.shape[0])
+    err, plain_ms = hold_bit_equal(req, "topo", grids=(0, 2))
+    # two stacked rows: the request, and its steps with the levels reversed
+    rev = req.steps._replace(
+        topo_rank=(3 - req.steps.topo_rank).contiguous())
+    state = _stack_trees([req.init_state, req.init_state])
+    steps = _stack_trees([req.steps, rev])
+    statics = _stack_trees([req.statics, req.statics])
+    _, berr, bplain_ms = hold_batched_bit_equal(
+        state, steps, statics, req.level_iters, ["topo", "topo-reversed"],
+        grids=(0, 2))
+    ms = _time_ms(lambda: cuda_ffd.cuda_ffd_solve(*args), 5)
+    blocks = cuda_ffd.counter.blocks  # the full grid's
+    classic = req.steps._replace(topo_rank=None)
+    classic_ms = _time_ms(lambda: cuda_ffd.cuda_ffd_solve(
+        req.init_state, classic, req.statics, req.level_iters), 5)
+    bound_ms, bound_by = _bound(req, *cuda_ffd.cuda_ffd_solve(*args))
+    stages = _stage_stamps(
+        lambda st: cuda_ffd.cuda_ffd_solve(*args, _stamps=st), J)
+    print(f"topo [cfg18, {len(pods)} pods, {len(existing)} racked nodes]:"
+          f" {json.dumps(TOPO_EXPECTED)} on every solve (the JAX package's),"
+          f" as through the plain version; launches {launches} over 4"
+          f" solves; cold {times[0]:.3f} s, warm p50"
+          f" {statistics.median(times[1:]):.3f} s; phases"
+          f" {json.dumps(phases)}; the level-grouped scan bit-equal to the"
+          f" plain scan on {blocks} blocks and on 2 (J={J}, N={N}), and"
+          " batched (2 rows, one with the levels reversed) to the plain"
+          " batched scan and row by row to the solo kernel; scan"
+          f" {ms:.3f} ms ({ms / J * 1e3:.2f} us/step) vs the same steps"
+          f" without the plane {classic_ms:.3f} ms, plain {plain_ms:.1f}"
+          f" ms; bound {bound_ms:.4f} ms ({bound_by}); device us/step by"
+          f" stage (stamps) {json.dumps(stages)}", flush=True)
+    return dict(
+        problem="cfg18_topoaware", pods=len(pods), J=J, N=N,
+        T=int(req.init_state.itmask.shape[1]), blocks=blocks,
+        summary=TOPO_EXPECTED, cold_s=times[0],
+        warm_p50_s=statistics.median(times[1:]), warm_s=times[1:],
+        phases_warm=phases, launches=launches, rows=rows, unequal=0,
+        max_abs_err=max(err, berr), ms=ms, ms_per_step=ms / J,
+        classic_ms=classic_ms, plain_ms=plain_ms,
+        plain_batched_ms=bplain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        stage_us_per_step=stages,
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -1955,6 +2572,12 @@ def main() -> int:
     # 8. the operator on the card
     operator = operator_phase()
     done(8)
+    # 9. gangs, priority tiers and preemption
+    gangs = gangs_phase()
+    done(9)
+    # 10. rack-aware gangs: the kernel's level-grouped first-fit
+    topo = topo_phase()
+    done(10)
 
     k50 = krows[0]
     kp = next(r for r in brows if r["tenants"] == FLEET_GROUPS[0])
@@ -2032,6 +2655,49 @@ def main() -> int:
         "stage_us_per_step": sweep["stage_us_per_step"],
         "config4": sweep,
         "operator": operator,
+    }, {
+        "name": "ffd_step_gang",
+        "route": "cuda",
+        "source": "karpenter_core_tpu_torch/csrc/ffd_step.cu",
+        "replaces": "karpenter_core_tpu/ops/pallas_ffd.py:135",
+        "replaces_route": "the gang-atomic solve's scans: ops/gangsched.py"
+                          " _gang_solve_impl (:99-143) and its batched twin"
+                          " (:176-212), each scan the fused FFD step",
+        "launches": gangs["solo"]["launches"] + gangs["batched"]["launches"],
+        "rows": gangs["solo"]["rows"] + gangs["batched"]["rows"],
+        "blocks": gangs["solo"]["blocks"],
+        "max_abs_err": gangs["solo"]["max_abs_err"],
+        "ms": gangs["solo"]["ms"],
+        "plain_ms": gangs["solo"]["plain_ms"],
+        "bound_ms": gangs["solo"]["bound_ms"],
+        "bound_by": gangs["solo"]["bound_by"],
+        "library_ms": None,
+        "unequal": gangs["solo"]["unequal"],
+        "ms_per_step": gangs["solo"]["ms_per_step"],
+        "stage_us_per_step": gangs["solo"]["stage_us_per_step"],
+        "gang_dispatch_ms": gangs["solo"]["gang_dispatch_ms"],
+        "cfg11": gangs,
+    }, {
+        "name": "ffd_step_topo",
+        "route": "cuda",
+        "source": "karpenter_core_tpu_torch/csrc/ffd_step.cu",
+        "replaces": "karpenter_core_tpu/ops/pallas_ffd.py:135",
+        "replaces_route": "the level-grouped first-fit of ClassStep.topo_rank"
+                          " (ops/ffd.py:509-530) inside the fused step",
+        "launches": topo["launches"],
+        "rows": topo["rows"],
+        "blocks": topo["blocks"],
+        "max_abs_err": topo["max_abs_err"],
+        "ms": topo["ms"],
+        "plain_ms": topo["plain_ms"],
+        "bound_ms": topo["bound_ms"],
+        "bound_by": topo["bound_by"],
+        "library_ms": None,
+        "unequal": topo["unequal"],
+        "ms_per_step": topo["ms_per_step"],
+        "stage_us_per_step": topo["stage_us_per_step"],
+        "classic_ms": topo["classic_ms"],
+        "cfg18": topo,
     }]}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

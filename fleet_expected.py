@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """The JAX package's answers that chip_smoke.py holds the port to, on the
 same problems: ``FLEET_EXPECTED_NODES`` (phase 6), ``SWEEP_EXPECTED``
-(phase 7) and ``OPERATOR_EXPECTED`` (phase 8).
+(phase 7), ``OPERATOR_EXPECTED`` (phase 8), and ``GANGS_EXPECTED``,
+``GANG_TENANTS_EXPECTED`` and ``TOPO_EXPECTED`` (phases 9-10).
 
 Run from the root of a checkout, on the CPU:
 
-    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator]
+    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator] [gangs]
 
-(all three when none is named). Every problem comes from chip_smoke.py's
+(all four when none is named). Every problem comes from chip_smoke.py's
 own recipe (built with the port's classes and carried into the JAX
 package's by pickling, the inverse of
 ``karpenter_core_tpu_torch.interop.from_reference``):
@@ -19,6 +20,13 @@ package's by pickling, the inverse of
   candidate prefixes, ``max_slots=2560``), run-length encoded.
 * operator: its ``Operator(Options(solver="tpu"))`` on each phase-8
   scenario; every pod must be bound. Node count and summed node cpu.
+* gangs: its ``DeviceScheduler`` (xla backend) on phase 9's cfg11 problem
+  (``chip_smoke.gang_summary``: nodes, evictions, gangs placed,
+  atomicity violations, unschedulable pods, result digest), on each of
+  the four gang tenants alone and all four through its ``solve_batch``
+  (the two must agree; node counts), and on phase 10's cfg18 problem
+  (``chip_smoke.topo_summary``: nodes, worst intra-gang hops, gangs
+  placed, digest).
 
 The script prints each answer and exits 1 if one differs from the value
 pinned in chip_smoke.py.
@@ -112,7 +120,50 @@ def operator():
     return out, chip_smoke.OPERATOR_EXPECTED
 
 
-PARTS = {"fleet": fleet, "sweep": sweep, "operator": operator}
+def gangs():
+    from karpenter_core_tpu.models.provisioner import (
+        DeviceScheduler,
+        solve_batch,
+    )
+
+    def sched(problem, max_slots):
+        pool, catalog, existing, _pods = problem
+        return DeviceScheduler([pool], {pool.name: list(catalog)},
+                               existing_nodes=existing, max_slots=max_slots,
+                               kernel_backend="xla")
+
+    out = {}
+    prob = to_reference(chip_smoke.gangs_problem())
+    res = sched(prob, chip_smoke.GANG_SLOTS).solve(prob[3])
+    out["gangs"] = chip_smoke.gang_summary(res, prob[3])
+    print(f"gangs: {out['gangs']}", flush=True)
+
+    tenants = {n: to_reference(chip_smoke.gangs_problem(
+        chip_smoke.GANG_TENANT_PODS, pool=n)) for n in chip_smoke.GANG_TENANTS}
+    alone = {n: chip_smoke.gang_summary(
+        sched(p, chip_smoke.GANG_SLOTS).solve(p[3]), p[3])
+        for n, p in tenants.items()}
+    outcomes, stats = solve_batch(
+        [(sched(p, chip_smoke.GANG_SLOTS), p[3]) for p in tenants.values()])
+    for n, (status, res) in zip(tenants, outcomes):
+        if status != "ok":
+            raise AssertionError(f"{n}: {status} {res!r}")
+        got = chip_smoke.gang_summary(res, tenants[n][3])
+        if got != alone[n]:
+            raise AssertionError(f"{n}: solve_batch {got} != alone {alone[n]}")
+    print(f"gang tenants: solve_batch stats {stats}", flush=True)
+    out["tenants"] = {n: s["nodes"] for n, s in alone.items()}
+
+    prob = to_reference(chip_smoke.topo_problem())
+    res = sched(prob, chip_smoke.TOPO_SLOTS).solve(prob[3])
+    out["topo"] = chip_smoke.topo_summary(res, prob[3], prob[2])
+    return out, dict(gangs=chip_smoke.GANGS_EXPECTED,
+                     tenants=chip_smoke.GANG_TENANTS_EXPECTED,
+                     topo=chip_smoke.TOPO_EXPECTED)
+
+
+PARTS = {"fleet": fleet, "sweep": sweep, "operator": operator,
+         "gangs": gangs}
 
 
 def main(argv) -> int:

@@ -41,7 +41,12 @@
 //          the items leave free, the [T] rows k_fresh / off_fresh of the
 //          template, which only the merge reads;
 //       3. decisions, problem b on block b mod gridDim.x: k_eff from the
-//          parts, first-fit over existing slots by an exclusive block scan,
+//          parts, first-fit over existing slots by an exclusive block scan
+//          (level-grouped when the step carries a topo_rank row: the
+//          rack-aware gangs' fill, ops/ffd.py ffd_step, where all capacity
+//          at network level 0 fills before level 1; its four level sums
+//          ride one more block scan, so a topo step costs one barrier
+//          more and a classic step nothing),
 //          the emptiest-first water-fill over in-flight slots, the
 //          single-slot rule, the fresh range and the state scalars;
 //       4. merge, (problem, slot, part) items of the slots that joined:
@@ -116,6 +121,9 @@ constexpr int WF_DEPTH = 5;
 // block-reduction partials: two buffers of four values per warp
 constexpr int RED_BYTES = 2 * 4 * 32 * (int)sizeof(int);
 constexpr int STAMPS = 5;
+// network-distance levels of the level-grouped first-fit (ops/ffd.py
+// TOPO_LEVELS): same rack, same superpod, same zone, farther or unknown
+constexpr int TOPO_LEVELS = 4;
 
 // scalar scratch slots written by the prologue / the decisions
 enum {
@@ -181,6 +189,7 @@ struct FfdArgs {
   const int32_t* c_wf_group;    // [J]
   const int32_t* c_wf_key;      // [J]
   const uint8_t* c_zone_rest;   // [J,V]
+  const int32_t* c_topo_rank;   // [J,N] network level of each slot, or null
   // solve statics
   const float* it_alloc;        // [T,R]
   const uint8_t* off_avail;     // [T,Z,CT]
@@ -282,6 +291,7 @@ __device__ __forceinline__ FfdArgs problem(const FfdArgs& a, int b) {
   p.c_wf_group += ub * J;
   p.c_wf_key += ub * J;
   p.c_zone_rest += ub * J * V;
+  if (p.c_topo_rank != nullptr) p.c_topo_rank += ub * J * N;
   // statics
   p.it_alloc += ub * T * R;
   p.off_avail += ub * T * (size_t)a.Z * (size_t)a.CT;
@@ -528,6 +538,54 @@ __device__ __forceinline__ Scan2 block_scan2(int x0, int x1, int mx, int mn,
   out.tot0 = (int)__shfl_sync(FULL, s0, 31);
   out.tot1 = (int)__shfl_sync(FULL, s1, 31);
   return out;
+}
+
+// exclusive prefixes of the four level sums x[l] over the threads in
+// thread order (wrapping) and their totals: the four running sums of the
+// level-grouped first-fit, carried through one block scan (one barrier)
+struct Scan4 {
+  int ex[TOPO_LEVELS], tot[TOPO_LEVELS];
+};
+
+__device__ __forceinline__ Scan4 block_scan4(const int (&x)[TOPO_LEVELS],
+                                             Red& red) {
+  int* p = red.next();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  unsigned inc[TOPO_LEVELS];
+#pragma unroll
+  for (int l = 0; l < TOPO_LEVELS; ++l) {
+    inc[l] = warp_scan((unsigned)x[l], lane);
+    if (lane == 31) p[32 * l + w] = (int)inc[l];
+  }
+  __syncthreads();
+  const bool in = lane < WARPS;
+  Scan4 out;
+#pragma unroll
+  for (int l = 0; l < TOPO_LEVELS; ++l) {
+    const unsigned s = warp_scan(in ? (unsigned)p[32 * l + lane] : 0u, lane);
+    const unsigned b = __shfl_sync(FULL, s, imax(w - 1, 0));
+    out.ex[l] = (int)((w > 0 ? b : 0u) + inc[l] - (unsigned)x[l]);
+    out.tot[l] = (int)__shfl_sync(FULL, s, 31);
+  }
+  return out;
+}
+
+// a slot's level, clipped into [0, TOPO_LEVELS) as ops/ffd.py clips it
+__device__ __forceinline__ int topo_level(const int32_t* topo, int n) {
+  return imin(imax(topo[n], 0), TOPO_LEVELS - 1);
+}
+// v[l] += x and v[l], for a level l known only at run time, without
+// indexing the register array dynamically
+__device__ __forceinline__ void level_add(int (&v)[TOPO_LEVELS], int l,
+                                          int x) {
+#pragma unroll
+  for (int i = 0; i < TOPO_LEVELS; ++i) v[i] = i == l ? wadd(v[i], x) : v[i];
+}
+__device__ __forceinline__ int level_get(const int (&v)[TOPO_LEVELS], int l) {
+  int r = v[0];
+#pragma unroll
+  for (int i = 1; i < TOPO_LEVELS; ++i) r = i == l ? v[i] : r;
+  return r;
 }
 
 // One round of the reference's binary search for the largest level whose
@@ -1037,14 +1095,19 @@ __device__ __forceinline__ void decide(const FfdArgs& a, int j, Red& red,
   }
   __syncthreads();
 
-  // one pass: existing capacity for the prefix, the in-flight slots that
-  // can take (cap > 0), their fullest podcount, the first feasible slot
+  // one pass: existing capacity for the prefix (per network level when
+  // the step carries a topo_rank row), the in-flight slots that can take
+  // (cap > 0), their fullest podcount, the first feasible slot
+  const int32_t* topo =
+      a.c_topo_rank != nullptr ? a.c_topo_rank + (size_t)j * N : nullptr;
+  int lv[TOPO_LEVELS] = {0, 0, 0, 0};
   int exist = 0, claims = 0, hmax = INT_MIN, first_local = N;
   for (int n = n0; n < n1; ++n) {
     const int i = staged ? (n - n0) * THREADS + tid : n;
     const int kind = kind_of[i];
     const int ke = ke_of[i];
     if (kind == 1) exist = wadd(exist, ke);
+    if (topo != nullptr && kind == 1) level_add(lv, topo_level(topo, n), ke);
     const int cap = kind == 2 ? ke : 0;
     claims += cap > 0 ? 1 : 0;
     hmax = imax(hmax, cap > 0 ? pc_of[i] : 0);
@@ -1056,6 +1119,19 @@ __device__ __forceinline__ void decide(const FfdArgs& a, int j, Red& red,
   // entries [s1.ex1, s1.ex1 + claims)
   int2* wf = s1.tot1 <= WF_SMEM ? wf_smem : (int2*)a.wf;
 
+  // level-grouped first-fit (rack-aware gangs): a slot's prefix is every
+  // lower level's total plus the capacity before it in its own level; the
+  // thread's running sums start at its block-exclusive offsets
+  if (topo != nullptr) {
+    const Scan4 s4 = block_scan4(lv, red);
+    int below = 0;
+#pragma unroll
+    for (int l = 0; l < TOPO_LEVELS; ++l) {
+      lv[l] = wadd(below, s4.ex[l]);
+      below = wadd(below, s4.tot[l]);
+    }
+  }
+
   // existing slots first-fit in slot order (exclusive prefix)
   int run = s1.ex0, te_sum = 0, w_at = s1.ex1;
   for (int n = n0; n < n1; ++n) {
@@ -1063,8 +1139,13 @@ __device__ __forceinline__ void decide(const FfdArgs& a, int j, Red& red,
     const int kind = kind_of[i];
     const int ke = ke_of[i];
     const int kx = kind == 1 ? ke : 0;
-    const int before = run;
+    int before = run;
     run = wadd(run, kx);
+    if (topo != nullptr) {
+      const int l = topo_level(topo, n);
+      before = level_get(lv, l);
+      level_add(lv, l, kx);
+    }
     const int te = imin(imax(wsub(m, before), 0), kx);
     take_of[i] = te;
     te_sum = wadd(te_sum, te);

@@ -1,10 +1,12 @@
 """Carry problems and prepared tensors from the JAX package into the port.
 
 * ``tensors_from_numpy(tree, device)`` turns prepared FFD tensors, given
-  as numpy arrays in the field order of ``SlotState``, ``ClassStep`` or
-  ``FFDStatics`` (a NamedTuple of any of those names, a tuple of them, or
-  a dict keyed by field name under ``"SlotState"`` etc.), into the port's
-  NamedTuples of tensors on ``device``. Dtypes are kept as given.
+  as numpy arrays in the field order of ``SlotState``, ``ClassStep``,
+  ``FFDStatics`` or ``EvPlanes`` (the preemption pass's evictable-pod
+  planes; a NamedTuple of any of those names, a tuple of them, or a dict
+  keyed by field name under ``"SlotState"`` etc.), into the port's
+  NamedTuples of tensors on ``device``. Dtypes are kept as given; a bare
+  numpy array (a gang or tier row) becomes one tensor.
 * ``from_reference(obj)`` turns an object of the reference object model
   (pods, nodepools, instance types, existing nodes, topologies, or any
   container of them) into the port's classes. It pickles the object and
@@ -24,8 +26,9 @@ import numpy as np
 import torch
 
 from karpenter_core_tpu_torch.ops.ffd import ClassStep, FFDStatics, SlotState
+from karpenter_core_tpu_torch.ops.gangsched import EvPlanes
 
-_TYPES = {t.__name__: t for t in (SlotState, ClassStep, FFDStatics)}
+_TYPES = {t.__name__: t for t in (SlotState, ClassStep, FFDStatics, EvPlanes)}
 _REF_PKG = "karpenter_core_tpu"
 _PORT_PKG = "karpenter_core_tpu_torch"
 
@@ -54,6 +57,8 @@ def tensors_from_numpy(tree, device="cuda"):
     name = type(tree).__name__
     if name in _TYPES:
         return _convert(name, tuple(tree), device)
+    if isinstance(tree, np.ndarray):
+        return _to_tensor(tree, device)
     if isinstance(tree, dict):
         return {k: _convert(k, v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

@@ -27,10 +27,18 @@ are enforced at claim creation (provision()), exactly as there.
 answering equal-shape scan dispatches from one batched kernel launch
 sequence (``cuda_ffd.cuda_ffd_solve_batched``).
 
+Priority tiers, gangs and preemption (``ops/gangsched.py``): classes run
+tier-first with gang members adjacent; kernel-enforced gangs scan through
+the gang-atomic solve (a second scan rolls failed gangs back), whose
+scans on the card are the hand kernel (``cuda_ffd.cuda_gang_solve``);
+rack-labelled fleets give each gang class a per-slot network-level plane
+(``ClassStep.topo_rank``) that the kernel's level-grouped first-fit
+follows; still-unplaced positive-tier classes get a preemption pass over
+the existing nodes' evictable pods, returned as ``Results.evictions``.
+
 Outside this slice, and raising ``NotImplementedError`` that names the
-ROADMAP item that ports it: ``solver_mode="relax"`` (A.9), ``devices != 1``
-(A.13), gangs and non-zero priority tiers (A.8, which also brings the
-rack-topology gangs of A.10).
+ROADMAP item that ports it: ``solver_mode="relax"`` (A.9) and
+``devices != 1`` (A.13).
 """
 from __future__ import annotations
 
@@ -74,10 +82,12 @@ from karpenter_core_tpu_torch.controllers.provisioning.scheduling.topology impor
     domain_universe,
 )
 from karpenter_core_tpu_torch.ops import cuda_ffd
+from karpenter_core_tpu_torch.ops import gangsched
 from karpenter_core_tpu_torch.ops import masks as mops
 from karpenter_core_tpu_torch.ops import topoplan
 from karpenter_core_tpu_torch.ops.ffd import (
     BIG,
+    BIGI,
     RANK_NONE,
     ClassStep,
     FFDStatics,
@@ -160,6 +170,26 @@ def _bucket_steps(n: int, lo: int = 8) -> int:
     return p
 
 
+def _same_template_gang_ids(classes, Cp: int):
+    """[Cp] int32 gang index per class for gangs declaring same-template
+    co-location (-1 outside any), plus the gang count — the gang_id input
+    of ops/masks.gang_joint_templates. The flag ORs across members (any
+    member asking binds the gang), so an unflagged class of a flagged gang
+    is constrained too."""
+    flagged = {
+        g[0]
+        for cls in classes
+        if (g := getattr(cls, "gang", None)) is not None and g[3]
+    }
+    by_name: Dict[str, int] = {}
+    gid = np.full((Cp,), -1, dtype=np.int32)
+    for ci, cls in enumerate(classes):
+        g = getattr(cls, "gang", None)
+        if g is not None and g[0] in flagged:
+            gid[ci] = by_name.setdefault(g[0], len(by_name))
+    return gid, len(by_name)
+
+
 def _pad_cols(t: torch.Tensor, n: int) -> torch.Tensor:
     """Zero/False-pad a device [rows, cols] tensor to n columns."""
     if t.shape[1] >= n:
@@ -240,6 +270,23 @@ class _Prepared:
     n_classes_padded: int = 8
     _batch: dict = field(default_factory=dict)
     step_class: object = None
+    # gangs and tiers — all None/empty for plain problems, whose dispatch
+    # then takes the plain scan. gangs: GangSpecs fully on the device path
+    # (a gang spanning a fallback class is left to the host backstop,
+    # solver/gangs.enforce_atomicity); step_tier/step_gang: device [Jp]
+    # rows aligned with the scanned ClassStep; gang_min: device [Gp]
+    # per-gang min-count; ev/ev_uids/ev_freed: the evictable-capacity
+    # planes and their host uid / request tables
+    gangs: list = field(default_factory=list)
+    step_tier: object = None
+    step_gang: object = None
+    gang_min: object = None
+    ev: object = None
+    ev_uids: list = field(default_factory=list)
+    ev_freed: list = field(default_factory=list)
+    # rack-aware gangs: per-gang anchor domain ids into the fp entry's
+    # RackPlan — None whenever the catalog carries no rack labels
+    topo_anchors: dict = None
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +294,9 @@ class _Prepared:
 #
 # DeviceScheduler.solve runs as a generator that YIELDS one _KernelRequest
 # per device dispatch; a dispatcher answers each request with (final
-# SlotState, takes-by-class, unplaced-by-class, seconds). The solo
+# SlotState, takes-by-class, unplaced-by-class, seconds), or for the
+# preemption pass (extra takes-by-class, unplaced-by-class, evicted
+# [N, P], seconds). The solo
 # dispatcher (_drive_solo) answers one problem's requests one by one; the
 # batch dispatcher (solve_batch) interleaves several problems' generators,
 # groups their outstanding requests by exact shape (shape_key), and answers
@@ -256,8 +305,12 @@ class _Prepared:
 
 @dataclass
 class _KernelRequest:
-    """One device dispatch of the FFD scan, reified so a dispatcher outside the
-    generator can answer it — solo, or stacked into a batch of problems."""
+    """One device dispatch, reified so a dispatcher outside the generator
+    can answer it — solo, or stacked into a batch of problems.
+
+    ``kind`` selects the family: ``"solve"`` (the FFD scan — the
+    gang-atomic solve when gang_of_step is set) or ``"preempt"`` (the
+    eviction pass over a finished solve's state)."""
 
     init_state: SlotState
     steps: ClassStep
@@ -266,8 +319,7 @@ class _KernelRequest:
     step_class: torch.Tensor  # [Jp] step -> class index
     num_classes: int  # Cp, the bucketed class axis
     n_slots: int
-    # the kernel family; only the FFD scan ("solve") is in this port so far
-    # (the gangsched "preempt" pass is ROADMAP A.8, "relax" A.9)
+    # the dispatch family: "solve" or "preempt" ("relax" is ROADMAP A.9)
     kind: str = "solve"
     # the solver backend that made the request ("ffd" | "relax")
     mode: str = "ffd"
@@ -275,6 +327,18 @@ class _KernelRequest:
     # torch scan (ops/ffd.py), the kernel's oracle
     backend: str = "cuda"
     devices: int = 1
+    # gang-atomic solve (both None for plain problems): [Jp] int32 gang
+    # index of each step (gangmod.GANG_FREE outside any gang,
+    # gangmod.GANG_FALLBACK_STRADDLING for host-enforced gangs) and [Gp]
+    # int32 per-gang min-count
+    gang_of_step: object = None
+    gang_min: object = None
+    # preemption pass inputs (kind == "preempt")
+    step_tier: object = None  # [Jp] int32
+    step_gang: object = None  # [Jp] int32
+    unplaced: object = None  # [Jp] int32 still-unplaced per step
+    ev: object = None  # ops/gangsched.EvPlanes
+    node_rounds: int = gangsched.NODE_ROUNDS
 
     def shape_key(self) -> tuple:
         """Exact shape identity: requests with equal keys stack into one
@@ -282,9 +346,14 @@ class _KernelRequest:
         bucket upstream (_bucket), so equal keys across tenants are the
         common case. Each leaf's device is part of the key, so a CPU and a
         CUDA problem never stack, and the backend is, so a "cuda" request
-        never rides a "reference" one's dispatch."""
+        never rides a "reference" one's dispatch. The gang and preemption
+        tensors join the leaf walk, so a gang problem never stacks with a
+        plain one, and two same-shaped gang problems do."""
         leaves = [
-            x for tree in (self.init_state, self.steps, self.statics)
+            x for tree in (self.init_state, self.steps, self.statics,
+                           (self.gang_of_step, self.gang_min,
+                            self.step_tier, self.step_gang, self.unplaced),
+                           self.ev or ())
             for x in tree if x is not None
         ]
         return (
@@ -297,11 +366,12 @@ class _KernelRequest:
             self.level_iters,
             self.num_classes,
             self.devices,
+            self.node_rounds,
         )
 
 
 # request kinds of later slices, by the ROADMAP item that ports them
-_LATER_KINDS = {"preempt": "A.8", "relax": "A.9"}
+_LATER_KINDS = {"relax": "A.9"}
 
 
 def _check_ported(req: _KernelRequest) -> None:
@@ -324,7 +394,24 @@ def _run_kernel_solo(req: _KernelRequest):
     device)."""
     _check_ported(req)
     t0 = time.perf_counter()
-    if req.backend == "cuda":
+    if req.kind == "preempt":
+        extra, m_left, evicted = gangsched.preempt_pass(
+            req.init_state, req.steps, req.statics,
+            req.step_tier, req.step_gang, req.unplaced, req.ev,
+            node_rounds=req.node_rounds,
+        )
+        extra_bc, mleft_bc = aggregate_takes(
+            extra, m_left, req.step_class, num_classes=req.num_classes
+        )
+        return extra_bc, mleft_bc, evicted, time.perf_counter() - t0
+    if req.gang_of_step is not None:
+        gang_solve = (cuda_ffd.cuda_gang_solve if req.backend == "cuda"
+                      else gangsched.gang_solve)
+        state, takes, unplaced = gang_solve(
+            req.init_state, req.steps, req.statics,
+            req.gang_of_step, req.gang_min, level_iters=req.level_iters,
+        )
+    elif req.backend == "cuda":
         state, takes, unplaced = cuda_ffd.cuda_ffd_solve(
             req.init_state, req.steps, req.statics,
             level_iters=req.level_iters,
@@ -381,7 +468,34 @@ def _run_kernel_batched(reqs: List[_KernelRequest]):
     steps = _stack_trees([r.steps for r in reqs_p])
     statics = _stack_trees([r.statics for r in reqs_p])
     step_class = torch.stack([r.step_class for r in reqs_p])
-    if head.backend == "cuda":
+    if head.kind == "preempt":
+        extra_b, mleft_b, evicted_b = gangsched.preempt_pass_batched(
+            state, steps, statics,
+            torch.stack([r.step_tier for r in reqs_p]),
+            torch.stack([r.step_gang for r in reqs_p]),
+            torch.stack([r.unplaced for r in reqs_p]),
+            _stack_trees([r.ev for r in reqs_p]),
+            node_rounds=head.node_rounds,
+        )
+        extra_bc, mleft_bc = aggregate_takes_batched(
+            extra_b, mleft_b, step_class, num_classes=head.num_classes
+        )
+        share = (time.perf_counter() - t0) / B
+        return [
+            (extra_bc[b], mleft_bc[b], evicted_b[b], share)
+            for b in range(B)
+        ], Bp
+    if head.gang_of_step is not None:
+        gang_solve = (cuda_ffd.cuda_gang_solve_batched
+                      if head.backend == "cuda"
+                      else gangsched.gang_solve_batched)
+        state_b, takes_b, unplaced_b = gang_solve(
+            state, steps, statics,
+            torch.stack([r.gang_of_step for r in reqs_p]),
+            torch.stack([r.gang_min for r in reqs_p]),
+            level_iters=head.level_iters,
+        )
+    elif head.backend == "cuda":
         state_b, takes_b, unplaced_b = cuda_ffd.cuda_ffd_solve_batched(
             state, steps, statics, level_iters=head.level_iters
         )
@@ -708,6 +822,10 @@ class DeviceScheduler:
         return _drive_solo(self._solve_gen(pods))
 
     def _solve_gen(self, pods: List[Pod]):
+        # refreshed by _sorted_classes each round; False covers the
+        # no-template/no-existing early return, where nothing places and
+        # the gang backstop has nothing to strip
+        self._gangsched_engaged = False
         all_pods = list(pods)
         errors: Dict[str, str] = {}
         claims: List[InFlightNodeClaim] = []
@@ -816,6 +934,31 @@ class DeviceScheduler:
             pod_errors=errors,
             evictions=evictions,
         )
+        if self._gangsched_engaged:
+            # the decode-seam atomicity backstop (the scan already rolled
+            # failed gangs back; this catches host-repair divergence) — it
+            # MUST run before verification, which treats a partially
+            # materialized gang as a hard violation
+            gangmod.enforce_atomicity(results, all_pods)
+            # distance stripping before eviction pruning (a stripped gang's
+            # evictions must prune with it) and before verification, which
+            # treats an exceeded hard max-hops as a hard violation
+            node_labels = {
+                n.name: getattr(n, "labels", None) or {}
+                for n in self.existing_nodes
+            }
+            gangmod.enforce_distance(results, all_pods, node_labels)
+            gangmod.prune_evictions(results)
+            # rank-ordered slot assignment runs LAST: a within-class
+            # permutation of an already-final packing
+            gangmod.rank_order_pods(results, all_pods, node_labels)
+            whole = sum(
+                1
+                for mpods in gangmod.gang_members(all_pods).values()
+                if mpods and all(p.uid in results.pod_errors for p in mpods)
+            )
+            if whole:
+                m.SOLVER_GANG_UNSCHEDULABLE.inc(by=whole)
         if self.verify:
             from karpenter_core_tpu_torch.solver import verify as verifymod
 
@@ -937,6 +1080,11 @@ class DeviceScheduler:
             mode=self.solver_mode,
             backend=self.kernel_backend,
             devices=self.devices,
+            # the gang-atomic solve only when kernel-enforced gangs exist
+            gang_of_step=(
+                prep.step_gang if prep.gang_min is not None else None
+            ),
+            gang_min=prep.gang_min,
         )
         prep.init_state = None
         t0 = time.perf_counter()
@@ -956,6 +1104,62 @@ class DeviceScheduler:
             return None
 
         evictions: Dict[str, List[str]] = {}
+        # -- preemption pass ------------------------------------------------
+        # Still-unplaced positive-tier gang-free classes get one more
+        # device dispatch against the evictable-capacity planes; the
+        # selected eviction set comes back as claims, and the freed
+        # capacity is credited to the victims' sims so decode accepts the
+        # preempted placements (the operator drains before it binds).
+        C = len(prep.classes)
+        if prep.ev is not None and prep.step_tier is not None and C:
+            u_host = unplaced_bc[:C].cpu().numpy()
+            goc = prep._batch["gang_of_class"][:C]
+            toc = prep._batch["tier_of_class"][:C]
+            if bool(
+                ((u_host > 0) & (toc > 0) & (goc == gangmod.GANG_FREE)).any()
+            ):
+                J = len(plan.steps)
+                Jp = int(prep.step_class.shape[0])
+                valid = torch.arange(Jp, device=unplaced_bc.device) < J
+                u_step = torch.where(
+                    valid, unplaced_bc[prep.step_class.long()],
+                    torch.zeros_like(prep.step_class),
+                ).to(torch.int32)
+                extra_bc, mleft_bc, evicted, pdt = yield _KernelRequest(
+                    init_state=state,
+                    steps=steps,
+                    statics=prep.statics,
+                    level_iters=prep.level_iters,
+                    step_class=prep.step_class,
+                    num_classes=prep.n_classes_padded,
+                    devices=self.devices,
+                    n_slots=prep.n_slots,
+                    kind="preempt",
+                    step_tier=prep.step_tier,
+                    step_gang=prep.step_gang,
+                    unplaced=u_step,
+                    ev=prep.ev,
+                    backend=self.kernel_backend,
+                )
+                kernel_share_s += pdt
+                takes_bc = takes_bc + extra_bc
+                unplaced_bc = mleft_bc
+                ev_host = evicted.cpu().numpy()
+                for ei, uids in enumerate(prep.ev_uids):
+                    hits = np.nonzero(ev_host[ei, : len(uids)])[0]
+                    if not len(hits):
+                        continue
+                    sim = prep.existing_sims[ei]
+                    evictions[sim.name] = [uids[j] for j in hits]
+                    freed = resutil.merge(
+                        *(prep.ev_freed[ei][j] for j in hits)
+                    )
+                    # the victims' capacity is credited to the sim so the
+                    # decode adds (and only they) see it
+                    sim.cached_available = resutil.merge(
+                        sim.cached_available, freed
+                    )
+
         N = prep.n_slots
         used = max(int(head["next_free"]), len(prep.existing_sims), 1)
         stats["used_slots"] = max(stats["used_slots"], used)
@@ -1087,12 +1291,23 @@ class DeviceScheduler:
                 return best
 
             classes.sort(key=rank)
-        # gangs and priority tiers reorder the classes and add device
-        # passes (gang rollback, preemption) that this slice does not carry
-        if any(c.tier != 0 or c.gang is not None for c in classes):
-            raise NotImplementedError(
-                "pods with gangs or non-zero priority tiers are ported by"
-                " ROADMAP item A.8"
+        # O(classes) gangsched gate, stashed so the per-solve result
+        # post-processing (_solve_gen) doesn't re-derive it with an O(pods)
+        # annotation rescan
+        self._gangsched_engaged = any(
+            c.tier != 0 or c.gang is not None for c in classes
+        )
+        if self._gangsched_engaged:
+            # priority tier is the PRIMARY order — the scan claims capacity
+            # in class order, so tier-descending is what makes "a lower
+            # tier can never starve a higher one" true by construction.
+            # Within a tier, gang members pull adjacent (anchored at the
+            # gang's first member). The sort is stable, so plain problems
+            # never enter this branch and keep their order.
+            classes = gangmod.gang_adjacent_order(
+                classes,
+                lambda c: c.tier,
+                lambda c: None if c.gang is None else c.gang[0],
             )
         return classes
 
@@ -1727,6 +1942,16 @@ class DeviceScheduler:
             tmpl_ok_b = self._dev(
                 _pad(taint_ok, {0: Cp, 1: Sp}, False)
             ) & _pad_cols(tmpl_compat_dev, Sp)
+            # same-node-template gang co-location: AND-reduce template
+            # viability within each such gang BEFORE fresh_viability's
+            # first-template-wins choice, so every member resolves to the
+            # same template; plain problems skip it
+            tmpl_gang_id, n_tmpl_gangs = _same_template_gang_ids(classes, Cp)
+            if n_tmpl_gangs:
+                tmpl_ok_b = mops.gang_joint_templates(
+                    tmpl_ok_b, self._dev(tmpl_gang_id),
+                    num_gangs=n_tmpl_gangs,
+                )
             cz = self._dev(cpad(cm.mask[:, zone_kid, :Z], False))
             cct = self._dev(cpad(cm.mask[:, ct_kid, :CT], False))
             tz = self._dev(_pad(entry["tmpl_zone_mask"], {0: Sp}, False))
@@ -1978,7 +2203,188 @@ class DeviceScheduler:
             n_classes_padded=batch["Cp"],
             _batch=batch,
         )
+        self._prepare_gangsched(prep, plan, entry, N)
         return prep
+
+    def _prepare_gangsched(
+        self, prep: _Prepared, plan: topoplan.TopoPlan, entry: dict, N: int
+    ) -> None:
+        """Attach the gang and tier structures to a prepared solve. Gated on
+        the class batch carrying tiers or gangs: plain problems leave every
+        field at its None/empty default and take the plain scan."""
+        classes = prep.classes
+        tiers = np.array([c.tier for c in classes], dtype=np.int64)
+        has_tiers = bool(len(classes)) and bool((tiers != 0).any())
+        has_gangs = any(c.gang is not None for c in classes)
+        if not has_tiers and not has_gangs:
+            return
+        C = len(classes)
+        tier_of_class = np.clip(tiers, -(2**31 - 1), 2**31 - 1).astype(
+            np.int32
+        )
+        gang_of_class = np.full((C,), gangmod.GANG_FREE, dtype=np.int32)
+        if has_gangs:
+            # kernel-enforced gangs: fully on the device path. A gang with
+            # a member in the fallback set places through the host loop,
+            # where the atomicity backstop is the enforcement; its device
+            # members carry GANG_FALLBACK_STRADDLING: inert for the
+            # rollback (which keys on >= 0) but still a gang mark, so the
+            # preemption pass never evicts to place a member the backstop
+            # may strip
+            fallback_names = {
+                c.gang[0]
+                for c in plan.fallback_classes
+                if getattr(c, "gang", None) is not None
+            }
+            gangs = []
+            for g in gangmod.collect_gangs(classes):
+                if g.name in fallback_names:
+                    for ci in g.class_indices:
+                        gang_of_class[ci] = gangmod.GANG_FALLBACK_STRADDLING
+                else:
+                    gangs.append(g)
+            if gangs:
+                Gp = _bucket(len(gangs), lo=1)
+                gmin = np.zeros((Gp,), dtype=np.int32)
+                for gi, g in enumerate(gangs):
+                    gmin[gi] = g.min_count
+                    for ci in g.class_indices:
+                        gang_of_class[ci] = gi
+                prep.gangs = gangs
+                prep.gang_min = self._dev(gmin)
+                self._prepare_topoaware(prep, entry, gangs, gang_of_class, N)
+        prep._batch["tier_of_class"] = tier_of_class
+        prep._batch["gang_of_class"] = gang_of_class
+        # evictable-capacity planes for the preemption pass: positive-tier
+        # demand, existing nodes with evictable bound pods, and no device
+        # topology state (a preempted placement bypasses the in-kernel
+        # topology counters)
+        if (
+            bool((tiers > 0).any())
+            and entry["E"]
+            and not plan.has_device_topology()
+        ):
+            ev_cache = entry.setdefault("ev_planes", {})
+            cached = ev_cache.get(N)
+            if cached is None:
+                cached = self._build_ev_planes(entry, N)
+                ev_cache[N] = cached
+            prep.ev, prep.ev_uids, prep.ev_freed = cached
+
+    def _prepare_topoaware(
+        self, prep: _Prepared, entry: dict, gangs, gang_of_class, N: int
+    ) -> None:
+        """Per-gang-class hop planes: anchor every kernel gang on the rack
+        domain with the most demand-debited headroom
+        (ops/topoplan.gang_anchors) and hand its member classes the
+        anchor's [N] hop-distance row as their FFD fill-level plane
+        (ClassStep.topo_rank, attached by _class_steps), plus a
+        per-template hop cost row for the relax objective. Engages only
+        when the catalog carries rack labels: plan_racks returns None
+        otherwise and topo_rank stays None. The RackPlan caches on the fp
+        entry per slot count."""
+        rp_cache = entry.setdefault("rack_plans", {})
+        if N not in rp_cache:
+            rp_cache[N] = topoplan.plan_racks(
+                [
+                    dict(getattr(n, "labels", None) or {})
+                    for n in self.existing_nodes
+                ],
+                # single-valued template requirements attribute a fresh
+                # claim to a rack exactly like the verifier will
+                [gangmod.claim_topo_labels(t) for t in self.templates],
+                N,
+            )
+        rplan = rp_cache[N]
+        if rplan is None:
+            return
+        anchors = topoplan.gang_anchors(
+            rplan,
+            [g.name for g in gangs],
+            [g.min_count for g in gangs],
+        )
+        C = int(gang_of_class.shape[0])
+        S = entry["S"]
+        Sn = max(S, 1)
+        topo_rank = np.zeros((C, N), dtype=np.int32)
+        topo_cost = np.zeros((C, Sn), dtype=np.float32)
+        for g in gangs:
+            anchor = anchors[g.name]
+            row = topoplan.hop_from_anchor(
+                rplan, anchor, gangmod.MAX_HOP_DISTANCE
+            )
+            # template hop cost from the same anchor; a template without a
+            # single-valued rack sits at the ceiling
+            th = np.full((Sn,), gangmod.MAX_HOP_DISTANCE, dtype=np.float32)
+            for si in range(S):
+                d = int(rplan.tmpl_domain[si])
+                if d >= 0:
+                    th[si] = min(
+                        int(rplan.hop[anchor, d]),
+                        gangmod.MAX_HOP_DISTANCE,
+                    )
+            for ci in g.class_indices:
+                topo_rank[ci] = row
+                topo_cost[ci] = th
+        prep._batch["topo_rank_of_class"] = topo_rank
+        prep._batch["topo_cost_of_class"] = topo_cost
+        prep.topo_anchors = anchors
+
+    def _build_ev_planes(self, entry: dict, N: int):
+        """ops/gangsched.EvPlanes over the existing nodes' evictable bound
+        pods: per node, cost-sorted ((disruption cost, uid) ascending), pod
+        axis padded to a bucketed P. Returns (EvPlanes | None, uid table,
+        freed-request table) — the host tables map an evicted [N, P] mask
+        back to eviction claims and their freed capacity."""
+        E, Rp = entry["E"], entry["Rp"]
+        rvec_cap = entry["rvec_cap"]
+        per_node = [
+            sorted(
+                getattr(n, "evictable", ()) or (),
+                key=lambda e: (e.cost, e.uid),
+            )
+            for n in self.existing_nodes
+        ]
+        maxP = max((len(v) for v in per_node), default=0)
+        if maxP == 0:
+            return None, [], []
+        P = _bucket(maxP, lo=2)
+        req = np.zeros((N, P, Rp), dtype=np.float32)
+        tier = np.full((N, P), BIGI, dtype=np.int32)
+        cost = np.zeros((N, P), dtype=np.float32)
+        valid = np.zeros((N, P), dtype=bool)
+        ev_uids: List[List[str]] = []
+        ev_freed: List[list] = []
+        for ei in range(E):
+            uids, freed = [], []
+            for j, e in enumerate(per_node[ei]):
+                # freed capacity floor-quantizes (capacity side): the scan
+                # must never believe an eviction frees more than the
+                # float64 decode refit will credit
+                vec = rvec_cap(e.requests)
+                req[ei, j, : vec.shape[0]] = vec
+                tier[ei, j] = e.priority
+                cost[ei, j] = e.cost
+                valid[ei, j] = True
+                uids.append(e.uid)
+                freed.append(dict(e.requests))
+            ev_uids.append(uids)
+            ev_freed.append(freed)
+        planes = gangsched.EvPlanes(
+            req=req, tier=tier, cost=cost, valid=valid
+        )
+        return self._dev_ev(planes), ev_uids, ev_freed
+
+    def _dev_ev(self, planes):
+        """Host->device copy of the EvPlanes with byte accounting (one
+        device: the per-device share is the whole copy)."""
+        for leaf in planes:
+            self._h2d_bytes += leaf.nbytes
+            self._h2d_dev_bytes += leaf.nbytes
+        return type(planes)(*(
+            torch.tensor(np.array(x, order="C"), device=self.device)
+            for x in planes
+        ))
 
     def _class_steps(self, prep: _Prepared) -> ClassStep:
         """Per-STEP scanned arrays: one step per class, except self-selecting
@@ -1993,6 +2399,8 @@ class DeviceScheduler:
         cached = prep._batch.get("class_steps")
         if cached is not None:
             prep.step_class = prep._batch["step_class"]
+            prep.step_tier = prep._batch.get("step_tier_d")
+            prep.step_gang = prep._batch.get("step_gang_d")
             return cached
         cm = prep.class_masks
         plan = prep.plan
@@ -2040,6 +2448,17 @@ class DeviceScheduler:
         minus1 = self._scalar(-1)
         zero = self._scalar(0)
 
+        # rack-aware gangs' fill levels: [Jp, N] gang-anchor hop rows, a
+        # second slot-axis scanned input beside exist_taint_ok — present
+        # only when _prepare_topoaware engaged (rack labels and kernel
+        # gangs); otherwise ClassStep.topo_rank stays None
+        topo_np = prep._batch.get("topo_rank_of_class")
+        topo_kw = (
+            {}
+            if topo_np is None
+            else {"topo_rank": self._dev(_pad(topo_np[cis], {0: Jp}, 0))}
+        )
+
         mask = _pad(cm.mask[cis], {0: Jp, 1: Kp, 2: Vp}, False)
         defines = _pad(cm.defines[cis], {0: Jp, 1: Kp}, False)
         mask = np.where(defines[:, :, None], mask, True)  # neutral pads
@@ -2084,10 +2503,27 @@ class DeviceScheduler:
                 stepvec([s.wf_key for s in steps], np.int32, -1)
             ),
             zone_rest=self._dev(_pad(zone_rest, {0: Jp, 1: Vp}, False)),
+            **topo_kw,
         )
         prep._batch["class_steps"] = step
         prep._batch["step_class"] = ci_j
         prep.step_class = ci_j
+        # gang and tier step rows (device [Jp]): the class tier and
+        # kernel-gang index lifted to the scanned step axis — present only
+        # when the batch carries tiers or gangs
+        tier_of_class = prep._batch.get("tier_of_class")
+        if tier_of_class is not None:
+            gang_of_class = prep._batch["gang_of_class"]
+            prep.step_tier = self._dev(
+                _pad(tier_of_class[cis], {0: Jp}, 0)
+            )
+            prep.step_gang = self._dev(
+                # padded steps are gang-free: never preemption-eligible
+                # (their counts are 0), never a kernel gang
+                _pad(gang_of_class[cis], {0: Jp}, gangmod.GANG_FREE)
+            )
+            prep._batch["step_tier_d"] = prep.step_tier
+            prep._batch["step_gang_d"] = prep.step_gang
         return step
 
     def _catalog_union(self) -> List[InstanceType]:

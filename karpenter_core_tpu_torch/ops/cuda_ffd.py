@@ -28,6 +28,14 @@ adds one to ``counter.launches`` after the entry reports success.
 ``counter.rows`` counts the problem rows the launched scans served (B per
 scan, pad rows included), which tells one batched scan from B solo ones;
 ``counter.blocks`` is the grid of the last launch.
+
+A step axis with a ``topo_rank`` plane (rack-aware gangs) hands the plane
+to the kernel, whose existing-slot first-fit is then level-grouped; with
+none the pointer is null and the classic prefix runs. The gang-atomic
+solve's scans (``ops/gangsched.py``) run through the kernel in
+``cuda_gang_solve`` and ``cuda_gang_solve_batched``: one launch when
+every gang commits, a second from the same init state when one rolls
+back (one host read of the failure check decides).
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from pathlib import Path
 import torch
 
 from karpenter_core_tpu_torch.ops import ffd as ffd_ops
+from karpenter_core_tpu_torch.ops import gangsched
 from karpenter_core_tpu_torch.ops.ffd import (
     LEVEL_ITERS,
     ClassStep,
@@ -96,7 +105,7 @@ _POINTERS = (
     "c_count", "c_requests", "c_class_it", "c_tmpl_ok", "c_exist_taint_ok",
     "c_new_template", "c_kstar", "c_smask", "c_h_sel", "c_h_owner",
     "c_z_sel", "c_z_owner", "c_sub_value", "c_sub_first", "c_sub_last",
-    "c_wf_group", "c_wf_key", "c_zone_rest",
+    "c_wf_group", "c_wf_key", "c_zone_rest", "c_topo_rank",
     # statics
     "it_alloc", "off_avail", "zone_key", "ct_key", "t_mask", "t_defines",
     "t_complement", "t_negative", "t_gt", "t_lt", "t_it", "t_overhead",
@@ -234,6 +243,49 @@ def cuda_ffd_solve_batched(state: SlotState, steps: ClassStep,
                            _stamps)
 
 
+def cuda_gang_solve(state: SlotState, steps: ClassStep,
+                    statics: FFDStatics, gang_of_step, gang_min,
+                    level_iters: int = LEVEL_ITERS):
+    """The gang-atomic solve (``ops/gangsched.gang_solve``) with both of its
+    scans through ``cuda_ffd_solve``: one launch when every gang commits,
+    two when one rolls back. The failure check and the cascade guard stay
+    torch ops on the device; one host read decides the second scan. On CPU
+    tensors it is the plain version."""
+    dev = state.kind.device
+    if dev.type == "cpu":
+        return gangsched.gang_solve(state, steps, statics, gang_of_step,
+                                    gang_min, level_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"cuda_gang_solve: unsupported device {dev}")
+    return gangsched.gang_solve_with(cuda_ffd_solve, state, steps, statics,
+                                     gang_of_step, gang_min, level_iters)
+
+
+def cuda_gang_solve_batched(state: SlotState, steps: ClassStep,
+                            statics: FFDStatics, gang_of_step, gang_min,
+                            level_iters: int = LEVEL_ITERS):
+    """``cuda_gang_solve`` over stacked problems, through
+    ``cuda_ffd_solve_batched``: one batched launch when every row's gangs
+    commit, and a second over the whole stack (failed counts zeroed) when
+    a row's do not. The batched kernel writes its state in place, so each
+    scan gets its own copy of the stack, and ``state`` is left as it was."""
+    dev = state.kind.device
+    if dev.type == "cpu":
+        return gangsched.gang_solve_batched(state, steps, statics,
+                                            gang_of_step, gang_min,
+                                            level_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"cuda_gang_solve_batched: unsupported device {dev}")
+
+    def scan(st, cl, stc, li):
+        return _launch_batched(SlotState(*(x.clone() for x in st)), cl,
+                               stc, li)
+
+    return gangsched.gang_solve_batched_with(scan, state, steps, statics,
+                                             gang_of_step, gang_min,
+                                             level_iters)
+
+
 def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
             level_iters: int, max_blocks: int = 0, stamps=None):
     """The solo scan on the card: the batched kernel at B = 1, over a copy
@@ -293,11 +345,6 @@ def _launch_batched(state: SlotState, steps: ClassStep, statics: FFDStatics,
     """The scan on the card: one launch for all J class steps of all B
     problems; the state is updated in place."""
     dev = state.kind.device
-    if steps.topo_rank is not None:
-        raise NotImplementedError(
-            "ClassStep.topo_rank is ported with the topoaware slice,"
-            " ROADMAP A.10"
-        )
     B, N, K, V = state.valmask.shape
     T = state.itmask.shape[2]
     R = state.requests.shape[2]
@@ -393,6 +440,11 @@ def _launch_batched(state: SlotState, steps: ClassStep, statics: FFDStatics,
         ("z_rank", statics.z_rank, i32, (Gz, V)),
     ):
         p[name] = _check(name, x, dt, (B, *shape), dev)
+
+    # the level plane of rack-aware gangs; null runs the classic first-fit
+    p["c_topo_rank"] = (None if steps.topo_rank is None else
+                        _check("c_topo_rank", steps.topo_rank, i32,
+                               (B, J, N), dev))
 
     # outputs and per-problem scratch (the kernel allocates nothing itself)
     takes = torch.empty((B, J, N), dtype=i32, device=dev)

@@ -16,8 +16,10 @@ over all open slots at once:
   counts per slot (``hcount``) give admissible-domain masks, per-slot caps
   and a water-fill quota per pinned sub-step;
 * placement — existing nodes first-fit in slot order by an exclusive
-  prefix, then in-flight claims emptiest-first by a capped water-fill,
-  then ceil(rem / kstar) fresh slots from the class's template.
+  prefix (grouped by network level first when the step carries a
+  ``topo_rank`` plane: rack-aware gangs), then in-flight claims
+  emptiest-first by a capped water-fill, then ceil(rem / kstar) fresh
+  slots from the class's template.
 
 Dtypes follow the JAX package: torch promotes integer sums and cumsums to
 int64, so every such reduction is cast back to int32 at the point where
@@ -30,8 +32,6 @@ reach them.
 problems stacked on a leading axis (cross-tenant batching); the plain
 batched scan is ``ffd_solve`` row by row, the oracle of the batched kernel.
 
-Only the classic first-fit (``ClassStep.topo_rank is None``) is ported; a
-step carrying ``topo_rank`` raises (ROADMAP A.10, the topoaware slice).
 """
 from __future__ import annotations
 
@@ -43,6 +43,11 @@ import torch
 BIG = np.float32(3.4e38)
 BIGI = 1 << 30
 RANK_NONE = 1 << 30
+# network-distance levels a slot can sit at from a gang's anchor domain
+# (same rack 0 / same superpod 1 / same zone 2 / farther or unknown 3):
+# solver/gangs.MAX_HOP_DISTANCE + 1. The existing-slot fill takes all
+# level-0 capacity before any level-1 capacity, slot order within a level.
+TOPO_LEVELS = 4
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -95,7 +100,10 @@ class ClassStep(NamedTuple):
     wf_group: torch.Tensor  # [] int32 — label-group index for water-fill (-1)
     wf_key: torch.Tensor  # [] int32 — vocab key id of that group
     zone_rest: torch.Tensor  # [V] bool — this + later sub-step domains
-    # topoaware level plane; only None is in this slice (see module doc)
+    # per-slot network-distance level of each existing slot from this
+    # class's gang anchor, in [0, TOPO_LEVELS). None (the default) runs the
+    # classic first-fit prefix; only kind == 1 slots consult it (fresh
+    # claims keep the water-fill)
     topo_rank: Optional[torch.Tensor] = None  # [N] int32
 
 
@@ -382,11 +390,6 @@ def _wf_quota(state: SlotState, c: ClassStep, statics: FFDStatics, m,
 def ffd_step(state: SlotState, c: ClassStep, statics: FFDStatics,
              level_iters: int = LEVEL_ITERS):
     """Place one pod class; returns (state', (take [N] int32, unplaced []))."""
-    if c.topo_rank is not None:
-        raise NotImplementedError(
-            "ClassStep.topo_rank (level-grouped first-fit) is ported with"
-            " the topoaware slice, ROADMAP A.10"
-        )
     N = state.kind.shape[0]
     dev = state.kind.device
     zero = _full(state.podcount, 0, _I32)
@@ -440,7 +443,25 @@ def ffd_step(state: SlotState, c: ClassStep, statics: FFDStatics,
     # -- two-phase fill: existing nodes first-fit in slot order, then
     # in-flight claims emptiest-first -----------------------------------
     k_exist_eff = torch.where(state.kind == 1, k_eff, zero)
-    before = _icumsum(k_exist_eff) - k_exist_eff  # exclusive prefix
+    if c.topo_rank is None:
+        before = _icumsum(k_exist_eff) - k_exist_eff  # exclusive prefix
+    else:
+        # level-grouped first-fit (rack-aware gangs): all capacity at
+        # network level 0 fills before any at level 1, slot order within a
+        # level. Integer-exact; an all-zero plane puts every slot in level
+        # 0, where the within-level prefix IS the classic exclusive prefix.
+        lvl = torch.clamp(c.topo_rank, 0, TOPO_LEVELS - 1)  # [N]
+        onehot = lvl[:, None] == torch.arange(
+            TOPO_LEVELS, dtype=lvl.dtype, device=dev
+        )[None, :]  # [N, L]
+        k_lvl = torch.where(onehot, k_exist_eff[:, None],
+                            torch.zeros_like(k_exist_eff)[:, None])  # [N, L]
+        lvl_tot = _isum(k_lvl, dim=0)  # [L]
+        below = _icumsum(lvl_tot) - lvl_tot  # exclusive over levels
+        within = _icumsum(k_lvl) - k_lvl  # exclusive inside each level
+        before = below[lvl.long()] + _isum(
+            torch.where(onehot, within, torch.zeros_like(within)), dim=1
+        )
     take_exist = torch.minimum(torch.clamp(m - before, min=0), k_exist_eff)
     rem_claims = m - _isum(take_exist)
     k_claim_eff = torch.where(state.kind == 2, k_eff, zero)

@@ -18,7 +18,9 @@ JAX package's bf16 product is exact only up to V = 256), provided no
 TF32 rounding reaches it: ``_exact_products`` turns TF32 off for CUDA
 matrix products before every product here.
 
-``gang_joint_templates`` is ported with the gangs slice (ROADMAP A.8).
+``gang_joint_templates`` narrows template viability to what every member
+of a same-template gang admits: an integer segment-AND (segment min over
+int32), no float.
 """
 from __future__ import annotations
 
@@ -105,6 +107,34 @@ def fits(requests, allocatable):
     allocatable never fits."""
     ok = torch.all(requests[:, None, :] <= allocatable[None, :, :], dim=-1)
     return ok & torch.all(allocatable >= 0, dim=-1)[None, :]
+
+
+def gang_joint_templates(tmpl_ok, gang_id, num_gangs: int):
+    """Same-node-template gang co-location as a mask tensor: AND-reduce
+    class x template viability within each gang so every member class sees
+    only templates EVERY member could open fresh nodes from (the first
+    member's choice then binds the gang, since fresh_viability is
+    first-template-wins over the joint mask).
+
+    tmpl_ok: [C, S] bool — per-class template viability (compat and taints)
+    gang_id: [C] int32 — index of the class's same-template gang, -1 for
+             classes outside any such gang (their rows pass through)
+    Returns the narrowed [C, S] mask."""
+    member = gang_id >= 0
+    gid = torch.clamp(gang_id, min=0).long()
+    ok_i = torch.where(
+        member[:, None], tmpl_ok.to(torch.int32),
+        torch.ones_like(tmpl_ok, dtype=torch.int32),
+    )
+    # segment_min with JAX's identity for empty segments (int32 max)
+    joint_g = torch.full(
+        (max(num_gangs, 1), tmpl_ok.shape[1]), torch.iinfo(torch.int32).max,
+        dtype=torch.int32, device=tmpl_ok.device,
+    ).scatter_reduce(
+        0, gid[:, None].expand(-1, tmpl_ok.shape[1]), ok_i, reduce="amin",
+    )
+    joint = joint_g[gid] > 0
+    return torch.where(member[:, None], tmpl_ok & joint, tmpl_ok)
 
 
 def fresh_viability(

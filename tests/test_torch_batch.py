@@ -302,7 +302,6 @@ def test_shape_key_splits_on_backend_and_device():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(kind="preempt"), "A.8"),
     (dict(kind="relax", mode="relax"), "A.9"),
     (dict(mode="relax"), "A.9"),
     (dict(devices=2), "A.13"),

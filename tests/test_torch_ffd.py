@@ -251,15 +251,6 @@ def test_hostname_flag_kept_incrementally_equals_rescan(name):
     assert changed > 0  # the flag did turn on inside the scan
 
 
-def test_topo_rank_raises():
-    req = reference_request(fuzz_problem(2))
-    init, steps, statics = port_inputs(req)
-    J, N = steps.exist_taint_ok.shape
-    steps = steps._replace(topo_rank=torch.zeros((J, N), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tffd.ffd_solve(init, steps, statics, req.level_iters)
-
-
 def test_kernel_source_ships_with_the_package():
     """The wrapper builds from the package's own source; nothing is built
     at import."""

@@ -222,31 +222,6 @@ def _port_scheduler(**kw):
     return PortScheduler(pools, its, existing_nodes=existing, **kw)
 
 
-def test_gangs_raise():
-    from karpenter_core_tpu_torch.solver.gangs import (
-        GANG_ANNOTATION,
-        GANG_MIN_SIZE_ANNOTATION,
-    )
-
-    sched = _port_scheduler()
-    pods = interop.from_reference(
-        [make_pod(cpu=0.5, name=f"g{i}") for i in range(4)]
-    )
-    for p in pods:
-        p.metadata.annotations[GANG_ANNOTATION] = "job-a"
-        p.metadata.annotations[GANG_MIN_SIZE_ANNOTATION] = "4"
-    with pytest.raises(NotImplementedError, match="A.8"):
-        sched.solve(pods)
-
-
-def test_priority_tier_raises():
-    sched = _port_scheduler()
-    pods = interop.from_reference([make_pod(cpu=0.5, name="crit")])
-    pods[0].priority = 2_000_000_000
-    with pytest.raises(NotImplementedError, match="A.8"):
-        sched.solve(pods)
-
-
 def test_relax_mode_raises():
     with pytest.raises(NotImplementedError, match="A.9"):
         _port_scheduler(solver_mode="relax")
