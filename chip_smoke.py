@@ -112,13 +112,49 @@ on failure:
    2 blocks, and batched (two rows, one with the levels reversed) to the
    plain batched scan and row by row to the solo kernel.
 
+11. relax: bench.py's cfg12_relax recipe (``_relax_bench``) at its
+   defaults: 5,000 pods of the cfg3 shape (the topology mix) and of the
+   cfg11 shape (15% in gangs of 8, 10% at priority 1e6) over two pools
+   (``a-first``, 4-cpu nodes; ``b-dense``, 16-cpu nodes at 0.75x the
+   price), 4096 slots. In each mode (ffd, relax) one scheduler makes a
+   cold, a settle and three warm solves with the plain step made to
+   raise; each must give the JAX package's nodes, cost, unschedulable
+   count, relax outcome, template moves and result digest
+   (``RELAX_EXPECTED``), and make the dispatches its outcome calls for: a
+   cold relax solve its baseline scan, the relax_choose dispatch and the
+   candidate scan, a verdict-cached warm solve one scan; every scan one
+   kernel launch (two for a gang rollback). The plain version's cold relax
+   solve must give the same answer. The candidate scan's inputs are held
+   bit-equal to the plain scan on the full grid and on 2 blocks (its
+   rollback scan too), ``relax_choose``'s integral outputs on the card
+   equal to the CPU's on the same planes (the iterates' drift printed),
+   and both are timed. Then two tenants of each problem through
+   ``solve_batch``: a batched relax_choose and batched baseline and
+   candidate scans for each pair, each tenant equal to its solo cold
+   solve and each batched choose row to its solo choose. The verdicts'
+   cost margins |cost_r - cost_f| / cost_f are printed;
+12. solverd: a ``SolverDaemon`` in this process (device cuda, kernel
+   cuda, the CLI's gateway defaults) on a loopback port answers
+   ``RemoteScheduler`` solves of plain_5k_400, topology_5k_400 and phase
+   11's relax cfg3 shape: each answer's wire must equal the in-process
+   ``DeviceScheduler``'s (solve_seconds aside), with kernel launches in
+   the daemon, no failed RPC and no client-side verifier rejection (a
+   sidecar solve without a verified answer raises; nothing falls back);
+   the RPC and in-process walls are printed. The fleet batch's 11
+   tenants then reach it at once: each must get the JAX package's node
+   count and the gateway must coalesce at least 2 problems. Last, the
+   operator with ``solver_mode="sidecar"`` spawns the port's
+   ``solver.service`` on the card and provisions phase 8's 5,000 pods to
+   ``OPERATOR_EXPECTED``, with no reconcile error, controller fault or
+   failed RPC and ``readyz()`` true; the sidecar stops with it.
+
 It prints a sha256 digest of the sources it runs (``source_digest``), a
 ``{"kernels": [...]}`` line, the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. The problems are
 built here, from a fixed recipe (no randomness). ``fleet_expected.py``
 computes ``FLEET_EXPECTED_NODES``, ``SWEEP_EXPECTED``,
-``OPERATOR_EXPECTED``, ``GANGS_EXPECTED``, ``GANG_TENANTS_EXPECTED`` and
-``TOPO_EXPECTED`` with the JAX package on the CPU.
+``OPERATOR_EXPECTED``, ``GANGS_EXPECTED``, ``GANG_TENANTS_EXPECTED``,
+``TOPO_EXPECTED`` and ``RELAX_EXPECTED`` with the JAX package on the CPU.
 """
 from __future__ import annotations
 
@@ -2513,6 +2549,728 @@ def topo_phase():
     )
 
 
+# ---------------------------------------------------------------------------
+# the relax backend (phase 11); solverd (phase 12)
+
+RELAX_PODS, RELAX_SLOTS = 5000, 4096
+RELAX_MODES = ("ffd", "relax")
+# cold, settle, three warm (bench.py _relax_bench's sequence)
+RELAX_SOLVES = ("cold", "settle", "warm", "warm", "warm")
+
+
+def _relax_expected(nodes, cost, digest, moves=None):
+    """The summaries of one (problem, mode) over ``RELAX_SOLVES``: ffd mode
+    (``moves`` None) has no relax outcome; relax mode wins cold and again
+    at the settled slot width, then serves its cached verdict."""
+    base = dict(nodes=nodes, cost=cost, unschedulable=0, digest=digest)
+    if moves is None:
+        return [dict(base, outcome=None, template_moves=None)
+                for _ in RELAX_SOLVES]
+    return ([dict(base, outcome="won", template_moves=moves)] * 2
+            + [dict(base, outcome="cached_won", template_moves=None)] * 3)
+
+
+# the JAX package's answer for every solve of phase 11 (its DeviceScheduler,
+# xla backend, on the CPU): ``JAX_PLATFORMS=cpu python3 fleet_expected.py
+# relax`` recomputes it
+RELAX_EXPECTED = {
+    "cfg3_shape": {
+        "ffd": _relax_expected(588, 48.231, "0b31a0a9fdfe318a"),
+        "relax": _relax_expected(301, 40.111, "f68352bf364488ac", moves=64),
+    },
+    "cfg11_shape": {
+        "ffd": _relax_expected(565, 46.345, "a2f849b07d2d8b67"),
+        "relax": _relax_expected(140, 34.451, "3c58ded48d292e21", moves=109),
+    },
+}
+
+
+def relax_world():
+    """bench.py ``_relax_bench``'s two pools: ``a-first`` (first by name)
+    offers only 4-cpu nodes, ``b-dense`` 16-cpu nodes at 0.75x the kwok
+    price, so first-template-wins packs a-first and the relaxation
+    b-dense. Returns (pools, instance types)."""
+    from karpenter_core_tpu_torch.cloudprovider.kwok import build_catalog
+
+    cat_a = build_catalog(cpu_grid=[4], mem_factors=[4], oses=["linux"],
+                          arches=["amd64"])
+    cat_b = build_catalog(cpu_grid=[16], mem_factors=[4], oses=["linux"],
+                          arches=["amd64"])
+    for it in cat_b:
+        for off in it.offerings:
+            off.price *= 0.75
+    return ([_pool("a-first"), _pool("b-dense")],
+            {"a-first": list(cat_a), "b-dense": list(cat_b)})
+
+
+def _gang_tier_pods(n):
+    """bench.py ``_relax_bench``'s cfg11-shaped traffic: 15% in 8-pod
+    gangs, 10% at priority 1e6, the rest plain."""
+    from karpenter_core_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_core_tpu_torch.solver.gangs import GANG_ANNOTATION
+
+    n_gang = int(n * 0.15) // 8 * 8
+    pods = [
+        Pod(metadata=ObjectMeta(name=f"g{i}", annotations={
+                GANG_ANNOTATION: f"gang-{i // 8}"}),
+            resource_requests={"cpu": 0.5 * (1 + (i // 8) % 3),
+                               "memory": 0.25 * GIB * (1 + (i // 8) % 4)})
+        for i in range(n_gang)
+    ]
+    pods += [
+        Pod(metadata=ObjectMeta(name=f"c{i}"),
+            resource_requests={"cpu": 1.0, "memory": 0.25 * GIB * (1 + i % 4)},
+            priority=1_000_000)
+        for i in range(int(n * 0.10))
+    ]
+    plain = _plain_pods(n - len(pods), shapes=(4, 3))
+    for p in plain:
+        p.metadata.name = f"pl-{p.metadata.name}"
+    return pods + plain
+
+
+def relax_problems(n_pods=None):
+    """problem -> pods factory: bench.py ``_relax_bench``'s two shapes."""
+    n = RELAX_PODS if n_pods is None else n_pods
+    return {
+        "cfg3_shape": lambda: _topology_pods(n, n_deploys=max(n // 500, 2)),
+        "cfg11_shape": lambda: _gang_tier_pods(n),
+    }
+
+
+def relax_scheduler(mode, kernel_backend="cuda"):
+    from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
+
+    pools, its = relax_world()
+    return DeviceScheduler(pools, its, max_slots=RELAX_SLOTS,
+                           solver_mode=mode, kernel_backend=kernel_backend,
+                           device="cuda")
+
+
+def result_cost(res):
+    """bench.py's $-cost of a result: the cheapest available offering of
+    each new claim's instance-type options."""
+    return sum(min(off.price for it in c.instance_type_options
+                   for off in it.offerings if off.available)
+               for c in res.new_node_claims)
+
+
+def relax_summary(res, pods, stats):
+    """What phase 11 holds a solve to: nodes, $-cost, unschedulable pods,
+    the relax outcome and template moves (None in ffd mode), and a digest
+    of the result (``_canonical``, errors keyed by pod name)."""
+    name_of = {p.uid: p.name for p in pods}
+    claims, bound, errors = _canonical(res)
+    errors = sorted((name_of.get(u, u), msg) for u, msg in errors)
+    rstats = stats.get("relax") or {}
+    return dict(nodes=res.node_count(), cost=round(result_cost(res), 3),
+                unschedulable=len(res.pod_errors),
+                outcome=rstats.get("outcome"),
+                template_moves=rstats.get("template_moves"),
+                digest=_sha([claims, bound, errors]))
+
+
+@contextlib.contextmanager
+def relax_spy():
+    """Record every dispatch the solve generators hand the solo and batched
+    runners (kind, whether batched, rows, the kernel launches and rows it
+    made, its wall with the device synchronised), keeping each request,
+    and every ``relax_score`` (the two costs of each verdict)."""
+    import torch
+
+    from karpenter_core_tpu_torch.models import provisioner as prov
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+    from karpenter_core_tpu_torch.ops import relax as relax_ops
+
+    log = {"dispatches": [], "scores": []}
+    solo, batched, score = (prov._run_kernel_solo, prov._run_kernel_batched,
+                            relax_ops.relax_score)
+
+    def record(reqs, fn, is_batched):
+        n0, r0 = cuda_ffd.counter.total(), cuda_ffd.counter.rows
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        log["dispatches"].append(dict(
+            kind=reqs[0].kind, batched=is_batched, rows=len(reqs),
+            gang=reqs[0].gang_of_step is not None,
+            launches=cuda_ffd.counter.total() - n0,
+            launch_rows=cuda_ffd.counter.rows - r0,
+            s=time.perf_counter() - t0, reqs=reqs))
+        return out
+
+    def spy_solo(req):
+        return record([req], lambda: solo(req), False)
+
+    def spy_batched(reqs):
+        return record(list(reqs), lambda: batched(reqs), True)
+
+    def spy_score(state, tmpl_price, unplaced_bc):
+        out = score(state, tmpl_price, unplaced_bc)
+        log["scores"].append(float(out[2]))
+        return out
+
+    prov._run_kernel_solo, prov._run_kernel_batched = spy_solo, spy_batched
+    relax_ops.relax_score = spy_score
+    try:
+        yield log
+    finally:
+        prov._run_kernel_solo, prov._run_kernel_batched = solo, batched
+        relax_ops.relax_score = score
+
+
+def _solve_dispatches(dispatches):
+    """A solve's dispatches as kinds, the scans named by role: a scan after
+    a relax dispatch is the candidate."""
+    kinds, after_relax = [], False
+    for d in dispatches:
+        if d["kind"] == "relax":
+            kinds.append("relax")
+            after_relax = True
+        elif d["kind"] == "solve":
+            kinds.append("candidate" if after_relax else "scan")
+            after_relax = False
+        else:
+            kinds.append(d["kind"])
+    return kinds
+
+
+def _expected_kinds(outcome, rounds):
+    """The dispatches of a solve of ``rounds`` rounds whose last round
+    ended with this relax outcome: each earlier round overflowed its slot
+    axis after its scan (the solve regrows it), so it made that scan
+    alone."""
+    per_round = {
+        None: ["scan"], "cached_won": ["scan"], "cached_kept_ffd": ["scan"],
+        "infeasible": ["scan"], "deadline": ["scan"],
+        "noop": ["scan", "relax"],
+        "won": ["scan", "relax", "candidate"],
+        "lost": ["scan", "relax", "candidate"],
+        "overflow": ["scan", "relax", "candidate"],
+    }[outcome]
+    return ["scan"] * (rounds - 1) + per_round
+
+
+def check_relax_launches(log, start, outcome, rounds, what):
+    """Raise unless the solve's dispatches are the ones its outcome makes
+    and every scan went through the kernel: one launch a plain scan, one
+    or two (a rollback) a gang dispatch, one problem row each."""
+    mine = log["dispatches"][start:]
+    kinds = _solve_dispatches(mine)
+    for d, role in zip(mine, kinds):
+        d["role"] = role
+    if kinds != _expected_kinds(outcome, rounds):
+        raise AssertionError(f"{what}: dispatches {kinds} for outcome"
+                             f" {outcome} in {rounds} rounds")
+    for d in mine:
+        if d["kind"] != "solve":
+            if d["launches"]:
+                raise AssertionError(f"{what}: a {d['kind']} dispatch"
+                                     " launched the scan kernel")
+            continue
+        allowed = (1, 2) if d["gang"] else (1,)
+        if d["launches"] not in allowed or d["launch_rows"] != d["launches"]:
+            raise AssertionError(f"{what}: a scan dispatch made"
+                                 f" {d['launches']} launches over"
+                                 f" {d['launch_rows']} rows")
+    return kinds, sum(d["launches"] for d in mine)
+
+
+def hold_scan_and_rollback(req, what, grids=(0, 2)):
+    """Hold a scan request bit-equal to the plain scan on ``grids``; for a
+    gang dispatch whose first scan fails a gang, its rollback scan too.
+    Returns (largest abs error (0.0), plain ms, scans held)."""
+    import dataclasses
+
+    import torch
+
+    from karpenter_core_tpu_torch.ops import cuda_ffd, gangsched
+
+    err, plain_ms = hold_bit_equal(req, what, grids=grids)
+    held = 1
+    if req.gang_of_step is not None:
+        _, takes1, _ = cuda_ffd.cuda_ffd_solve(
+            req.init_state, req.steps, req.statics, req.level_iters)
+        failed = gangsched._step_failed(takes1, req.gang_of_step,
+                                        req.gang_min)
+        if bool(failed.any()):
+            req2 = dataclasses.replace(req, steps=req.steps._replace(
+                count=torch.where(failed, torch.zeros_like(req.steps.count),
+                                  req.steps.count)))
+            err2, _ = hold_bit_equal(req2, f"{what} rollback", grids=grids)
+            err, held = max(err, err2), 2
+    return err, plain_ms, held
+
+
+def _device_kernels(fn):
+    """CUDA kernels one call of ``fn`` launches (torch.profiler); None when
+    the profiler recorded no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return n or None
+
+
+def hold_relax_choose(req, what):
+    """``relax_choose`` on the card against the port's on the CPU for the
+    same planes: the integral outputs must be equal; returns the iterates'
+    largest absolute drift, its time by CUDA events and the device kernels
+    one call launches."""
+    import torch
+
+    from karpenter_core_tpu_torch.ops import relax as relax_ops
+
+    kw = dict(iters=req.relax_iters, num_gangs=req.relax_gangs)
+    on_card = relax_ops.relax_choose(*req.relax, **kw)
+    cpu_planes = [x.cpu() for x in req.relax]
+    on_cpu = relax_ops.relax_choose(*cpu_planes, **kw)
+    for name, a, b in zip(("new_template", "kstar", "changed"), on_card,
+                          on_cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{what}: relax_choose {name} on the card"
+                                 " != on the CPU")
+
+    def iterates(planes):
+        viable, _kcs, k_node, podcost, counts, gang_id, _bt, _bk, warm = (
+            planes[:9])
+        topo = planes[9] if len(planes) > 9 else None
+        return relax_ops._relax_iterates(
+            *(None if x is None else x.unsqueeze(0) for x in (
+                viable, k_node, podcost, counts, gang_id, warm, topo)),
+            **kw)[0]
+
+    drift = _max_abs_err(iterates(req.relax).cpu(), iterates(cpu_planes))
+    ms = _time_ms(lambda: relax_ops.relax_choose(*req.relax, **kw), 5)
+    kernels = _device_kernels(lambda: relax_ops.relax_choose(*req.relax,
+                                                             **kw))
+    C, S = (int(n) for n in req.relax[0].shape)
+    return dict(C=C, S=S, iters=req.relax_iters, gangs=req.relax_gangs,
+                changed=int(on_card[2]), max_float_drift=drift, ms=ms,
+                device_kernels_per_call=kernels)
+
+
+def relax_phase():
+    """Phase 11: the relax backend on the card."""
+    import torch
+
+    from karpenter_core_tpu_torch.metrics import wiring as m
+    from karpenter_core_tpu_torch.models.provisioner import solve_batch
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+    from karpenter_core_tpu_torch.ops import relax as relax_ops
+
+    rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+    rows, launches, cand_launches, cand_rows, relax_calls = {}, 0, 0, 0, 0
+    margins = []
+    held = {}
+    for pname, make in relax_problems().items():
+        pods = make()
+        rows[pname] = {}
+        for mode in RELAX_MODES:
+            expected = RELAX_EXPECTED[pname][mode]
+            sched = relax_scheduler(mode)
+            times, phases, kinds = [], [], []
+            with relax_spy() as log:
+                for i, role in enumerate(RELAX_SOLVES):
+                    start = len(log["dispatches"])
+                    cuda_ffd.counter.reset()
+                    with plain_forbidden():
+                        t0 = time.perf_counter()
+                        res = sched.solve(pods)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                    st = dict(sched.last_phase_stats)
+                    got = relax_summary(res, pods, st)
+                    if got != expected[i]:
+                        raise AssertionError(
+                            f"relax [{pname} {mode}] {role} solve {i}:"
+                            f" {got} != {expected[i]}")
+                    k, n = check_relax_launches(
+                        log, start, got["outcome"], st["rounds"],
+                        f"relax [{pname} {mode}] solve {i}")
+                    if n != cuda_ffd.counter.total():
+                        raise AssertionError(f"relax [{pname} {mode}]: the"
+                                             " counter disagrees")
+                    kinds.append(k)
+                    phases.append(_phase_keys(st))
+                    launches += n
+            scores = list(log["scores"])
+            for a, b in zip(scores[::2], scores[1::2]):
+                margins.append(abs(b - a) / a if a else None)
+            cands = [d for d in log["dispatches"]
+                     if d["role"] == "candidate"]
+            cand_launches += sum(d["launches"] for d in cands)
+            cand_rows += sum(d["launch_rows"] for d in cands)
+            relax_calls += sum(d["kind"] == "relax"
+                               for d in log["dispatches"])
+            row = dict(
+                summaries=expected, cold_s=times[0], settle_s=times[1],
+                warm_s=times[2:], warm_p50_s=statistics.median(times[2:]),
+                dispatches=kinds, phases_cold=phases[0],
+                phases_warm=phases[-1])
+            if mode == "relax":
+                # the plain version's cold solve: the same answer
+                ref = relax_scheduler(mode, "reference")
+                ref_res = ref.solve(pods)
+                ref_got = relax_summary(ref_res, pods, ref.last_phase_stats)
+                if ref_got != expected[0]:
+                    raise AssertionError(f"relax [{pname}] reference cold"
+                                         f" {ref_got} != {expected[0]}")
+                relax_req = next(d["reqs"][0] for d in log["dispatches"]
+                                 if d["kind"] == "relax")
+                cand = cands[0]["reqs"][0]
+                err, plain_ms, n_held = hold_scan_and_rollback(
+                    cand, f"relax [{pname}] candidate")
+                args = (cand.init_state, cand.steps, cand.statics,
+                        cand.level_iters)
+                J = int(cand.steps.count.shape[0])
+                N = int(cand.init_state.kind.shape[0])
+                ms = _time_ms(lambda: cuda_ffd.cuda_ffd_solve(*args), 5)
+                blocks = cuda_ffd.counter.blocks
+                bound_ms, bound_by = _bound(
+                    cand, *cuda_ffd.cuda_ffd_solve(*args))
+                stages = _stage_stamps(
+                    lambda st: cuda_ffd.cuda_ffd_solve(*args, _stamps=st), J)
+                choose = hold_relax_choose(relax_req, f"relax [{pname}]")
+                held[pname] = dict(
+                    J=J, N=N, T=int(cand.init_state.itmask.shape[1]),
+                    blocks=blocks, gang=cand.gang_of_step is not None,
+                    scans_held=n_held, unequal=0, max_abs_err=err, ms=ms,
+                    ms_per_step=ms / J, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    stage_us_per_step=stages, relax_choose=choose)
+                row["candidate"] = held[pname]
+            rows[pname][mode] = row
+            print(f"relax [{pname} {mode}]: {len(pods)} pods, every solve"
+                  " the JAX package's (nodes, cost, unschedulable, outcome,"
+                  f" template moves, digest): {json.dumps(expected[0])} cold,"
+                  f" {json.dumps(expected[-1])} warm; dispatches"
+                  f" {json.dumps(kinds)}; cold {times[0]:.3f} s, settle"
+                  f" {times[1]:.3f} s, warm p50 {row['warm_p50_s']:.4f} s;"
+                  f" phases warm {json.dumps(phases[-1])}", flush=True)
+            if mode == "relax":
+                h = held[pname]
+                print(f"relax [{pname}] candidate scan (J={h['J']},"
+                      f" N={h['N']}, gang {h['gang']}): {h['scans_held']}"
+                      " scan(s) bit-equal to the plain scan on"
+                      f" {h['blocks']} blocks and on 2; {h['ms']:.3f} ms"
+                      f" ({h['ms_per_step'] * 1e3:.2f} us/step) vs plain"
+                      f" {h['plain_ms']:.1f} ms; bound {h['bound_ms']:.4f}"
+                      f" ms ({h['bound_by']}); device us/step by stage"
+                      f" (stamps) {json.dumps(h['stage_us_per_step'])};"
+                      " relax_choose on the card equal to the CPU's"
+                      f" integral outputs: {json.dumps(h['relax_choose'])};"
+                      " the plain version's cold solve equal", flush=True)
+    if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
+        raise AssertionError("relax: the verifier rejected a result")
+    print(f"relax verdict margins |cost_r - cost_f| / cost_f:"
+          f" {json.dumps(margins)}", flush=True)
+
+    # the relax tenants through solve_batch: two of each problem
+    tenants = [(p, k) for p in relax_problems() for k in range(2)]
+    pods_of = {p: make() for p, make in relax_problems().items()}
+    entries = [(relax_scheduler("relax"), pods_of[p]) for p, _k in tenants]
+    cuda_ffd.counter.reset()
+    with plain_forbidden(), relax_spy() as blog:
+        t0 = time.perf_counter()
+        outcomes, bstats = solve_batch(entries)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+    for (p, k), (sched, pods), (status, res) in zip(tenants, entries,
+                                                     outcomes):
+        if status != "ok":
+            raise AssertionError(f"relax tenant {p}/{k}: {status} {res!r}")
+        got = relax_summary(res, pods, sched.last_phase_stats)
+        if got != RELAX_EXPECTED[p]["relax"][0]:
+            raise AssertionError(f"relax tenant {p}/{k}: {got} != its solo"
+                                 f" {RELAX_EXPECTED[p]['relax'][0]}")
+    b_relax = [d for d in blog["dispatches"]
+               if d["kind"] == "relax" and d["batched"]]
+    b_scans = [d for d in blog["dispatches"]
+               if d["kind"] == "solve" and d["batched"]]
+    # the dispatcher answers every tenant's baseline before any relax
+    # dispatch, and the candidates after them
+    first_relax = next((i for i, d in enumerate(blog["dispatches"])
+                        if d["kind"] == "relax"), len(blog["dispatches"]))
+    b_cands = [d for d in blog["dispatches"][first_relax:]
+               if d["kind"] == "solve" and d["batched"]]
+    if len(b_relax) != 2 or len(b_scans) != 4 or len(b_cands) != 2:
+        raise AssertionError(
+            f"relax tenants: {len(b_relax)} batched relax dispatches and"
+            f" {len(b_scans)} batched scan dispatches, stats {bstats}")
+    for d in b_relax:  # each row of the batched choose equals its solo
+        reqs = d["reqs"]
+        stacked = [torch.stack([r.relax[i] for r in reqs])
+                   for i in range(len(reqs[0].relax))]
+        kw = dict(iters=reqs[0].relax_iters, num_gangs=reqs[0].relax_gangs)
+        nt_b, ks_b, ch_b = relax_ops.relax_choose_batched(*stacked, **kw)
+        for b, r in enumerate(reqs):
+            nt, ks, ch = relax_ops.relax_choose(*r.relax, **kw)
+            if not (torch.equal(nt, nt_b[b]) and torch.equal(ks, ks_b[b])
+                    and int(ch) == int(ch_b[b])):
+                raise AssertionError("relax tenants: a batched choose row"
+                                     " != its solo choose")
+    b_launches = sum(d["launches"] for d in b_scans)
+    b_rows = sum(d["launch_rows"] for d in b_scans)
+    print(f"relax tenants [2 x cfg3_shape, 2 x cfg11_shape]: each equals"
+          f" its solo cold solve; 2 batched relax_choose dispatches (each"
+          f" row equal to its solo choose) and 4 batched scans (baseline"
+          f" and candidate of each pair), {b_launches} launches over"
+          f" {b_rows} rows; {batch_s:.3f} s; stats {json.dumps(bstats)}",
+          flush=True)
+    for d in b_cands:
+        cand_launches += d["launches"]
+        cand_rows += d["launch_rows"]
+    launches += b_launches
+    first = held["cfg3_shape"]
+    return dict(
+        problems=rows, launches=launches, candidate_launches=cand_launches,
+        candidate_rows=cand_rows, relax_dispatches=relax_calls,
+        margins=margins, held=held, batched=dict(
+            wall_s=batch_s, stats=bstats, launches=b_launches,
+            rows=b_rows),
+        ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        blocks=first["blocks"], ms_per_step=first["ms_per_step"],
+        stage_us_per_step=first["stage_us_per_step"],
+        max_abs_err=max(h["max_abs_err"] for h in held.values()),
+    )
+
+
+def _solverd_problems():
+    """problem -> (pools, instance types, pods factory, max_slots, mode):
+    phase 4's two 5k shapes and phase 11's relax cfg3 shape."""
+    from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
+
+    out = {}
+    for name in ("plain_5k_400", "topology_5k_400"):
+        make, n_types, max_slots = problems()[name]
+        pool = _pool()
+        out[name] = ([pool], {pool.name: list(bench_catalog(n_types))},
+                     make, max_slots, "ffd")
+    pools, its = relax_world()
+    out["relax_cfg3_shape"] = (pools, its,
+                               relax_problems()["cfg3_shape"],
+                               RELAX_SLOTS, "relax")
+    return out
+
+
+def _wire_view(data):
+    """A solve-result wire without its timing field."""
+    from karpenter_core_tpu_torch.solver import codec
+
+    h = codec.decode_solve_results(data)
+    h.pop("solve_seconds", None)
+    return h
+
+
+def _rpc_failures():
+    """Every RPC failure the port's sidecar clients have counted."""
+    from karpenter_core_tpu_torch.metrics import wiring as m
+
+    return sum(m.SOLVER_RPC_FAILURES.values.values())
+
+
+def solverd_phase():
+    """Phase 12: the port's solverd on the card: an in-process daemon on a
+    loopback port against in-process solves, then the operator with a
+    spawned sidecar."""
+    import threading
+
+    import torch
+
+    from karpenter_core_tpu_torch.metrics import wiring as m
+    from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
+    from karpenter_core_tpu_torch.operator import Options
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+    from karpenter_core_tpu_torch.solver import codec, remote, service
+    from karpenter_core_tpu_torch.solver import fleet as fleetmod
+
+    # the CLI's gateway defaults (max batch 8, 2 ms window), device cuda,
+    # kernel cuda
+    daemon = service.SolverDaemon(gateway=fleetmod.FleetGateway(
+        max_batch=fleetmod.DEFAULT_MAX_BATCH,
+        batch_window=fleetmod.DEFAULT_BATCH_WINDOW_MS / 1000.0))
+    daemon.warm_up()
+    answers = []
+    solve = daemon.solve
+
+    def spy_solve(body, **kw):
+        out = solve(body, **kw)
+        answers.append(out[0])
+        return out
+
+    daemon.solve = spy_solve
+    srv = service.serve(0, daemon=daemon)
+    addr = f"127.0.0.1:{srv.server_address[1]}"
+    rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+    failures0 = _rpc_failures()
+    rows, launches = {}, 0
+    try:
+        for name, (pools, its, make, max_slots, mode) in (
+                _solverd_problems().items()):
+            pods = make()
+            reset_name_counters()
+            sched = DeviceScheduler(pools, its, max_slots=max_slots,
+                                    solver_mode=mode)
+            with plain_forbidden():
+                t0 = time.perf_counter()
+                local = sched.solve(pods)
+                torch.cuda.synchronize()
+                local_s = time.perf_counter() - t0
+            local_wire = _wire_view(codec.encode_solve_results(local, 0.0))
+            reset_name_counters()
+            client = remote.SolverClient(addr, timeout=600)
+            rs = remote.RemoteScheduler(client, pools, its,
+                                        device_scheduler_opts=dict(
+                                            max_slots=max_slots,
+                                            solver_mode=mode))
+            n_answers = len(answers)
+            cuda_ffd.counter.reset()
+            with plain_forbidden():
+                t0 = time.perf_counter()
+                res = rs.solve(pods)
+                rpc_s = time.perf_counter() - t0
+            grew = cuda_ffd.counter.total()
+            launches += grew
+            if len(answers) != n_answers + 1:
+                raise AssertionError(f"solverd [{name}]: the daemon did not"
+                                     " answer the solve")
+            if _wire_view(answers[-1]) != local_wire:
+                raise AssertionError(f"solverd [{name}]: the daemon's wire"
+                                     " != the in-process solve's")
+            if (res.node_count() != local.node_count()
+                    or set(res.pod_errors) != set(local.pod_errors)):
+                raise AssertionError(f"solverd [{name}]: the materialized"
+                                     " result differs")
+            if grew < 1:
+                raise AssertionError(f"solverd [{name}]: no kernel launch")
+            rows[name] = dict(nodes=res.node_count(), rpc_s=rpc_s,
+                              inproc_s=local_s, launches=grew,
+                              cuda_ffd_rows=cuda_ffd.counter.rows)
+            print(f"solverd [{name}]: the daemon's wire equals the"
+                  f" in-process solve's ({res.node_count()} nodes, mode"
+                  f" {mode}); RPC wall {rpc_s:.3f} s vs in-process"
+                  f" {local_s:.3f} s (both cold); {grew} kernel launches in"
+                  " the daemon", flush=True)
+
+        # the fleet batch's tenants at the same daemon at once
+        tenants = fleet()
+        results, errors = {}, []
+
+        def one(name, make):
+            try:
+                pool = _pool(name)
+                from karpenter_core_tpu_torch.cloudprovider.kwok import (
+                    bench_catalog,
+                )
+
+                rs = remote.RemoteScheduler(
+                    remote.SolverClient(addr, timeout=600, tenant=name),
+                    [pool], {name: list(bench_catalog(FLEET_TYPES))},
+                    device_scheduler_opts=dict(max_slots=FLEET_SLOTS))
+                results[name] = rs.solve(make())
+            except Exception as e:  # reported below, on the main thread
+                errors.append((name, repr(e)))
+
+        pods_of = {n: make for n, (make, _k) in tenants.items()}
+        coalesced0 = daemon.gateway.batch_stats()["coalesced"]
+        cuda_ffd.counter.reset()
+        threads = [threading.Thread(target=one, args=(n, mk))
+                   for n, mk in pods_of.items()]
+        t0 = time.perf_counter()
+        with plain_forbidden():
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        fleet_s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"solverd fleet: {errors}")
+        got = {n: r.node_count() for n, r in results.items()}
+        if got != FLEET_EXPECTED_NODES:
+            raise AssertionError(f"solverd fleet: {got} !="
+                                 f" {FLEET_EXPECTED_NODES}")
+        stats = daemon.gateway.batch_stats()
+        coalesced = stats["coalesced"] - coalesced0
+        if coalesced < 2:
+            raise AssertionError(f"solverd fleet: the gateway coalesced"
+                                 f" {coalesced} problems ({stats})")
+        fleet_launches = cuda_ffd.counter.total()
+        launches += fleet_launches
+        if _rpc_failures() != failures0:
+            raise AssertionError(f"solverd: an RPC failed"
+                                 f" ({dict(m.SOLVER_RPC_FAILURES.values)})")
+        if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
+            raise AssertionError("solverd: the client's verifier rejected a"
+                                 " result")
+        print(f"solverd fleet [11 tenants at once]: each tenant's node count"
+              f" the JAX package's; the gateway coalesced {coalesced}"
+              f" problems onto leaders' grants ({json.dumps(stats)});"
+              f" {fleet_launches} launches over {cuda_ffd.counter.rows} rows;"
+              f" {fleet_s:.3f} s; no failed RPC, no verifier rejection",
+              flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+    # the operator with a spawned sidecar (device cuda, kernel cuda)
+    ns = port_classes()
+    errors0 = dict(m.RECONCILE_ERRORS.values)
+    rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+    failures0 = _rpc_failures()
+    reset_name_counters()
+    t0 = time.perf_counter()
+    op, run = provisioning_scenario(
+        ns, Options(solver="tpu", solver_mode="sidecar"))
+    spawn_s = time.perf_counter() - t0
+    try:
+        sup = op.solver_supervisor
+        if sup is None or not sup.alive():
+            raise AssertionError("solverd operator: no live sidecar")
+        with operator_spy() as log:
+            t0 = time.perf_counter()
+            passes = run()
+            wall = time.perf_counter() - t0
+        check_operator_run(op, log, "solverd operator", errors0, rejected0,
+                           0, launched=False)
+        if log["solves"]:
+            raise AssertionError("solverd operator: solved in process")
+        outcome = operator_outcome(op)
+        if not outcome[2] or list(outcome[:2]) != list(
+                OPERATOR_EXPECTED["provisioning"]):
+            raise AssertionError(f"solverd operator: {outcome}, the JAX"
+                                 " operator's"
+                                 f" {OPERATOR_EXPECTED['provisioning']}")
+        if _rpc_failures() != failures0:
+            raise AssertionError(f"solverd operator: an RPC failed"
+                                 f" ({dict(m.SOLVER_RPC_FAILURES.values)})")
+        child = sup.command
+    finally:
+        op.shutdown()
+    if op.solver_supervisor.alive():
+        raise AssertionError("solverd operator: the sidecar outlived"
+                             " shutdown")
+    print(f"solverd operator [provisioning, spawned sidecar {child[2]}]:"
+          f" {outcome[0]} nodes, {outcome[1]} cpu, every pod bound (the JAX"
+          f" operator's); {passes} passes in {wall:.3f} s (spawn and"
+          f" operator build {spawn_s:.3f} s); no reconcile error, no"
+          " verifier rejection, no failed RPC, readyz true; the"
+          " sidecar stopped with the operator", flush=True)
+    return dict(problems=rows, launches=launches,
+                fleet=dict(wall_s=fleet_s, coalesced=coalesced, stats=stats,
+                           launches=fleet_launches),
+                operator=dict(nodes=outcome[0], cpu=outcome[1],
+                              passes=passes, wall_s=wall, spawn_s=spawn_s))
+
+
 def main() -> int:
     try:
         import torch
@@ -2578,6 +3336,13 @@ def main() -> int:
     # 10. rack-aware gangs: the kernel's level-grouped first-fit
     topo = topo_phase()
     done(10)
+    # 11. the relax backend: its candidate scan through the kernel
+    relax = relax_phase()
+    done(11)
+    # 12. solverd: the daemon in process, then the operator's sidecar
+    solverd = solverd_phase()
+    done(12)
+    launches[cuda_ffd.KERNELS[0]] += solverd["launches"]
 
     k50 = krows[0]
     kp = next(r for r in brows if r["tenants"] == FLEET_GROUPS[0])
@@ -2589,6 +3354,8 @@ def main() -> int:
         "launches": sum(launches.values()),
         "launches_by_kernel": launches,
         "operator_launches": sum(r["scans"] for r in operator.values()),
+        "solverd_launches": solverd["launches"],
+        "solverd": solverd,
         "blocks": k50["blocks"],
         "max_abs_err": max(r["max_abs_err"] for r in krows),
         "ms": k50["ms"],
@@ -2698,6 +3465,31 @@ def main() -> int:
         "stage_us_per_step": topo["stage_us_per_step"],
         "classic_ms": topo["classic_ms"],
         "cfg18": topo,
+    }, {
+        "name": "ffd_step_relax",
+        "route": "cuda",
+        "source": "karpenter_core_tpu_torch/csrc/ffd_step.cu",
+        "replaces": "karpenter_core_tpu/ops/pallas_ffd.py:135",
+        "replaces_route": "the relax candidate scan: models/provisioner.py"
+                          " _relax_improve's second dispatch (:1562-1575),"
+                          " the override riding ClassStep.new_template/kstar"
+                          " (_override_steps :1442-1454), solo and batched",
+        "launches": relax["candidate_launches"],
+        "rows": relax["candidate_rows"],
+        "blocks": relax["blocks"],
+        "max_abs_err": relax["max_abs_err"],
+        "ms": relax["ms"],
+        "plain_ms": relax["plain_ms"],
+        "bound_ms": relax["bound_ms"],
+        "bound_by": relax["bound_by"],
+        "library_ms": None,
+        "unequal": 0,
+        "ms_per_step": relax["ms_per_step"],
+        "stage_us_per_step": relax["stage_us_per_step"],
+        "relax_choose": {p: h["relax_choose"]
+                         for p, h in relax["held"].items()},
+        "relax_choose_dispatches": relax["relax_dispatches"],
+        "cfg12": relax,
     }]}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

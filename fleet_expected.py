@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """The JAX package's answers that chip_smoke.py holds the port to, on the
 same problems: ``FLEET_EXPECTED_NODES`` (phase 6), ``SWEEP_EXPECTED``
-(phase 7), ``OPERATOR_EXPECTED`` (phase 8), and ``GANGS_EXPECTED``,
-``GANG_TENANTS_EXPECTED`` and ``TOPO_EXPECTED`` (phases 9-10).
+(phase 7), ``OPERATOR_EXPECTED`` (phase 8), ``GANGS_EXPECTED``,
+``GANG_TENANTS_EXPECTED`` and ``TOPO_EXPECTED`` (phases 9-10), and
+``RELAX_EXPECTED`` (phase 11).
 
 Run from the root of a checkout, on the CPU:
 
-    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator] [gangs]
+    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator] [gangs] [relax]
 
-(all four when none is named). Every problem comes from chip_smoke.py's
+(all five when none is named). Every problem comes from chip_smoke.py's
 own recipe (built with the port's classes and carried into the JAX
 package's by pickling, the inverse of
 ``karpenter_core_tpu_torch.interop.from_reference``):
@@ -27,6 +28,11 @@ package's by pickling, the inverse of
   (the two must agree; node counts), and on phase 10's cfg18 problem
   (``chip_smoke.topo_summary``: nodes, worst intra-gang hops, gangs
   placed, digest).
+* relax: its ``DeviceScheduler`` (xla backend) in each mode (ffd, relax)
+  on each of phase 11's problems over the two-pool catalog, the solve
+  sequence of ``chip_smoke.RELAX_SOLVES`` (cold, settle, three warm) on one
+  scheduler, each solve as ``chip_smoke.relax_summary`` (nodes, cost,
+  unschedulable pods, relax outcome, template moves, digest).
 
 The script prints each answer and exits 1 if one differs from the value
 pinned in chip_smoke.py.
@@ -162,8 +168,28 @@ def gangs():
                      topo=chip_smoke.TOPO_EXPECTED)
 
 
+def relax():
+    from karpenter_core_tpu.models.provisioner import DeviceScheduler
+
+    pools, its = to_reference(chip_smoke.relax_world())
+    out = {}
+    for pname, make in chip_smoke.relax_problems().items():
+        pods = to_reference(make())
+        out[pname] = {}
+        for mode in chip_smoke.RELAX_MODES:
+            sched = DeviceScheduler(pools, its,
+                                    max_slots=chip_smoke.RELAX_SLOTS,
+                                    solver_mode=mode, kernel_backend="xla")
+            out[pname][mode] = [
+                chip_smoke.relax_summary(sched.solve(pods), pods,
+                                         sched.last_phase_stats)
+                for _ in chip_smoke.RELAX_SOLVES]
+            print(f"relax {pname} {mode}: {out[pname][mode]}", flush=True)
+    return out, chip_smoke.RELAX_EXPECTED
+
+
 PARTS = {"fleet": fleet, "sweep": sweep, "operator": operator,
-         "gangs": gangs}
+         "gangs": gangs, "relax": relax}
 
 
 def main(argv) -> int:

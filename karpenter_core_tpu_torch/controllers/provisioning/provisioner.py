@@ -11,8 +11,8 @@ cheapest) and returns the pod→target nomination map the binder consumes.
 Port of ``karpenter_core_tpu/controllers/provisioning/provisioner.py``: the
 `tpu` solver builds the port's ``DeviceScheduler`` (models/provisioner.py),
 which takes its ``device`` and ``kernel_backend`` from
-``device_scheduler_opts``. The solverd sidecar route (a ``solver_client``)
-is ported by ROADMAP A.12 and raises here. A profiled solve writes a
+``device_scheduler_opts``; with a ``solver_client`` the solve crosses the
+solverd sidecar's RPC seam (solver/remote.RemoteScheduler) instead. A profiled solve writes a
 ``torch.profiler`` trace where the reference writes a ``jax.profiler`` one.
 """
 from __future__ import annotations
@@ -218,9 +218,15 @@ class Provisioner:
         )
         if self.solver == "tpu":
             if self.solver_client is not None:
-                raise NotImplementedError(
-                    "solves through the solverd sidecar (a solver_client)"
-                    " are ported by ROADMAP item A.12"
+                from karpenter_core_tpu_torch.solver.remote import RemoteScheduler
+
+                return RemoteScheduler(
+                    self.solver_client,
+                    topology=topology,
+                    device_scheduler_opts=self.device_scheduler_opts,
+                    verify=self.verify_results,
+                    recorder=self.recorder,
+                    **common,
                 )
             from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
 

@@ -26,10 +26,11 @@ pods, ``overflow``, the fresh slots' price lower bound) are torch
 reductions over the final stacked state.
 
 Pods with topology constraints take the host path (callers fall back to
-binary search when any candidate carries them). Raising
-``NotImplementedError`` that names the ROADMAP item that ports it: the
-sweep through the solverd sidecar (A.12) and the prefix axis sharded over
-several devices (A.13).
+binary search when any candidate carries them). Behind the solverd
+sidecar (an operator with a ``solver_client``) the sweep crosses the RPC
+seam (solver/remote.remote_frontier) and the sidecar runs this module.
+The prefix axis sharded over several devices (ROADMAP A.13) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -199,10 +200,23 @@ def schedulability_frontier(
     candidate_pods = [c.reschedulable_pods for c in candidates]
     daemonset_pods = provisioner.daemonset_pods()
 
-    if getattr(provisioner, "solver_client", None) is not None:
-        raise NotImplementedError(
-            "the consolidation sweep through the solverd sidecar is ported"
-            " by ROADMAP item A.12"
+    # sidecar mode: the sweep crosses the same RPC seam as the solve; a
+    # dead/slow sidecar fails the sweep (RemoteSolverError) and the next
+    # disruption pass asks again
+    client = getattr(provisioner, "solver_client", None)
+    if client is not None:
+        from karpenter_core_tpu_torch.solver.remote import remote_frontier
+
+        return remote_frontier(
+            client,
+            nodepools,
+            instance_types,
+            cand_nodes,
+            keep_nodes,
+            daemonset_pods,
+            base_pods,
+            candidate_pods,
+            max_slots=max_slots,
         )
     # in-proc sweeps follow the solve path's device, kernel and device
     # count (the operator threads them through device_scheduler_opts)

@@ -36,15 +36,22 @@ rack-labelled fleets give each gang class a per-slot network-level plane
 follows; still-unplaced positive-tier classes get a preemption pass over
 the existing nodes' evictable pods, returned as ``Results.evictions``.
 
+``solver_mode="relax"`` layers the convex-relaxation template optimizer
+(``ops/relax.py``) over the same scan: the plain FFD answer is dispatched
+first (the anytime answer), then the assignment and rounding, then a
+candidate FFD scan with the rounded (new_template, kstar) override riding
+``ClassStep`` — through the same kernel — adopted only when its score
+strictly wins; the verdict caches on the class batch, so a warm solve of
+the same problem is one dispatch.
+
 Outside this slice, and raising ``NotImplementedError`` that names the
-ROADMAP item that ports it: ``solver_mode="relax"`` (A.9) and
-``devices != 1`` (A.13).
+ROADMAP item that ports it: ``devices != 1`` (A.13).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +91,7 @@ from karpenter_core_tpu_torch.controllers.provisioning.scheduling.topology impor
 from karpenter_core_tpu_torch.ops import cuda_ffd
 from karpenter_core_tpu_torch.ops import gangsched
 from karpenter_core_tpu_torch.ops import masks as mops
+from karpenter_core_tpu_torch.ops import relax as relax_ops
 from karpenter_core_tpu_torch.ops import topoplan
 from karpenter_core_tpu_torch.ops.ffd import (
     BIG,
@@ -284,6 +292,12 @@ class _Prepared:
     ev: object = None
     ev_uids: list = field(default_factory=list)
     ev_freed: list = field(default_factory=list)
+    # relax: the candidate dispatch re-runs the FFD scan from a FRESH init
+    # state (the baseline's scan updated its own), so the builder args are
+    # kept here; tmpl_price_d is the [Sp] per-template min node price the
+    # scored fallback ranks candidates with
+    init_args: tuple = None
+    tmpl_price_d: object = None
     # rack-aware gangs: per-gang anchor domain ids into the fp entry's
     # RackPlan — None whenever the catalog carries no rack labels
     topo_anchors: dict = None
@@ -309,8 +323,10 @@ class _KernelRequest:
     can answer it — solo, or stacked into a batch of problems.
 
     ``kind`` selects the family: ``"solve"`` (the FFD scan — the
-    gang-atomic solve when gang_of_step is set) or ``"preempt"`` (the
-    eviction pass over a finished solve's state)."""
+    gang-atomic solve when gang_of_step is set), ``"preempt"`` (the
+    eviction pass over a finished solve's state) or ``"relax"`` (the
+    relax assignment and rounding, ops/relax.relax_choose, answered with
+    (new_template [Cp], kstar [Cp], n_changed, seconds))."""
 
     init_state: SlotState
     steps: ClassStep
@@ -319,9 +335,11 @@ class _KernelRequest:
     step_class: torch.Tensor  # [Jp] step -> class index
     num_classes: int  # Cp, the bucketed class axis
     n_slots: int
-    # the dispatch family: "solve" or "preempt" ("relax" is ROADMAP A.9)
+    # the dispatch family: "solve", "preempt" or "relax"
     kind: str = "solve"
-    # the solver backend that made the request ("ffd" | "relax")
+    # the solver backend that made the request ("ffd" | "relax"): part of
+    # the shape key, so a relax problem's dispatches — its plain baseline
+    # scan included — never stack with an ffd problem's
     mode: str = "ffd"
     # "cuda": the hand kernel (ops/cuda_ffd.py); "reference": the plain
     # torch scan (ops/ffd.py), the kernel's oracle
@@ -339,6 +357,13 @@ class _KernelRequest:
     unplaced: object = None  # [Jp] int32 still-unplaced per step
     ev: object = None  # ops/gangsched.EvPlanes
     node_rounds: int = gangsched.NODE_ROUNDS
+    # relax assignment inputs (kind == "relax"): the ops/relax constraint
+    # planes (viable, k_cs, k_node, podcost, counts, gang_id,
+    # base_template, base_kstar, warm_template[, topo_cost]) and the
+    # iteration / gang counts
+    relax: tuple = None
+    relax_iters: int = 0
+    relax_gangs: int = 0
 
     def shape_key(self) -> tuple:
         """Exact shape identity: requests with equal keys stack into one
@@ -350,10 +375,11 @@ class _KernelRequest:
         tensors join the leaf walk, so a gang problem never stacks with a
         plain one, and two same-shaped gang problems do."""
         leaves = [
-            x for tree in (self.init_state, self.steps, self.statics,
+            x for tree in (self.init_state or (), self.steps or (),
+                           self.statics or (),
                            (self.gang_of_step, self.gang_min,
                             self.step_tier, self.step_gang, self.unplaced),
-                           self.ev or ())
+                           self.ev or (), self.relax or ())
             for x in tree if x is not None
         ]
         return (
@@ -367,20 +393,12 @@ class _KernelRequest:
             self.num_classes,
             self.devices,
             self.node_rounds,
+            self.relax_iters,
+            self.relax_gangs,
         )
-
-
-# request kinds of later slices, by the ROADMAP item that ports them
-_LATER_KINDS = {"relax": "A.9"}
 
 
 def _check_ported(req: _KernelRequest) -> None:
-    item = _LATER_KINDS.get(req.kind) or _LATER_KINDS.get(req.mode)
-    if item:
-        raise NotImplementedError(
-            f"{req.kind}/{req.mode} dispatches are ported by ROADMAP item"
-            f" {item}"
-        )
     if req.devices != 1:
         raise NotImplementedError(
             f"devices={req.devices}: multi-GPU dispatches are ported by"
@@ -394,6 +412,11 @@ def _run_kernel_solo(req: _KernelRequest):
     device)."""
     _check_ported(req)
     t0 = time.perf_counter()
+    if req.kind == "relax":
+        nt, ks, changed = relax_ops.relax_choose(
+            *req.relax, iters=req.relax_iters, num_gangs=req.relax_gangs
+        )
+        return nt, ks, int(changed), time.perf_counter() - t0
     if req.kind == "preempt":
         extra, m_left, evicted = gangsched.preempt_pass(
             req.init_state, req.steps, req.statics,
@@ -463,6 +486,21 @@ def _run_kernel_batched(reqs: List[_KernelRequest]):
     t0 = time.perf_counter()
     Bp = _bucket(B, lo=_BATCH_PAD_LO)
     reqs_p = list(reqs) + [head] * (Bp - B)
+    if head.kind == "relax":
+        # the assignment planes carry no slot axis: stack the problem axis
+        # and answer every row from one batched pass
+        stacked = tuple(
+            torch.stack([r.relax[i] for r in reqs_p])
+            for i in range(len(head.relax))
+        )
+        nt_b, ks_b, changed_b = relax_ops.relax_choose_batched(
+            *stacked, iters=head.relax_iters, num_gangs=head.relax_gangs
+        )
+        changed_h = changed_b.cpu().tolist()
+        share = (time.perf_counter() - t0) / B
+        return [
+            (nt_b[b], ks_b[b], int(changed_h[b]), share) for b in range(B)
+        ], Bp
     # the stack is a fresh copy, so the kernel updates it in place
     state = _stack_trees([r.init_state for r in reqs_p])
     steps = _stack_trees([r.steps for r in reqs_p])
@@ -655,18 +693,30 @@ class DeviceScheduler:
         verify: bool = True,
         recorder=None,
         solver_mode: str = "ffd",
+        relax_iters: Optional[int] = None,
+        relax_budget_s: Optional[float] = None,
         kernel_backend: str = "cuda",
         device="cuda",
     ):
-        # "ffd" is the classic first-fit-decreasing backend; the
-        # convex-relaxation backend ("relax") is ported by ROADMAP A.9
-        if solver_mode == "relax":
-            raise NotImplementedError(
-                "solver_mode='relax' is ported by ROADMAP item A.9"
-            )
-        if solver_mode != "ffd":
+        # "ffd" is the classic first-fit-decreasing backend; "relax" layers
+        # the convex-relaxation template optimizer over the same scan
+        # (ops/relax.py) with the FFD result as the scored/anytime
+        # fallback. relax_budget_s is the wall budget (from solve start)
+        # after which relax work is skipped and the FFD answer serves.
+        if solver_mode not in ("ffd", "relax"):
             raise ValueError(f"unknown solver mode {solver_mode!r}")
         self.solver_mode = solver_mode
+        self.relax_iters = (
+            relax_iters
+            if relax_iters is not None
+            else relax_ops.DEFAULT_ITERS
+        )
+        self.relax_budget_s = relax_budget_s
+        # incremental warm start: {class signature -> nodepool name} from
+        # the packing ledger's prior accepted packing, set by
+        # solver/incremental before a solve; _relax_improve lowers it to
+        # the per-class warm_template vector. None keeps the cold start.
+        self._relax_warm: Optional[Dict] = None
         # kernel backend: "cuda" answers the FFD-scan dispatches with the
         # hand kernel (ops/cuda_ffd.py); "reference" with its plain torch
         # version (ops/ffd.py) — the oracle the tests and the chip smoke
@@ -794,6 +844,15 @@ class DeviceScheduler:
     # safely below sidecar OOM territory under label-churn signatures
     _ROW_CACHE_CAP = 20_000
 
+    def update_topology_context(self, topology: Optional[Topology]) -> None:
+        """Swap the cluster topology context in place. Per-round Topology
+        state is rebuilt from the context on every solve, so a cached
+        scheduler (solverd reuses them across RPC calls keyed on the
+        problem fingerprint, which ignores the pod-derived excluded-uid
+        list) takes the request's live context here instead of rebuilding
+        the whole scheduler."""
+        self._topology_context = topology
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """Host->device copy with byte accounting for the phase breakdown.
         64-bit host arrays land as 32-bit tensors, as JAX's default dtype
@@ -807,6 +866,29 @@ class DeviceScheduler:
 
     def _scalar(self, value, dtype=torch.int32) -> torch.Tensor:
         return torch.tensor(value, dtype=dtype, device=self.device)
+
+    def prewarm(self, class_buckets: Sequence[int] = (8, 64, 256)) -> None:
+        """Run a synthetic solve at each common class-count bucket before
+        the first real batch, so the first real solve finds the CUDA
+        context, the kernel library and the allocator's pools ready.
+        Kernel shapes bucket on the class axis (_bucket), so a solve with
+        N distinct pod shapes exercises the shapes a real N-class batch
+        hits."""
+        GIB = 2.0**30
+        from karpenter_core_tpu_torch.api.objects import ObjectMeta
+
+        for target in class_buckets:
+            pods = [
+                Pod(
+                    metadata=ObjectMeta(name=f"prewarm-{target}-{i}"),
+                    resource_requests={
+                        "cpu": 0.001 * (1 + i % 64),
+                        "memory": 0.125 * GIB * (1 + i // 64),
+                    },
+                )
+                for i in range(target)
+            ]
+            self.solve(pods)
 
     def solve(self, pods: List[Pod]) -> Results:
         """Device solve + host decode + relaxation outer loop.
@@ -855,6 +937,10 @@ class DeviceScheduler:
         else:
             max_slots = base_slots
         self._round_frozen = None  # vocab union seed is per solve() call
+        # anytime clock: every relax-budget check measures from the moment
+        # THIS solve started, so "budget expired" always leaves the
+        # already-computed FFD answer as the serve
+        self._solve_t0 = time.perf_counter()
         self.last_phase_stats = stats = {
             "plan_s": 0.0, "prepare_s": 0.0, "kernel_s": 0.0,
             "decode_s": 0.0, "fetch_bytes": 0, "h2d_bytes": 0,
@@ -868,6 +954,8 @@ class DeviceScheduler:
             # ... and which kernel backend answered its scan dispatches
             "kernel_backend": self.kernel_backend,
         }
+        if self.solver_mode == "relax":
+            stats["relax"] = {}
 
         from karpenter_core_tpu_torch.metrics import wiring as m
 
@@ -1064,6 +1152,21 @@ class DeviceScheduler:
         stats["h2d_bytes"] += self._h2d_bytes
         stats["h2d_dev_bytes"] += self._h2d_dev_bytes
 
+        # relax: a cached WON verdict for this exact class batch applies the
+        # rounded template override to the ONE dispatch below — warm relax
+        # solves cost a single scan, like ffd mode, and pack the
+        # relaxation's better answer. An unevaluated batch dispatches plain
+        # first (the anytime answer) and _relax_improve runs the optimizer
+        # after.
+        relax_verdict = None
+        if self.solver_mode == "relax":
+            relax_verdict = prep._batch.get("relax_verdict")
+            if relax_verdict is not None and relax_verdict.get("won"):
+                steps = self._override_steps(
+                    prep, steps,
+                    relax_verdict["new_template"], relax_verdict["kstar"],
+                )
+
         # the device dispatch is the generator's yield point: the dispatcher
         # answers with the FFD scan + the per-class aggregate. The kernel
         # works on its own copy of init_state; _Prepared rebuilds it per
@@ -1093,15 +1196,40 @@ class DeviceScheduler:
         # to learn how many slots the solve touched — every remaining plane
         # is sliced to that bucketed window before the bulk fetch, so the
         # device->host transfer scales with nodes PACKED, not max_slots
-        head_t = torch.stack(
-            [state.overflow.to(torch.int32), state.next_free]
-        ).cpu()
-        head = {"overflow": int(head_t[0]), "next_free": int(head_t[1])}
+        head = self._head(state)
         if bool(head["overflow"]):
             kdt = kernel_share_s + (time.perf_counter() - t0)
             m.SOLVER_KERNEL_DURATION.observe(kdt)
             stats["kernel_s"] += kdt
             return None
+
+        # -- relax improve pass ---------------------------------------------
+        # With the baseline (anytime) answer in hand, run the relaxation and
+        # adopt its packing only when the scored comparison says it strictly
+        # wins; the preemption pass and decode below then work on the
+        # winner.
+        if self.solver_mode == "relax":
+            if relax_verdict is not None:
+                rstats = stats.get("relax")
+                if rstats is not None:
+                    rstats["outcome"] = (
+                        "cached_won"
+                        if relax_verdict.get("won")
+                        else "cached_kept_ffd"
+                    )
+                    rstats["cached"] = True
+                m.SOLVER_RELAX_BACKEND.inc({"outcome": "cached"})
+            else:
+                state, takes_bc, unplaced_bc, rdt = yield from (
+                    self._relax_improve(
+                        prep, steps, state, takes_bc, unplaced_bc
+                    )
+                )
+                kernel_share_s += rdt
+                # the adopted packing may differ from the baseline whose
+                # head was fetched above: the fetch window (and the slot
+                # hint) follow the WINNER's state
+                head = self._head(state)
 
         evictions: Dict[str, List[str]] = {}
         # -- preemption pass ------------------------------------------------
@@ -1237,6 +1365,184 @@ class DeviceScheduler:
                 failed.append((p, err))
         stats["decode_s"] += time.perf_counter() - t0
         return claims, existing_sims, failed, evictions
+
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _head(state: SlotState) -> dict:
+        """The two head scalars of a finished scan, in one host read."""
+        head_t = torch.stack(
+            [state.overflow.to(torch.int32), state.next_free]
+        ).cpu()
+        return {"overflow": int(head_t[0]), "next_free": int(head_t[1])}
+
+    # -- relax ------------------------------------------------------------
+
+    def _override_steps(self, prep: _Prepared, steps: ClassStep,
+                        nt, ks) -> ClassStep:
+        """Lift a per-class (new_template, kstar) override onto the scanned
+        step axis: gather by the step->class index, keep pad steps inert.
+        A local copy — the cached ClassStep on prep._batch is never
+        mutated."""
+        Jp = int(prep.step_class.shape[0])
+        J = len(prep.plan.steps)
+        sc = prep.step_class.long()
+        valid = torch.arange(Jp, device=sc.device) < J
+        return steps._replace(
+            new_template=torch.where(
+                valid, nt[sc], torch.full_like(steps.new_template, -1)
+            ),
+            kstar=torch.where(
+                valid, ks[sc], torch.zeros_like(steps.kstar)
+            ),
+        )
+
+    def _relax_expired(self) -> bool:
+        return (
+            self.relax_budget_s is not None
+            and time.perf_counter() - self._solve_t0 > self.relax_budget_s
+        )
+
+    def _relax_improve(self, prep: _Prepared, steps: ClassStep,
+                       state, takes_bc, unplaced_bc):
+        """The relax backend's optimizing pass, as a generator riding the
+        same dispatch seam as the solve itself.
+
+        The caller holds the finished plain-FFD dispatch — the ANYTIME
+        answer. This pass (1) checks the wall budget (expired -> serve
+        FFD), (2) dispatches the assignment and rounding
+        (ops/relax.relax_choose; a no-change rounding short-circuits),
+        (3) re-runs the unmodified FFD/gang scan from a fresh init state
+        with the rounded (new_template, kstar) override — on the card the
+        same hand kernel as every scan — and (4) adopts the candidate only
+        when its score (unplaced, fresh nodes, $-cost proxy) strictly
+        improves. The verdict caches on the class batch, so warm re-solves
+        of the same problem dispatch ONCE with the winning override.
+
+        Returns (state, takes_bc, unplaced_bc, kernel_seconds) — the
+        winner's."""
+        from karpenter_core_tpu_torch.metrics import wiring as m
+
+        rstats = self.last_phase_stats.setdefault("relax", {})
+        extra = 0.0
+
+        def outcome(tag: str):
+            rstats["outcome"] = tag
+            m.SOLVER_RELAX_BACKEND.inc({"outcome": tag})
+
+        planes = prep._batch.get("relax")
+        if planes is None:
+            # no fresh-node axis (catalog/template-free problem): nothing
+            # to optimize, the FFD answer is the answer
+            outcome("infeasible")
+            return state, takes_bc, unplaced_bc, extra
+        if self._relax_expired():
+            outcome("deadline")
+            return state, takes_bc, unplaced_bc, extra
+        # incremental warm start: lower the ledger's prior per-class
+        # template choice ({signature -> nodepool name}) to a [Cp] index
+        # vector over THIS prep's template axis; -1 (cold) wherever the
+        # ledger is silent or the pool no longer templates
+        Cp = int(prep.new_template.shape[0])
+        wvec = np.full((Cp,), -1, dtype=np.int32)
+        if self._relax_warm:
+            pool_to_tmpl = {
+                t.nodepool_name: si for si, t in enumerate(self.templates)
+            }
+            for ci, cls in enumerate(prep.classes[:Cp]):
+                si = pool_to_tmpl.get(self._relax_warm.get(cls.signature))
+                if si is not None:
+                    wvec[ci] = si
+            rstats["warm_classes"] = int((wvec >= 0).sum())
+        # the rack-aware hop-cost plane rides as a trailing optional leaf:
+        # absent for label-free problems, so the shape key never stacks
+        # topo and non-topo relax dispatches together
+        relax_tuple = (
+            planes["viable"], planes["k_cs"], planes["k_node"],
+            planes["podcost"], planes["counts"], planes["gang_id"],
+            prep.new_template, prep.kstar,
+            self._dev(wvec),
+        )
+        topo_np = prep._batch.get("topo_cost_of_class")
+        if topo_np is not None:
+            tc_d = prep._batch.get("topo_cost_d")
+            if tc_d is None:
+                Sp = int(prep.tmpl_price_d.shape[0])
+                tc_d = self._dev(_pad(topo_np, {0: Cp, 1: Sp}, 0.0))
+                prep._batch["topo_cost_d"] = tc_d
+            relax_tuple = relax_tuple + (tc_d,)
+        nt, ks, changed, dt = yield _KernelRequest(
+            init_state=None, steps=None, statics=None,
+            level_iters=prep.level_iters, step_class=None,
+            num_classes=prep.n_classes_padded, devices=self.devices,
+            n_slots=prep.n_slots, kind="relax", mode="relax",
+            relax=relax_tuple,
+            relax_iters=self.relax_iters, relax_gangs=planes["n_gangs"],
+            backend=self.kernel_backend,
+        )
+        extra += dt
+        rstats["template_moves"] = int(changed)
+        if int(changed) == 0:
+            # rounding agrees with first-template-wins: the FFD packing IS
+            # the relaxation's; remember, so warm solves skip even the
+            # assignment dispatch
+            prep._batch["relax_verdict"] = {"won": False}
+            outcome("noop")
+            return state, takes_bc, unplaced_bc, extra
+        if self._relax_expired():
+            outcome("deadline")
+            return state, takes_bc, unplaced_bc, extra
+        # candidate: the unmodified scan (gang twin included) from a fresh
+        # init state with the rounded override riding ClassStep
+        init2 = self._make_init_state(*prep.init_args)
+        steps2 = self._override_steps(prep, steps, nt, ks)
+        state2, takes2_bc, unplaced2_bc, dt2 = yield _KernelRequest(
+            init_state=init2, steps=steps2, statics=prep.statics,
+            level_iters=prep.level_iters, step_class=prep.step_class,
+            num_classes=prep.n_classes_padded, devices=self.devices,
+            n_slots=prep.n_slots,
+            gang_of_step=(
+                prep.step_gang if prep.gang_min is not None else None
+            ),
+            gang_min=prep.gang_min,
+            mode="relax",
+            backend=self.kernel_backend,
+        )
+        extra += dt2
+        t0 = time.perf_counter()
+        if bool(state2.overflow):
+            # the override needed more slots than the baseline's axis —
+            # keep the FFD packing rather than re-growing for a candidate
+            prep._batch["relax_verdict"] = {"won": False}
+            outcome("overflow")
+            extra += time.perf_counter() - t0
+            return state, takes_bc, unplaced_bc, extra
+        uf, nf, cf = relax_ops.relax_score(
+            state, prep.tmpl_price_d, unplaced_bc
+        )
+        ur, nr, cr = relax_ops.relax_score(
+            state2, prep.tmpl_price_d, unplaced2_bc
+        )
+        ints = torch.stack([uf, nf, ur, nr]).to(torch.int64).cpu().tolist()
+        costs = torch.stack([cf, cr]).cpu().tolist()
+        extra += time.perf_counter() - t0
+        key_f = (ints[0], ints[1], costs[0])
+        key_r = (ints[2], ints[3], costs[1])
+        rstats.update(
+            unplaced_ffd=key_f[0], nodes_ffd=key_f[1],
+            cost_ffd=round(key_f[2], 3),
+            unplaced_relax=key_r[0], nodes_relax=key_r[1],
+            cost_relax=round(key_r[2], 3),
+        )
+        if key_r < key_f:
+            prep._batch["relax_verdict"] = {
+                "won": True, "new_template": nt, "kstar": ks,
+            }
+            outcome("won")
+            return state2, takes2_bc, unplaced2_bc, extra
+        prep._batch["relax_verdict"] = {"won": False}
+        outcome("lost")
+        return state, takes_bc, unplaced_bc, extra
 
     # ------------------------------------------------------------------
 
@@ -1568,6 +1874,11 @@ class DeviceScheduler:
         Z = max(len(frozen.value_names[zone_kid]), 1)
         CT = max(len(frozen.value_names[ct_kid]), 1)
         off_avail = np.zeros((pad_T, Z, CT), dtype=bool)
+        # relax price planes (ops/relax.py): per-IT min AVAILABLE offering
+        # price (the relaxation's $/pod numerator), ICE'd rows excluded
+        # exactly like the availability mask
+        _PRICE_NONE = np.float32(relax_ops.BIG_PRICE)
+        it_price = np.full((pad_T,), _PRICE_NONE, dtype=np.float32)
         for ti, it in enumerate(catalog):
             for off in it.offerings:
                 if not off.available:
@@ -1578,6 +1889,7 @@ class DeviceScheduler:
                 # handed in pre-built, e.g. over the sidecar wire)
                 if off.key(it.name) in self.unavailable_offerings:
                     continue
+                it_price[ti] = min(it_price[ti], np.float32(off.price))
                 z = frozen.values[zone_kid].get(off.zone)
                 c_ = frozen.values[ct_kid].get(off.capacity_type)
                 if z is not None and c_ is not None:
@@ -1590,6 +1902,15 @@ class DeviceScheduler:
         for si, t in enumerate(self.templates):
             for it in t.instance_type_options:
                 tmpl_it[si, it_index[id(it)]] = True
+        # per-template min node price (the scored fallback's $-cost proxy):
+        # the cheapest priced IT the template could open
+        tmpl_price = np.full((pad_S,), _PRICE_NONE, dtype=np.float32)
+        for si in range(S):
+            viable = tmpl_it[si]
+            if viable.any():
+                tmpl_price[si] = float(
+                    np.min(np.where(viable, it_price, _PRICE_NONE))
+                )
         tmpl_overhead = np.stack(
             [rvec(o) for o in self.daemon_overhead]
         ) if S else np.zeros((pad_S, R), dtype=np.float32)
@@ -1691,8 +2012,16 @@ class DeviceScheduler:
             ex_complement=ex_complement, ex_negative=ex_negative,
             ex_gt=ex_gt, ex_lt=ex_lt,
             ex_requests=ex_requests, ex_capacity=ex_capacity,
+            it_price=it_price,
+            tmpl_price=tmpl_price,
             # device-resident copies (reused across solves via this cache)
             it_alloc_d=self._dev(_pad(it_alloc, {0: Tp, 1: Rp}, 0.0)),
+            it_price_d=self._dev(
+                _pad(it_price, {0: Tp}, float(_PRICE_NONE))
+            ),
+            tmpl_price_d=self._dev(
+                _pad(tmpl_price, {0: Sp}, float(_PRICE_NONE))
+            ),
             off_avail_d=self._dev(_pad(off_avail, {0: Tp}, False)),
             zone_key_d=self._scalar(zone_kid),
             ct_key_d=self._scalar(ct_kid),
@@ -1947,10 +2276,11 @@ class DeviceScheduler:
             # first-template-wins choice, so every member resolves to the
             # same template; plain problems skip it
             tmpl_gang_id, n_tmpl_gangs = _same_template_gang_ids(classes, Cp)
+            gang_id_d = None
             if n_tmpl_gangs:
+                gang_id_d = self._dev(tmpl_gang_id)
                 tmpl_ok_b = mops.gang_joint_templates(
-                    tmpl_ok_b, self._dev(tmpl_gang_id),
-                    num_gangs=n_tmpl_gangs,
+                    tmpl_ok_b, gang_id_d, num_gangs=n_tmpl_gangs,
                 )
             cz = self._dev(cpad(cm.mask[:, zone_kid, :Z], False))
             cct = self._dev(cpad(cm.mask[:, ct_kid, :CT], False))
@@ -1967,6 +2297,55 @@ class DeviceScheduler:
                 entry["tmpl_overhead_d"],
                 creq,
             )
+            relax_planes = None
+            if self.solver_mode == "relax":
+                # relax constraint planes (ops/relax.py), cached on the
+                # class batch beside the FFD viability results — warm
+                # re-solves rebuild nothing. Same-template gangs AND-reduce
+                # the relax support like the FFD mask, so the consensus
+                # rows iterate over identical feasible sets.
+                # Hostname-keyed topology (spread maxSkew / anti-affinity)
+                # lowers to a per-class pods-per-host cap, so host-floor
+                # classes never estimate dense nodes they cannot fill.
+                kcap = np.full((C,), BIGI, dtype=np.int32)
+                for gi in range(plan.Gh):
+                    ht = int(plan.h_type[gi])
+                    if ht == 2:  # affinity: no per-host count cap
+                        continue
+                    cap = 1 if ht == 1 else max(int(plan.h_skew[gi]), 1)
+                    owned = plan.h_owner[:, gi]
+                    kcap[owned] = np.minimum(kcap[owned], cap)
+                viable_r, k_cs_r, k_node_r, podcost_r = (
+                    relax_ops.relax_viability(
+                        class_it_b, tmpl_ok_b, entry["tmpl_it_d"],
+                        cz, cct, tz, tct,
+                        entry["off_avail_d"], entry["it_alloc_d"],
+                        entry["tmpl_overhead_d"], creq,
+                        entry["it_price_d"],
+                        self._dev(cpad(kcap, BIGI)),
+                    )
+                )
+                if n_tmpl_gangs:
+                    viable_r = mops.gang_joint_templates(
+                        viable_r, gang_id_d, num_gangs=n_tmpl_gangs,
+                    )
+                relax_planes = dict(
+                    viable=viable_r,
+                    k_cs=k_cs_r,
+                    k_node=k_node_r,
+                    podcost=podcost_r,
+                    counts=self._dev(
+                        cpad(
+                            np.array(
+                                [c.count for c in classes],
+                                dtype=np.float32,
+                            ),
+                            0.0,
+                        )
+                    ),
+                    gang_id=self._dev(tmpl_gang_id),
+                    n_gangs=n_tmpl_gangs,
+                )
             class_it = class_it_b  # [Cp, Tp] device-resident
             tmpl_ok = tmpl_ok_b  # [Cp, Sp] device-resident
         else:
@@ -1975,8 +2354,10 @@ class DeviceScheduler:
             tmpl_ok = torch.zeros((Cp, Sp), dtype=torch.bool, device=dev)
             new_template = torch.full((Cp,), -1, dtype=torch.int32, device=dev)
             kstar = torch.zeros((Cp,), dtype=torch.int32, device=dev)
+            relax_planes = None
 
         b = dict(
+            relax=relax_planes,
             class_masks=class_masks,
             smask=smask,
             class_requests=class_requests,
@@ -2202,6 +2583,8 @@ class DeviceScheduler:
             level_iters=level_iters,
             n_classes_padded=batch["Cp"],
             _batch=batch,
+            init_args=(entry, plan, N, hcount0, Ghp, Gzp),
+            tmpl_price_d=entry["tmpl_price_d"],
         )
         self._prepare_gangsched(prep, plan, entry, N)
         return prep

@@ -16,14 +16,17 @@ registers.
 
 Port of ``karpenter_core_tpu/operator.py``. With ``solver="tpu"`` the
 provisioning solve and multi-node consolidation's prefix sweep run on the
-port's device solver (models/provisioner.py, models/consolidation.py),
-on ``device_scheduler_opts["device"]`` (default ``"cuda"``: building the
-operator raises without a GPU) through ``solver_kernel`` (``cuda``, the
-hand kernel, or ``reference``, its plain version). Raising
-``NotImplementedError`` that names the ROADMAP item that ports it: the
-solverd sidecar (``solver_mode="sidecar"`` or an injected
-``solver_client``, A.12), ``solver_backend="relax"`` (A.9) and
-``solver_devices != 1`` (A.13).
+port's device solver (models/provisioner.py, models/consolidation.py):
+in process (``solver_mode="inproc"``) on ``device_scheduler_opts["device"]``
+(default ``"cuda"``: building the operator raises without a GPU), or
+behind the port's solverd sidecar (``solver_mode="sidecar"``: a supervised
+``karpenter_core_tpu_torch.solver.service`` child, which owns the card and
+takes ``device_scheduler_opts["device"]`` as its ``--device``), through
+``solver_kernel`` (``cuda``, the hand kernel, or ``reference``, its plain
+version) and ``solver_backend`` (``ffd`` or ``relax``).
+``solver_devices != 1``, and a spawned sidecar fleet (``solver_fleet > 1``
+or ``solver_autoscale``), raise ``NotImplementedError`` (ROADMAP A.13) when
+the operator is built.
 """
 from __future__ import annotations
 
@@ -58,6 +61,10 @@ from karpenter_core_tpu_torch.controllers.nodepool.controllers import (
 from karpenter_core_tpu_torch.controllers.provisioning.provisioner import Provisioner
 from karpenter_core_tpu_torch.events import Recorder
 from karpenter_core_tpu_torch.kube.store import KubeStore
+from karpenter_core_tpu_torch.solver.fleet import (
+    DEFAULT_BATCH_WINDOW_MS,
+    DEFAULT_MAX_BATCH,
+)
 from karpenter_core_tpu_torch.state.cluster import Cluster
 from karpenter_core_tpu_torch.utils import pod as podutil
 from karpenter_core_tpu_torch.utils.clock import Clock
@@ -95,31 +102,93 @@ class Options:
 
     solver: str = "greedy"  # greedy | tpu
     # where the tpu solver runs: in this process, or behind the solverd
-    # sidecar, whose port (ROADMAP A.12) brings back its flags (address,
-    # timeout, watchdog, tenancy, gateway batching, fleet, wire); until
-    # then "sidecar" raises NotImplementedError when the operator is built
+    # sidecar (solver/service.py) with RPC fault tolerance
+    # (solver/remote.py; a solve the sidecar does not answer fails, its
+    # pods wait for the next pass). solver_addr="" spawns a supervised
+    # local sidecar (solver/supervisor.py); set it to reach an external one.
     solver_mode: str = "inproc"  # inproc | sidecar
-    # which solve BACKEND runs behind the Solver seam: ffd =
-    # first-fit-decreasing, relax = the convex-relaxation optimizer
-    # (ROADMAP A.9; raises until then). In-proc it threads into
-    # DeviceScheduler(solver_mode=).
+    # which solve BACKEND runs behind the Solver seam (relaxsolve):
+    # ffd = first-fit-decreasing (classic), relax = the
+    # convex-relaxation optimizer with FFD as the scored/anytime
+    # fallback. (--solver-mode was already taken by the inproc|sidecar
+    # process topology above, so the backend selector is
+    # --solver-backend; on the solverd child and the wire it IS named
+    # solver mode — X-Solver-Mode / solverd --solver-mode.) In-proc it
+    # threads into DeviceScheduler(solver_mode=); in sidecar mode it
+    # rides every RPC (wire field + header) AND the spawned child's
+    # argv as its default for mode-less clients.
     solver_backend: str = "ffd"  # ffd | relax
-    # which KERNEL implementation answers the FFD scan dispatches: cuda =
-    # the hand-written CUDA kernel (ops/cuda_ffd.py, csrc/ffd_step.cu),
-    # reference = its plain torch version (ops/ffd.py). Bit-identical
-    # results either way. It threads into DeviceScheduler(kernel_backend=)
-    # and the consolidation sweep.
+    # which KERNEL implementation answers the FFD scan dispatches under
+    # whichever backend is selected above: cuda = the hand-written CUDA
+    # kernel (ops/cuda_ffd.py, csrc/ffd_step.cu), reference = its plain
+    # torch version (ops/ffd.py). Bit-identical results either way.
+    # In-proc it threads into DeviceScheduler(kernel_backend=) and the
+    # consolidation sweep; in sidecar mode it rides the spawned child's
+    # argv (solverd --kernel).
     solver_kernel: str = "cuda"  # cuda | reference
-    # host-side verification of every device solve result
+    solver_addr: str = ""
+    solver_timeout: float = 30.0  # per-RPC deadline, seconds
+    # host-side verification of every device/sidecar solve result
     # (solver/verify.py) before the reconcilers act on it: the trust
     # anchor that lets optimizing backends swap in behind the Solver seam.
-    # A rejected result degrades that solve to greedy with
-    # solver_result_rejected_total{reason} + a Warning event.
+    # A rejected result counts solver_result_rejected_total{reason} and
+    # publishes a Warning event; in-proc the solve is then redone on the
+    # host greedy path, over the sidecar it fails.
     solver_verify: bool = True
+    # crash-only survivability knobs for a SPAWNED sidecar (an external
+    # --solver-addr sidecar configures its own): the hard wall-clock bound
+    # on the exclusive device step (0 disables; rides the spawn argv as
+    # solverd --watchdog-seconds), and the poison-pill journal path that
+    # lets the gateway's quarantine survive the very crash it predicts
+    # (empty = in-memory quarantine only)
+    solver_watchdog_seconds: float = 120.0
+    solver_quarantine_journal: str = ""
     # the device count of the solve (parallel/mesh.py's slot mesh in the
     # JAX package). Only 1 is ported: any other count raises
     # NotImplementedError (ROADMAP A.13) when the operator is built.
     solver_devices: int = 1
+    # fleet tenancy (solver/fleet.py): this operator's identity at a SHARED
+    # sidecar — rides every RPC (wire field + X-Solver-Tenant header) for
+    # fair queueing / per-tenant accounting, and labels the circuit gauge
+    solver_tenant: str = "default"
+    # gateway sizing, passed through to a SPAWNED sidecar (an external
+    # --solver-addr sidecar configures its own): admission bound before
+    # 429 sheds, and 'tenant=weight,...' fair-share weights
+    solver_queue_depth: int = 16
+    solver_tenant_weights: str = ""
+    # continuous cross-tenant batching at the spawned sidecar's gateway:
+    # max compatible queued problems one device grant may solve as a
+    # single vmapped batch (1 disables coalescing), and the few-ms window
+    # a grant leader may hold the device for still-decoding requests
+    # (0 = coalesce only what is already queued). The solverd defaults
+    # (solver/fleet.py), single-sourced so operator-spawned and
+    # externally-launched sidecars can never diverge on a default bump;
+    # an external --solver-addr sidecar configures its own.
+    solver_max_batch: int = DEFAULT_MAX_BATCH
+    solver_batch_window_ms: float = DEFAULT_BATCH_WINDOW_MS
+    # horizontally scaled solver tier (segmentstore + fleet routing):
+    # spawn N supervised solverds on distinct ports and route
+    # client-side with digest affinity + spill-over (solver/remote.
+    # FleetRouter). 1 = the classic single sidecar. An external
+    # --solver-addr may name a comma-separated member list instead.
+    # The port spawns one child: a spawned fleet > 1 raises
+    # NotImplementedError (ROADMAP A.13) when the operator is built.
+    solver_fleet: int = 1
+    # closed-loop elastic tier (solver/autoscale.py): when
+    # enabled, a TierAutoscaler sizes the SPAWNED fleet between min/max
+    # off the gateways' queue-wait/shed signals — scale-up through
+    # FleetSupervisor.add_member, scale-down through the faultless drain
+    # path, brownout ladder at max scale. --solver-fleet stays the
+    # STARTING size; 0 min/max default to 1 / max(fleet, min). Refused
+    # on the port with a spawned fleet (ROADMAP A.13).
+    solver_autoscale: bool = False
+    solver_fleet_min: int = 0
+    solver_fleet_max: int = 0
+    # solve-request wire form: delta = content-addressed segment
+    # manifests with miss repair and full-wire fallback (unchanged
+    # catalogs never re-upload); full = every request ships the whole
+    # problem (the pre-v5 behavior, and the escape hatch)
+    solver_wire: str = "delta"  # delta | full
     batch_max_duration: float = 10.0
     batch_idle_duration: float = 1.0
     log_level: str = "info"
@@ -146,11 +215,59 @@ class Options:
         "solver_kernel": (
             "--kernel", "KARPENTER_SOLVER_KERNEL", str,
         ),
+        "solver_addr": ("--solver-addr", "KARPENTER_SOLVER_ADDR", str),
+        "solver_timeout": (
+            "--solver-timeout", "KARPENTER_SOLVER_TIMEOUT", float,
+        ),
         "solver_verify": (
             "--solver-verify", "KARPENTER_SOLVER_VERIFY", _parse_bool,
         ),
+        "solver_watchdog_seconds": (
+            "--solver-watchdog-seconds",
+            "KARPENTER_SOLVER_WATCHDOG_SECONDS",
+            float,
+        ),
+        "solver_quarantine_journal": (
+            "--solver-quarantine-journal",
+            "KARPENTER_SOLVER_QUARANTINE_JOURNAL",
+            str,
+        ),
+        "solver_tenant": (
+            "--solver-tenant", "KARPENTER_SOLVER_TENANT", str,
+        ),
         "solver_devices": (
             "--solver-devices", "KARPENTER_SOLVER_DEVICES", int,
+        ),
+        "solver_queue_depth": (
+            "--solver-queue-depth", "KARPENTER_SOLVER_QUEUE_DEPTH", int,
+        ),
+        "solver_tenant_weights": (
+            "--solver-tenant-weights",
+            "KARPENTER_SOLVER_TENANT_WEIGHTS",
+            str,
+        ),
+        "solver_max_batch": (
+            "--solver-max-batch", "KARPENTER_SOLVER_MAX_BATCH", int,
+        ),
+        "solver_batch_window_ms": (
+            "--solver-batch-window-ms",
+            "KARPENTER_SOLVER_BATCH_WINDOW_MS",
+            float,
+        ),
+        "solver_fleet": (
+            "--solver-fleet", "KARPENTER_SOLVER_FLEET", int,
+        ),
+        "solver_autoscale": (
+            "--solver-autoscale", "KARPENTER_SOLVER_AUTOSCALE", _parse_bool,
+        ),
+        "solver_fleet_min": (
+            "--solver-fleet-min", "KARPENTER_SOLVER_FLEET_MIN", int,
+        ),
+        "solver_fleet_max": (
+            "--solver-fleet-max", "KARPENTER_SOLVER_FLEET_MAX", int,
+        ),
+        "solver_wire": (
+            "--solver-wire", "KARPENTER_SOLVER_WIRE", str,
         ),
         "batch_max_duration": (
             "--batch-max-duration", "KARPENTER_BATCH_MAX_DURATION", float,
@@ -203,16 +320,19 @@ class Options:
         for part in filter(None, (p.strip() for p in gates.split(","))):
             name, _, value = part.partition("=")
             opts.feature_gates[name] = value.lower() in ("true", "1", "yes")
-        # non-positive durations silently wedge the loop (a zero poll
-        # interval busy-spins) — reject them at the flag surface, not deep
-        # in a controller
-        for attr in ("batch_max_duration", "poll_interval"):
+        # non-positive durations silently wedge the loop (a zero RPC
+        # deadline fails every solve; a zero poll interval busy-spins) —
+        # reject them at the flag surface, not deep in a controller
+        for attr in ("solver_timeout", "batch_max_duration", "poll_interval",
+                     "solver_queue_depth"):
             value = getattr(opts, attr)
             if value <= 0:
                 flag = cls._FLAGS[attr][0]
                 raise ValueError(
                     f"{flag} must be positive, got {value}"
                 )
+        if not opts.solver_tenant:
+            raise ValueError("--solver-tenant must be non-empty")
         # 0 = all local devices is the only non-positive request that
         # means anything; a negative count is a typo, not a mesh
         if opts.solver_devices < 0:
@@ -220,6 +340,87 @@ class Options:
                 "--solver-devices must be >= 0 (0 = all local devices),"
                 f" got {opts.solver_devices}"
             )
+        if opts.solver_watchdog_seconds < 0:
+            raise ValueError(
+                "--solver-watchdog-seconds must be >= 0 (0 disables),"
+                f" got {opts.solver_watchdog_seconds}"
+            )
+        if opts.solver_max_batch < 1:
+            raise ValueError(
+                "--solver-max-batch must be >= 1 (1 disables coalescing),"
+                f" got {opts.solver_max_batch}"
+            )
+        if opts.solver_batch_window_ms < 0:
+            raise ValueError(
+                "--solver-batch-window-ms must be >= 0 (0 = never wait),"
+                f" got {opts.solver_batch_window_ms}"
+            )
+        if opts.solver_fleet < 1:
+            raise ValueError(
+                "--solver-fleet must be >= 1 (1 = single sidecar),"
+                f" got {opts.solver_fleet}"
+            )
+        if opts.solver_fleet > 1 and opts.solver_addr:
+            # the fleet size only governs SPAWNED children; an external
+            # address wins and would silently ignore the flag — a user
+            # who believes they have a 4-member fleet must hear otherwise
+            raise ValueError(
+                "--solver-fleet > 1 spawns supervised sidecars and"
+                " cannot combine with --solver-addr; for an external"
+                " fleet pass a comma-separated member list as"
+                " --solver-addr instead"
+            )
+        if opts.solver_fleet_min < 0 or opts.solver_fleet_max < 0:
+            raise ValueError(
+                "--solver-fleet-min/--solver-fleet-max must be >= 0"
+                " (0 = derive from --solver-fleet), got"
+                f" {opts.solver_fleet_min}/{opts.solver_fleet_max}"
+            )
+        if opts.solver_autoscale:
+            if opts.solver_addr:
+                # the autoscaler spawns and retires SUPERVISED members;
+                # an external fleet's lifecycle is not ours to resize
+                raise ValueError(
+                    "--solver-autoscale governs spawned sidecars and"
+                    " cannot combine with --solver-addr"
+                )
+            if opts.solver != "tpu" or opts.solver_mode != "sidecar":
+                raise ValueError(
+                    "--solver-autoscale requires --solver=tpu"
+                    " --solver-mode=sidecar (there is no tier to size"
+                    f" under solver={opts.solver!r}"
+                    f" mode={opts.solver_mode!r})"
+                )
+            mn = opts.solver_fleet_min or 1
+            mx = opts.solver_fleet_max or max(opts.solver_fleet, mn)
+            if mx < mn:
+                raise ValueError(
+                    f"--solver-fleet-max ({mx}) must be >="
+                    f" --solver-fleet-min ({mn})"
+                )
+            if not mn <= opts.solver_fleet <= mx:
+                raise ValueError(
+                    f"--solver-fleet ({opts.solver_fleet}) must start"
+                    f" inside [--solver-fleet-min, --solver-fleet-max]"
+                    f" = [{mn}, {mx}]"
+                )
+        elif opts.solver_fleet_min or opts.solver_fleet_max:
+            # bounds without the loop would silently do nothing — the
+            # user believes they have elasticity; tell them otherwise
+            raise ValueError(
+                "--solver-fleet-min/--solver-fleet-max require"
+                " --solver-autoscale"
+            )
+        if opts.solver_wire not in ("delta", "full"):
+            raise ValueError(
+                f"unknown solver wire mode {opts.solver_wire!r}"
+                " (delta | full)"
+            )
+        # malformed weights must fail at the flag surface, not inside a
+        # respawned sidecar's argparse three failures deep
+        from karpenter_core_tpu_torch.solver.fleet import parse_tenant_weights
+
+        parse_tenant_weights(opts.solver_tenant_weights)
         if opts.solver not in ("greedy", "tpu"):
             raise ValueError(f"unknown solver {opts.solver!r}")
         if opts.solver_mode not in ("inproc", "sidecar"):
@@ -294,32 +495,163 @@ class Operator:
         self.cloud_provider = MetricsDecorator(cloud_provider)
         self.cluster = Cluster(self.kube, self.clock)
         self.recorder = Recorder(self.clock)
-        # the solverd sidecar (solver_mode=sidecar, or an injected client)
-        # is ported by ROADMAP A.12: refuse it here rather than solve
-        # somewhere the caller did not ask for
-        if solver_client is not None or (
+        # one device: the slot-axis sharding over several GPUs is ROADMAP
+        # A.13 — refused here, where it raises to the caller (inside a
+        # reconcile the fault isolation would swallow it)
+        if self.options.solver == "tpu" and self.options.solver_devices != 1:
+            raise NotImplementedError(
+                f"solver_devices={self.options.solver_devices}: multi-GPU"
+                " solves are ported by ROADMAP item A.13"
+            )
+        # one spawned child on the card: a spawned fleet (solver_fleet > 1)
+        # or the tier autoscaler starts several children, each with its
+        # own CUDA context and kernel library, and no card run has held
+        # them yet — refused with the multi-GPU work (ROADMAP A.13). An
+        # external --solver-addr member list is routed as in the JAX
+        # package: its members own their cards.
+        if (
             self.options.solver == "tpu"
             and self.options.solver_mode == "sidecar"
+            and solver_client is None
+            and not self.options.solver_addr
+            and (self.options.solver_fleet > 1 or self.options.solver_autoscale)
         ):
             raise NotImplementedError(
-                "the solverd sidecar (solver_mode='sidecar', solver_client)"
-                " is ported by ROADMAP item A.12"
+                f"solver_fleet={self.options.solver_fleet}, solver_autoscale="
+                f"{self.options.solver_autoscale}: a spawned solverd fleet"
+                " is ported with ROADMAP item A.13"
             )
         device_opts = dict(self.options.device_scheduler_opts)
-        if self.options.solver == "tpu":
-            # checked here, where it raises to the caller: inside a
-            # reconcile the fault isolation would swallow it
-            if self.options.solver_backend == "relax":
-                raise NotImplementedError(
-                    "solver_backend='relax' is ported by ROADMAP item A.9"
+        # solverd sidecar wiring (solver_mode=sidecar): a supervised child
+        # process (unless an external --solver-addr is given) plus the
+        # fault-tolerant RPC client the provisioner routes solves through
+        self.solver_supervisor = None
+        self.solver_client = None
+        if solver_client is not None:
+            # injection seam (the digital twin, twin/harness.py): the
+            # caller owns the client/router — typically one whose breaker
+            # cooldowns, retry sleeps and quarantine TTLs ride a VIRTUAL
+            # clock so days of fleet churn replay deterministically in
+            # minutes — and the tier it points at, so no supervisor spawns
+            if self.options.solver_mode != "sidecar":
+                raise ValueError(
+                    "solver_client injection requires solver_mode=sidecar"
                 )
+            self.solver_client = solver_client
+        elif self.options.solver == "tpu" and self.options.solver_mode == "sidecar":
+            from karpenter_core_tpu_torch.solver.remote import (
+                FleetRouter,
+                SolverClient,
+            )
+
+            # --solver-addr may name an external fleet as a comma-
+            # separated member list; empty spawns supervised children
+            addrs = [
+                a.strip()
+                for a in self.options.solver_addr.split(",")
+                if a.strip()
+            ]
+            if not addrs:
+                from karpenter_core_tpu_torch.solver.supervisor import SolverSupervisor
+
+                child_kwargs = dict(
+                    # the spawned sidecar arms torch.profiler capture
+                    # lazily (POST /profile), so pass the operator's
+                    # profile dir through: device traces become grabbable
+                    # from the running child without a redeploy
+                    profile_dir=self.options.profile_dir,
+                    # fleet-gateway sizing for the child (an external
+                    # --solver-addr sidecar configures its own)
+                    queue_depth=self.options.solver_queue_depth,
+                    tenant_weights=self.options.solver_tenant_weights,
+                    # continuous-batching shape for the child's gateway
+                    max_batch=self.options.solver_max_batch,
+                    batch_window_ms=self.options.solver_batch_window_ms,
+                    # the child owns the card: the operator's device rides
+                    # its argv (only a non-default one)
+                    device=(
+                        str(device_opts["device"])
+                        if device_opts.get("device", DEFAULT_DEVICE)
+                        != DEFAULT_DEVICE
+                        else None
+                    ),
+                    # crash-only survivability: the watchdog bound is
+                    # explicit policy (it rides the argv so a respawned
+                    # child keeps it), and the poison journal is what
+                    # makes gateway-side quarantine survive the crash it
+                    # predicts
+                    watchdog_seconds=self.options.solver_watchdog_seconds,
+                    quarantine_journal=(
+                        self.options.solver_quarantine_journal or None
+                    ),
+                    # the child's default solve backend; per-request
+                    # selection still rides every RPC's wire field
+                    solve_mode=(
+                        self.options.solver_backend
+                        if self.options.solver_backend != "ffd"
+                        else None
+                    ),
+                    # the child's FFD-scan kernel implementation; only a
+                    # non-default choice rides the argv, so a respawned
+                    # child keeps the operator's selection
+                    kernel=(
+                        self.options.solver_kernel
+                        if self.options.solver_kernel != "cuda"
+                        else None
+                    ),
+                )
+                self.solver_supervisor = SolverSupervisor(
+                    on_event=self._publish_sidecar_event,
+                    **child_kwargs,
+                )
+                addrs = [self.solver_supervisor.start()]
+
+            fleet_shaped = len(addrs) > 1
+
+            def _make_client(a: str, member: str) -> "SolverClient":
+                return SolverClient(
+                    a,
+                    timeout=self.options.solver_timeout,
+                    on_state_change=self._publish_circuit_event,
+                    # this operator's identity at a (possibly shared)
+                    # sidecar
+                    tenant=self.options.solver_tenant,
+                    # delta vs full solve-request wire
+                    wire_mode=self.options.solver_wire,
+                    member=member if fleet_shaped else "",
+                )
+
+            if fleet_shaped:
+                # the router shares ONE client-side poison quarantine
+                # across members and per-member breakers/sent-caches
+                self.solver_client = FleetRouter(
+                    [
+                        _make_client(a, str(i))
+                        for i, a in enumerate(addrs)
+                    ],
+                    tenant=self.options.solver_tenant,
+                )
+            else:
+                self.solver_client = _make_client(addrs[0], "0")
+        # in-proc solves run on device_scheduler_opts["device"] (sidecar
+        # mode leaves the device to the child, which owns the card)
+        if self.options.solver == "tpu":
+            # the backend selector reaches BOTH scheduler constructions:
+            # DeviceScheduler(solver_mode=) in-proc, and RemoteScheduler
+            # reads it out of device_scheduler_opts for the wire field +
+            # X-Solver-Mode header
             device_opts.setdefault(
                 "solver_mode", self.options.solver_backend
             )
-            device_opts.setdefault(
-                "kernel_backend", self.options.solver_kernel
-            )
-            _check_solver_kernel(device_opts["kernel_backend"])
+            # the FFD-scan kernel selector (--kernel) reaches the in-proc
+            # DeviceScheduler the same way; in sidecar mode the spawned
+            # child's argv carries it instead (the child owns the chips)
+            if self.solver_client is None:
+                device_opts.setdefault(
+                    "kernel_backend", self.options.solver_kernel
+                )
+                _check_solver_kernel(device_opts["kernel_backend"])
+        if self.options.solver == "tpu" and self.solver_client is None:
             device_opts.setdefault("devices", self.options.solver_devices)
             if device_opts["devices"] != 1:
                 raise NotImplementedError(
@@ -336,6 +668,7 @@ class Operator:
             solver=self.options.solver,
             device_scheduler_opts=device_opts,
             recorder=self.recorder,
+            solver_client=self.solver_client,
             unavailable_offerings=self.unavailable_offerings,
             verify_results=self.options.solver_verify,
             # pods already promised capacity by an in-flight nomination
@@ -432,9 +765,43 @@ class Operator:
         if podutil.is_provisionable(obj):
             self.batcher.trigger()
 
+    # -- solverd sidecar surface -------------------------------------------
+
+    def _publish_sidecar_event(self, reason: str, message: str) -> None:
+        """Supervisor lifecycle -> the event stream, the way the reference
+        surfaces controller conditions (SidecarUnavailable is the 'sidecar
+        unavailable' condition the ops surface watches)."""
+        from karpenter_core_tpu_torch.events import Event
+
+        self.recorder.publish(Event(
+            involved_object="Solverd/sidecar",
+            type="Warning" if "Unavailable" in reason or "Failed" in reason
+            else "Normal",
+            reason=reason,
+            message=message,
+        ))
+
+    def _publish_circuit_event(self, state: str) -> None:
+        from karpenter_core_tpu_torch.events import Event
+
+        self.recorder.publish(Event(
+            involved_object="Solverd/sidecar",
+            type="Warning" if state == "open" else "Normal",
+            reason="SolverCircuitOpen" if state == "open"
+            else "SolverCircuitClosed" if state == "closed"
+            else "SolverCircuitHalfOpen",
+            message=f"solver circuit breaker is {state}; "
+            + (
+                "sidecar solves fail until it closes"
+                if state == "open"
+                else "device solves resume"
+            ),
+        ))
+
     def shutdown(self) -> None:
-        """Stop owned background resources (none in-process; the
-        supervised sidecar is ROADMAP A.12)."""
+        """Stop owned background resources (the supervised sidecar)."""
+        if self.solver_supervisor is not None:
+            self.solver_supervisor.stop()
 
     # -- health surface (operator.go:181-198 healthz/readyz) ---------------
 
@@ -451,6 +818,14 @@ class Operator:
         if any(
             fault[2] >= CRASHLOOP_THRESHOLD
             for fault in self._controller_faults.values()
+        ):
+            return False
+        # a solverd member respawning past the storm threshold means the
+        # device tier is melting (supervisor.RESPAWN_STORM_*): solves
+        # fail while no child answers, and the probe surface must say so
+        if (
+            self.solver_supervisor is not None
+            and self.solver_supervisor.respawn_storm()
         ):
             return False
         return self.cluster.synced()
@@ -544,6 +919,11 @@ class Operator:
     def reconcile_once(self, disrupt: bool = True) -> None:
         self._pass_id += 1
         self._pass_seen = set()
+        if self.solver_supervisor is not None:
+            # supervise the sidecar every pass; after a respawn the
+            # client follows the fresh address — no operator restart
+            if self.solver_supervisor.poll() and self.solver_client is not None:
+                self.solver_client.set_addr(self.solver_supervisor.addr)
         for pool in list(self.kube.list_nodepools()):
             self._guarded("nodepool.hash", self.nodepool_hash.reconcile, pool)
             self._guarded(

@@ -20,6 +20,7 @@ from tests.helpers import make_pod
 from tests.test_batched_consolidation import CATALOG
 from tests.test_batched_consolidation import underutilized_fleet as ref_fleet
 from tests.test_disruption import od_nodepool, replicated
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 from karpenter_core_tpu.controllers.disruption.helpers import (
     get_candidates as ref_get_candidates,
@@ -357,9 +358,47 @@ def test_topology_pods_fall_back():
                                         cands) is None
 
 
-def test_sidecar_frontier_raises():
+def test_sidecar_frontier_goes_over_rpc():
+    """With a solver client the sweep crosses the RPC seam to a port
+    daemon, which answers with the same frontier as the in-process
+    sweep."""
+    from karpenter_core_tpu_torch.solver import remote, service
+
     op = port_fleet(2)
-    op.provisioner.solver_client = object()
     cands = candidates_of(op, get_candidates)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    local = cons.schedulability_frontier(op.provisioner, op.cluster, cands)
+    srv = service.serve(0, daemon=service.SolverDaemon(
+        device="cpu", kernel="reference"))
+    try:
+        op.provisioner.solver_client = remote.SolverClient(
+            f"127.0.0.1:{srv.server_address[1]}", timeout=120)
+        over_wire = cons.schedulability_frontier(op.provisioner,
+                                                 op.cluster, cands)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert local is not None and over_wire == local
+
+
+def test_sidecar_frontier_fails_without_an_answer():
+    """No sidecar answers: the sweep raises, and the disruption pass that
+    asked fails; nothing is searched on the host instead."""
+    import socket
+
+    from karpenter_core_tpu_torch.metrics import wiring as m
+    from karpenter_core_tpu_torch.solver import remote
+
+    op = port_fleet(2)
+    cands = candidates_of(op, get_candidates)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    dead = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    op.provisioner.solver_client = remote.SolverClient(
+        dead, timeout=5, max_retries=0, sleep=lambda s: None)
+    fallbacks = m.SOLVER_RPC_FALLBACKS.value({"endpoint": "consolidate"})
+    with pytest.raises(remote.RemoteSolverError) as exc:
         cons.schedulability_frontier(op.provisioner, op.cluster, cands)
+    assert exc.value.cause == "error"
+    assert m.SOLVER_RPC_FALLBACKS.value(
+        {"endpoint": "consolidate"}) == fallbacks

@@ -32,6 +32,7 @@ from tests.test_torch_provisioner import (
     overflow_problem,
     topology_problem,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 from karpenter_core_tpu.models.provisioner import DeviceScheduler as RefScheduler
 from karpenter_core_tpu.ops import ffd as jffd

@@ -43,6 +43,7 @@ from tests.test_gangsched import (
 from tests.test_torch_consolidation import align_counters
 from tests.test_torch_ffd import _bits
 from tests.test_torch_provisioner import _align_hostnames, to_reference
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 import chip_smoke
 from karpenter_core_tpu.api import labels as L
@@ -770,11 +771,22 @@ def test_shape_key_splits_gang_and_plain_requests():
     assert ga.kind == "solve"
 
 
-def test_relax_and_devices_still_raise():
-    req = dataclasses.replace(_port_request(), kind="relax", mode="relax")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tprov._run_kernel_solo(req)
-    assert "preempt" not in tprov._LATER_KINDS
+def test_relax_mode_gang_dispatch_runs_and_devices_raise():
+    """A relax problem's gang dispatch (mode="relax") is answered like an
+    ffd one; only a multi-device request still raises (A.13)."""
+    req = _port_request()
+    relax = dataclasses.replace(req, mode="relax")
+    assert relax.shape_key() != req.shape_key()
+    out = tprov._run_kernel_solo(dataclasses.replace(
+        relax, init_state=tprov.SlotState(*(x.clone()
+                                           for x in req.init_state))))
+    ref = tprov._run_kernel_solo(dataclasses.replace(
+        req, init_state=tprov.SlotState(*(x.clone()
+                                         for x in req.init_state))))
+    for a, b in zip(out[1:3], ref[1:3]):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="A.13"):
+        tprov._run_kernel_solo(dataclasses.replace(req, devices=2))
 
 
 def _port_request():

@@ -61,6 +61,9 @@ COPIED = [
     "controllers/disruption/helpers", "controllers/disruption/validation",
     "controllers/disruption/controller", "controllers/disruption/methods",
     "solver/fleet",
+    # solverd and its incremental engine (slice 6)
+    "solver/codec", "solver/segments", "solver/autoscale",
+    "solver/incremental", "kube/httpserver",
 ]
 
 
@@ -97,9 +100,25 @@ def test_port_sources_exist():
         "karpenter_core_tpu_torch/models/consolidation.py",
         "karpenter_core_tpu_torch/operator.py",
         "karpenter_core_tpu_torch/controllers/provisioning/provisioner.py",
+        "karpenter_core_tpu_torch/ops/relax.py",
+        "karpenter_core_tpu_torch/solver/service.py",
+        "karpenter_core_tpu_torch/solver/supervisor.py",
+        "karpenter_core_tpu_torch/solver/remote.py",
     ):
         assert required in names, required
     assert (PORT / "csrc" / "ffd_step.cu").is_file()
+
+
+def test_sidecar_client_has_no_host_solver():
+    """solver/remote.py is an edited copy: a sidecar solve or sweep
+    without a verified answer raises, and nothing in the client reaches a
+    host solver (the reference re-solves on the greedy Scheduler)."""
+    src = (PORT / "solver" / "remote.py").read_text()
+    ref = (REF / "solver" / "remote.py").read_text()
+    assert "_fallback_solve" in ref and "degraded_solve" in ref
+    for token in ("_fallback_solve", "degraded_solve", "Scheduler(",
+                  "SOLVER_RPC_FALLBACKS.inc"):
+        assert token not in src, token
 
 
 @pytest.mark.parametrize(

@@ -11,6 +11,7 @@ import torch
 
 from karpenter_core_tpu.ops import masks as jmasks
 from karpenter_core_tpu_torch.ops import masks as tmasks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GT_NONE = np.iinfo(np.int32).min
 LT_NONE = np.iinfo(np.int32).max

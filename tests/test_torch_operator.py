@@ -20,6 +20,7 @@ from tests.helpers import make_nodepool, make_pod
 from tests.test_batched_consolidation import underutilized_fleet as ref_fleet
 from tests.test_e2e import new_operator as ref_new_operator
 from tests.test_torch_consolidation import align_counters, port_fleet
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 from karpenter_core_tpu.api.objects import Pod as RefPod
 from karpenter_core_tpu.cloudprovider.kwok import (
@@ -209,29 +210,42 @@ def test_solver_kernel_defaults_to_cuda():
     assert op.provisioner.device_scheduler_opts["kernel_backend"] == "cuda"
 
 
-@pytest.mark.parametrize("flag", ["--solver-addr", "--solver-tenant",
-                                  "--solver-fleet", "--solver-wire"])
-def test_sidecar_flags_are_not_accepted(flag):
-    """The solverd sidecar's flags come with its port (ROADMAP A.12)."""
-    with pytest.raises(ValueError, match="unknown flag"):
-        Options.parse([flag, "x"])
+@pytest.mark.parametrize("flag,value,attr", [
+    ("--solver-addr", "127.0.0.1:1", "solver_addr"),
+    ("--solver-tenant", "t", "solver_tenant"),
+    ("--solver-fleet", "2", "solver_fleet"),
+    ("--solver-wire", "full", "solver_wire"),
+])
+def test_sidecar_flags_parse(flag, value, attr):
+    """The solverd sidecar's flags parse as the JAX package's do."""
+    assert (getattr(Options.parse([flag, value]), attr)
+            == getattr(RefOptions.parse([flag, value]), attr))
     with pytest.raises(ValueError, match="--solver-mode=sidecar requires"):
         Options.parse(["--solver-mode", "sidecar"])
     assert Options.parse(["--solver-mode", "sidecar", "--solver",
                           "tpu"]).solver_mode == "sidecar"
 
 
-def test_sidecar_raises():
-    with pytest.raises(NotImplementedError, match="A.12"):
-        Operator(options=Options(solver="tpu", solver_mode="sidecar",
-                                 device_scheduler_opts={"device": "cpu"}))
-    with pytest.raises(NotImplementedError, match="A.12"):
-        Operator(options=Options(solver="tpu", solver_mode="sidecar"),
-                 solver_client=object())
-    op = Operator(options=cpu_options())
-    op.provisioner.solver_client = object()
-    with pytest.raises(NotImplementedError, match="A.12"):
-        op.provisioner.new_scheduler([])
+def test_sidecar_routes():
+    """An external --solver-addr or an injected client builds no
+    supervisor and routes solves through RemoteScheduler."""
+    from karpenter_core_tpu_torch.solver.remote import (
+        RemoteScheduler,
+        SolverClient,
+    )
+
+    op = Operator(options=Options(solver="tpu", solver_mode="sidecar",
+                                  solver_addr="127.0.0.1:1"))
+    assert op.solver_supervisor is None
+    assert isinstance(op.solver_client, SolverClient)
+    assert isinstance(op.provisioner.new_scheduler([]), RemoteScheduler)
+    client = SolverClient("127.0.0.1:1")
+    op = Operator(options=Options(solver="tpu", solver_mode="sidecar"),
+                  solver_client=client)
+    assert op.solver_client is client
+    assert isinstance(op.provisioner.new_scheduler([]), RemoteScheduler)
+    with pytest.raises(ValueError, match="requires solver_mode=sidecar"):
+        Operator(options=cpu_options(), solver_client=client)
 
 
 @pytest.mark.parametrize("opts", [
@@ -243,9 +257,27 @@ def test_other_device_counts_raise(opts):
         Operator(options=Options(solver="tpu", **opts))
 
 
-def test_relax_backend_raises():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        Operator(options=cpu_options(solver_backend="relax"))
+@pytest.mark.parametrize("opts", [dict(solver_fleet=2),
+                                  dict(solver_autoscale=True)])
+def test_spawned_sidecar_fleet_raises(opts):
+    """A spawned fleet (several children on the card) is refused when the
+    operator is built, before any child spawns; an external member list
+    is routed."""
+    from karpenter_core_tpu_torch.solver.remote import FleetRouter
+
+    with pytest.raises(NotImplementedError, match="A.13"):
+        Operator(options=Options(solver="tpu", solver_mode="sidecar",
+                                 **opts))
+    op = Operator(options=Options(solver="tpu", solver_mode="sidecar",
+                                  solver_addr="127.0.0.1:1,127.0.0.1:2"))
+    assert op.solver_supervisor is None
+    assert isinstance(op.solver_client, FleetRouter)
+
+
+def test_relax_backend_threads_into_scheduler():
+    op = Operator(options=cpu_options(solver_backend="relax"))
+    assert op.provisioner.device_scheduler_opts["solver_mode"] == "relax"
+    assert op.provisioner.new_scheduler([]).solver_mode == "relax"
 
 
 def test_tpu_solver_without_gpu_raises():

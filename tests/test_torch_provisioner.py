@@ -17,6 +17,7 @@ import pytest
 
 from tests.helpers import GIB, make_nodepool, make_pod
 from tests.test_fuzz_parity import fuzz_scenario
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 from karpenter_core_tpu.api import labels as L
 from karpenter_core_tpu.api.objects import (
@@ -220,11 +221,6 @@ def _port_scheduler(**kw):
     )
     kw.setdefault("device", "cpu")
     return PortScheduler(pools, its, existing_nodes=existing, **kw)
-
-
-def test_relax_mode_raises():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        _port_scheduler(solver_mode="relax")
 
 
 def test_multi_device_raises():

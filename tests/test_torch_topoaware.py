@@ -45,6 +45,7 @@ from tests.test_torch_provisioner import (
     fuzz_problem,
     to_reference,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 from karpenter_core_tpu.models import provisioner as jprov
 from karpenter_core_tpu.ops import ffd as jffd
