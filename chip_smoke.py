@@ -147,6 +147,33 @@ on failure:
    ``solver.service`` on the card and provisions phase 8's 5,000 pods to
    ``OPERATOR_EXPECTED``, with no reconcile error, controller fault or
    failed RPC and ``readyz()`` true; the sidecar stops with it.
+13. entry points and the twin: (a) the binary, ``python -m
+   karpenter_core_tpu_torch.main --solver tpu --max-iters 3 --health-port
+   -1 --poll-interval 0.5``, must answer ``/healthz``, ``/readyz`` and
+   ``/metrics`` with 200 at the address it logs while it runs, and exit 0
+   with no traceback; (b) the operator over HTTP: the port's
+   ``kube.httpserver`` in a child process, the pool and the first
+   ``HTTP_PODS`` pods of plain_5k_400's mix created through the port's
+   ``HttpKubeClient``, ``Operator(kube=HttpKubeClient(...),
+   options=Options(solver="tpu"))`` run until idle with the plain step
+   made to raise: a second client must read back every pod bound and the
+   JAX operator's node count and cpu over HTTP (``HTTP_EXPECTED``), one
+   launch a provisioning scan, no reconcile error, controller fault or
+   verifier rejection, ``readyz()`` true; (c) the twin in process on the
+   reference's macro scenario (2 clusters, 1,890 pods in 8 waves, 8
+   virtual hours at 600-s ticks, ``solver="tpu"``) with the plain step
+   made to raise: 0 violations, no greedy fallback, its ledger JSON the
+   JAX twin's (``TWIN_EXPECTED``), trace and ledger equal to the run with
+   ``kernel="reference"``, one launch a scan and one a sweep, all on the
+   operators' thread; the device idle share of a profiled run; (d) the
+   twin over its in-thread solverd tier: the storm fleet scenario (fleet
+   2, delta wire, ICE storm, kube and cloud chaos, amnesia at 90 s, the
+   murder of member 1 at 120 s, a 60-s partition of cluster 0 at 180 s)
+   twice through the kernel and once with ``kernel="reference"``: each
+   with 0 violations, no greedy fallback, failed RPCs counted, member
+   solves, every pod bound, launches only in the daemons' threads; the
+   three traces and ledgers byte-identical. Then the elastic scenario
+   once: 0 violations, the tier grows and shrinks on the one card.
 
 It prints a sha256 digest of the sources it runs (``source_digest``), a
 ``{"kernels": [...]}`` line, the card's name and power limit from
@@ -154,7 +181,8 @@ nvidia-smi, and last ``{"ok": true, "device": {...}}``. The problems are
 built here, from a fixed recipe (no randomness). ``fleet_expected.py``
 computes ``FLEET_EXPECTED_NODES``, ``SWEEP_EXPECTED``,
 ``OPERATOR_EXPECTED``, ``GANGS_EXPECTED``, ``GANG_TENANTS_EXPECTED``,
-``TOPO_EXPECTED`` and ``RELAX_EXPECTED`` with the JAX package on the CPU.
+``TOPO_EXPECTED``, ``RELAX_EXPECTED``, ``HTTP_EXPECTED`` and
+``TWIN_EXPECTED`` with the JAX package on the CPU.
 """
 from __future__ import annotations
 
@@ -705,16 +733,20 @@ def _stage_stamps(fn, steps):
     return out
 
 
-def _idle_share(fn):
+def _idle_share(fn, cpu=True):
     """1 - device busy time / wall time over one profiled warm solve
     (torch.profiler; kernels run on one stream, so their device times do
-    not overlap). None when the profiler recorded no device time."""
+    not overlap). None when the profiler recorded no device time.
+    ``cpu=False`` traces the device only: a long host-bound run (the twin)
+    spends most of a CPU trace recording its host ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1832,6 +1864,21 @@ def reset_name_counters():
     objects._uid_counter = itertools.count(1)
 
 
+def check_launches(log, name):
+    """One launch a provisioning scan and one launch of P rows a sweep, in
+    an ``operator_spy`` log."""
+    for s in log["solves"]:
+        if s["launches"] != s["scans"] or s["rows"] != s["scans"]:
+            raise AssertionError(f"{name}: a solve of {s['scans']} scans"
+                                 f" launched {s['launches']} over"
+                                 f" {s['rows']} rows")
+    for s in log["sweeps"]:
+        if s["launches"] != 1 or s["rows"] != s["candidates"]:
+            raise AssertionError(f"{name}: a sweep of {s['candidates']}"
+                                 f" prefixes launched {s['launches']} over"
+                                 f" {s['rows']} rows")
+
+
 def check_operator_run(op, log, name, errors0, rejected0, expect_sweep,
                        launched=True):
     """Raise unless the run left no trace of a swallowed failure and went
@@ -1853,21 +1900,13 @@ def check_operator_run(op, log, name, errors0, rejected0, expect_sweep,
         raise AssertionError(f"{name}: controller faults"
                              f" {op._controller_faults}, readyz"
                              f" {op.readyz()}")
-    for s in log["solves"] if launched else ():
-        if s["launches"] != s["scans"] or s["rows"] != s["scans"]:
-            raise AssertionError(f"{name}: a solve of {s['scans']} scans"
-                                 f" launched {s['launches']} over"
-                                 f" {s['rows']} rows")
     for s in log["sweeps"]:
         if not s["frontier"]:
             raise AssertionError(f"{name}: a multi-node pass over"
                                  f" {s['candidates']} candidates had no"
                                  " frontier")
-        if launched and (s["launches"] != 1
-                         or s["rows"] != s["candidates"]):
-            raise AssertionError(f"{name}: a sweep of {s['candidates']}"
-                                 f" prefixes launched {s['launches']} over"
-                                 f" {s['rows']} rows")
+    if launched:
+        check_launches(log, name)
     if expect_sweep and not any(s["candidates"] == expect_sweep
                                 for s in log["sweeps"]):
         raise AssertionError(f"{name}: no sweep over {expect_sweep}"
@@ -3271,6 +3310,470 @@ def solverd_phase():
                               passes=passes, wall_s=wall, spawn_s=spawn_s))
 
 
+# ---------------------------------------------------------------------------
+# entry points and the twin (phase 13)
+
+# the port's twin on the reference's macro scenario (tests/test_twin.py
+# TestTwinSoak.test_macro_run_ledger_sane, with solver="tpu"): the JAX
+# twin's ledger (JAX_PLATFORMS=cpu python3 fleet_expected.py twin)
+TWIN_EXPECTED = {
+    "ledger_sha256":
+        "40a097428b8f8632df811f722c60cf80874dd4a97049c1d4b9ced377b824ff37",
+    "bound": 1890, "peak_nodes": {"0": 44, "1": 12},
+    "cost_dollar_hours": {"0": 50.030418, "1": 21.65484},
+}
+# phase 13b: plain_5k_400's pod mix over HTTP, cut to its first 1,000 pods:
+# the operator's host work over HTTP grows with pods x claims (PodEvents
+# lists every NodeClaim on every pod event, one HTTP round trip and a
+# decode of every claim each), too long at 5,000 for the smoke's budget
+# (PERF.md)
+HTTP_PODS, HTTP_TYPES = 1000, 400
+HTTP_EXPECTED = [35, 851.0]
+
+
+def binary_run(solver="tpu"):
+    """Run the port's binary as a user starts it, from the root of the
+    checkout (``python -m karpenter_core_tpu_torch.main --solver <solver>
+    --max-iters 3 --health-port -1 --poll-interval 0.5``); while it runs,
+    GET its
+    ``/healthz``, ``/readyz`` and ``/metrics`` at the listen address it
+    logs. Returns its exit code, each route's status, whether stderr holds
+    a traceback, the address and the wall."""
+    import re
+    import urllib.error
+    import urllib.request
+
+    cmd = [sys.executable, "-m", "karpenter_core_tpu_torch.main",
+           "--solver", solver, "--max-iters", "3", "--health-port", "-1",
+           "--poll-interval", "0.5"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines, routes, addr = [], {}, None
+    try:
+        for line in proc.stderr:
+            lines.append(line)
+            found = re.search(r"health/metrics on [^:\s]+:(\d+)", line)
+            if found:
+                addr = f"127.0.0.1:{found.group(1)}"
+                break
+        for path in ("/healthz", "/readyz", "/metrics"):
+            if addr is None:
+                break
+            try:
+                with urllib.request.urlopen(f"http://{addr}{path}",
+                                            timeout=10) as r:
+                    r.read()
+                    routes[path] = r.status
+            except urllib.error.HTTPError as e:
+                routes[path] = e.code
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    stderr = "".join(lines) + (err or "")
+    return dict(rc=proc.returncode, routes=routes, addr=addr,
+                traceback="Traceback" in stderr, wall_s=time.perf_counter()
+                - t0, stderr_tail=stderr[-2000:])
+
+
+@contextlib.contextmanager
+def http_apiserver():
+    """The port's HTTP apiserver (``python -m
+    karpenter_core_tpu_torch.kube.httpserver --port 0``) in a child
+    process; yields its port and stops it on exit."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "karpenter_core_tpu_torch.kube.httpserver",
+         "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        if "listening on" not in line:
+            raise AssertionError(f"httpserver did not start: {line!r}")
+        yield int(line.strip().rsplit(":", 1)[1])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def http_operator_run(port, options, pods, catalog, pool=None):
+    """``Operator(kube=HttpKubeClient(...), options=options)`` against the
+    apiserver on ``port``: the pool and ``pods`` are created through the
+    client, then ``run_until_idle(disrupt=False)``. A second, independent
+    client reads the outcome back from the server. Returns the operator,
+    the spy's log, the passes, the wall and the read-back
+    (nodes, cpu, every pod bound, bound pods)."""
+    from karpenter_core_tpu_torch.cloudprovider.kwok import KwokCloudProvider
+    from karpenter_core_tpu_torch.kube.httpclient import HttpKubeClient
+    from karpenter_core_tpu_torch.operator import Operator
+
+    client = HttpKubeClient("127.0.0.1", port)
+    client.create(pool or _pool())
+    for pod in pods:
+        client.create(pod)
+    op = Operator(kube=client, options=options,
+                  cloud_provider=KwokCloudProvider(client, catalog))
+    try:
+        with operator_spy() as log:
+            t0 = time.perf_counter()
+            passes = op.run_until_idle(disrupt=False)
+            wall = time.perf_counter() - t0
+    except BaseException:
+        op.shutdown()
+        raise
+    probe = HttpKubeClient("127.0.0.1", port)
+    nodes, bound = probe.list_nodes(), probe.list_pods()
+    readback = (len(nodes), sum(n.status.capacity.get("cpu", 0)
+                                for n in nodes),
+                all(p.node_name for p in bound),
+                sum(1 for p in bound if p.node_name))
+    return op, log, passes, wall, readback
+
+
+def twin_scenarios():
+    """The reference twin's scenarios (tests/test_twin.py), built with the
+    port's classes: ``clean`` (``_clean_scenario``), ``macro``
+    (TestTwinSoak.test_macro_run_ledger_sane's, with ``solver="tpu"``),
+    ``storm`` (``_storm_fleet_scenario``), ``elastic``
+    (``_elastic_scenario``). Each is a function of keyword overrides."""
+    from karpenter_core_tpu_torch.twin import (
+        FleetFault,
+        Scenario,
+        Storm,
+        WorkloadWave,
+    )
+
+    def clean(**overrides):
+        base = dict(
+            seed=3, clusters=2, duration=300.0, tick=30.0, solver="greedy",
+            waves=(
+                WorkloadWave(at=0.0, cluster=0, kind="serving", count=80,
+                             min_available=4),
+                WorkloadWave(at=0.0, cluster=1, kind="training", count=64,
+                             gang_size=8, priority=100),
+                WorkloadWave(at=30.0, cluster=0, kind="batch", count=80,
+                             lifetime=180.0),
+                WorkloadWave(at=60.0, cluster=1, kind="serving", count=48,
+                             min_available=2),
+                WorkloadWave(at=90.0, cluster=0, kind="batch", count=40),
+            ),
+        )
+        base.update(overrides)
+        return Scenario(**base)
+
+    def macro(**overrides):
+        base = dict(
+            solver="tpu", duration=3600.0 * 8, tick=600.0,
+            waves=tuple(
+                WorkloadWave(
+                    at=600.0 * i, cluster=i % 2, kind=kind, count=count,
+                    lifetime=7200.0 if kind != "serving" else 0.0,
+                    min_available=2 if kind == "serving" else 0,
+                    gang_size=8 if kind == "training" else 0,
+                    priority=100 if kind == "training" else 0,
+                )
+                for i, (kind, count) in enumerate(
+                    [("serving", 200), ("training", 160), ("batch", 400),
+                     ("batch", 300), ("serving", 150), ("training", 80),
+                     ("batch", 500), ("serving", 100)]
+                )
+            ),
+        )
+        base.update(overrides)
+        return clean(**base)
+
+    def storm(**overrides):
+        base = dict(
+            seed=5, clusters=2, duration=300.0, tick=30.0, solver="tpu",
+            fleet=2, wire="delta",
+            rates={
+                "kube.create.conflict": 0.05,
+                "kube.update.conflict": 0.04,
+                "cloud.create.insufficient_capacity": 0.03,
+            },
+            storms=(Storm(start=60.0, duration=90.0, cluster=0, head=4),),
+            waves=(
+                WorkloadWave(at=0.0, cluster=0, kind="serving", count=12,
+                             min_available=2),
+                WorkloadWave(at=30.0, cluster=1, kind="batch", count=12),
+                WorkloadWave(at=150.0, cluster=0, kind="batch", count=8),
+                WorkloadWave(at=210.0, cluster=1, kind="serving", count=8),
+            ),
+            fleet_faults=(
+                FleetFault(at=90.0, kind="amnesia", member=0),
+                FleetFault(at=120.0, kind="murder", member=1),
+                FleetFault(at=180.0, kind="partition", cluster=0,
+                           duration=60.0),
+            ),
+        )
+        base.update(overrides)
+        return Scenario(**base)
+
+    def elastic(**overrides):
+        base = dict(
+            seed=11, clusters=2, duration=300.0, tick=30.0, solver="tpu",
+            fleet=1, wire="delta", autoscale=True, fleet_min=1, fleet_max=2,
+            waves=(
+                WorkloadWave(at=0.0, cluster=0, kind="serving", count=12,
+                             min_available=2),
+                WorkloadWave(at=0.0, cluster=1, kind="batch", count=12,
+                             lifetime=120.0),
+                WorkloadWave(at=30.0, cluster=0, kind="batch", count=10,
+                             lifetime=90.0),
+                WorkloadWave(at=240.0, cluster=1, kind="batch", count=6),
+            ),
+        )
+        base.update(overrides)
+        return Scenario(**base)
+
+    return dict(clean=clean, macro=macro, storm=storm, elastic=elastic)
+
+
+def twin_summary(result):
+    """The numbers ``TWIN_EXPECTED`` pins, from a twin's result: the
+    ledger JSON's sha256, the pods bound, peak nodes and $-hours by
+    cluster."""
+    ledger = result.ledger.encode()
+    return dict(
+        ledger_sha256=hashlib.sha256(
+            result.ledger_json().encode()).hexdigest(),
+        bound=sum(c["n"] for c in ledger["slo"].values()),
+        peak_nodes=ledger["peak_nodes"],
+        cost_dollar_hours=ledger["cost_dollar_hours"],
+    )
+
+
+@contextlib.contextmanager
+def fresh_counters(wiring):
+    """Run with the two counters a twin's ledger carries as deltas
+    (``rpc_fallbacks``, ``host_fallback_pods``) empty, as in a fresh
+    process, and add their earlier counts back after. The delta of a
+    counter the process never counted is ``0``, of one it did ``0.0``, and
+    the ledger's JSON spells the two apart. ``wiring`` is the package's
+    ``metrics/wiring`` module."""
+    counters = (wiring.SOLVER_RPC_FALLBACKS, wiring.SOLVER_HOST_FALLBACK_PODS)
+    saved = [dict(c.values) for c in counters]
+    for c in counters:
+        c.values.clear()
+    try:
+        yield
+    finally:
+        for c, before in zip(counters, saved):
+            for key, v in before.items():
+                c.values[key] = c.values.get(key, 0.0) + v
+
+
+@contextlib.contextmanager
+def launch_threads():
+    """Record the thread of every scan kernel launch (the wrappers' one
+    entry to the card, ``cuda_ffd._launch_batched``)."""
+    import threading
+
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+
+    threads = []
+    launch = cuda_ffd._launch_batched
+
+    def spy(*args, **kwargs):
+        threads.append(threading.current_thread() is threading.main_thread())
+        return launch(*args, **kwargs)
+
+    cuda_ffd._launch_batched = spy
+    try:
+        yield threads
+    finally:
+        cuda_ffd._launch_batched = launch
+
+
+def twin_phase():
+    """Phase 13: the port's entry points and its twin on the card."""
+    import torch
+
+    from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
+    from karpenter_core_tpu_torch.metrics import wiring as m
+    from karpenter_core_tpu_torch.operator import Options
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+    from karpenter_core_tpu_torch.twin.harness import run_scenario
+
+    out = {}
+    # a. the binary
+    run = binary_run("tpu")
+    if run["rc"] != 0 or run["traceback"] or run["routes"] != {
+            "/healthz": 200, "/readyz": 200, "/metrics": 200}:
+        raise AssertionError(f"binary: {run}")
+    out["binary"] = dict(wall_s=run["wall_s"], routes=run["routes"])
+    print(f"binary [--solver tpu --max-iters 3]: exit 0, no traceback;"
+          f" /healthz /readyz /metrics answered {run['routes']} at"
+          f" {run['addr']}; {run['wall_s']:.3f} s", flush=True)
+
+    # b. the operator over HTTP, at plain_5k_400
+    errors0 = dict(m.RECONCILE_ERRORS.values)
+    rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+    reset_name_counters()
+    t0 = time.perf_counter()
+    with http_apiserver() as port:
+        cuda_ffd.counter.reset()
+        with plain_forbidden():
+            op, log, passes, wall, readback = http_operator_run(
+                port, Options(solver="tpu", batch_max_duration=0.0,
+                              batch_idle_duration=0.0),
+                _plain_pods(HTTP_PODS), list(bench_catalog(HTTP_TYPES)))
+        torch.cuda.synchronize()
+        launches = cuda_ffd.counter.total()
+        try:
+            check_operator_run(op, log, "http operator", errors0, rejected0,
+                               0)
+        finally:
+            op.shutdown()
+    total_s = time.perf_counter() - t0
+    scans = sum(s["scans"] for s in log["solves"])
+    if not readback[2] or readback[3] != HTTP_PODS or list(
+            readback[:2]) != list(HTTP_EXPECTED):
+        raise AssertionError(f"http operator: read back {readback}, the JAX"
+                             f" operator's {HTTP_EXPECTED}")
+    if launches != scans or scans < 1:
+        raise AssertionError(f"http operator: {launches} launches for"
+                             f" {scans} scans")
+    solve_s = sum(s["s"] for s in log["solves"])
+    out["http"] = dict(nodes=readback[0], cpu=readback[1], bound=readback[3],
+                       passes=passes, wall_s=wall, solve_s=solve_s,
+                       other_s=wall - solve_s, solves=len(log["solves"]),
+                       scans=scans, launches=launches, total_s=total_s)
+    print(f"http operator [plain_5k_400's first {HTTP_PODS} pods over"
+          f" {HTTP_TYPES} types, over HttpKubeClient]: a second"
+          f" client read back {readback[3]} pods bound, {readback[0]} nodes,"
+          f" {readback[1]} cpu (the JAX operator's); {passes} passes in"
+          f" {wall:.3f} s: solves {solve_s:.3f} s ({len(log['solves'])}"
+          f" solves, {scans} scans), other {wall - solve_s:.3f} s;"
+          f" {launches} launches; no reconcile error, no verifier"
+          f" rejection, readyz true; {total_s:.3f} s with the apiserver's"
+          " start and the creates", flush=True)
+
+    # c. the twin in process, the reference's macro scenario
+    scn = twin_scenarios()
+    macro = scn["macro"]()
+    reset_name_counters()
+    cuda_ffd.counter.reset()
+    with operator_spy() as log, plain_forbidden(), launch_threads() as thr, \
+            fresh_counters(m):
+        t0 = time.perf_counter()
+        res = run_scenario(macro)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = cuda_ffd.counter.total()
+    got = twin_summary(res)
+    if res.violations or res.counters["rpc_fallbacks"] != 0:
+        raise AssertionError(f"twin macro: {res.violations[:3]},"
+                             f" {res.counters}")
+    if got != TWIN_EXPECTED:
+        raise AssertionError(f"twin macro: {got} != the JAX twin's"
+                             f" {TWIN_EXPECTED}")
+    if not all(s["frontier"] for s in log["sweeps"]):
+        raise AssertionError("twin macro: a multi-node pass had no frontier")
+    check_launches(log, "twin macro")
+    if launches < 1 or launches != len(thr) or not all(thr):
+        raise AssertionError(f"twin macro: {launches} launches")
+    t1 = time.perf_counter()
+    with fresh_counters(m):
+        ref = run_scenario(macro, kernel="reference")
+    ref_s = time.perf_counter() - t1
+    if (ref.ledger_json(), ref.trace_json()) != (res.ledger_json(),
+                                                 res.trace_json()):
+        raise AssertionError("twin macro: the kernel's run != the plain"
+                             " version's")
+    profiled = []
+    with fresh_counters(m):
+        idle = _idle_share(lambda: profiled.append(run_scenario(macro)),
+                           cpu=False)
+    if profiled[0].ledger_json() != res.ledger_json():
+        raise AssertionError("twin macro: the profiled run's ledger differs")
+    solve_s = sum(s["s"] for s in log["solves"])
+    sweep_s = sum(s["s"] for s in log["sweeps"])
+    out["macro"] = dict(
+        wall_s=wall, reference_wall_s=ref_s, solves=len(log["solves"]),
+        scans=sum(s["scans"] for s in log["solves"]),
+        sweeps=len(log["sweeps"]), solve_s=solve_s, sweep_s=sweep_s,
+        other_s=wall - solve_s - sweep_s, launches=launches,
+        idle_share=idle, **got)
+    print(f"twin macro [2 clusters, {got['bound']} pods bound,"
+          f" {macro.duration / 3600:g} virtual"
+          f" hours]: 0 violations, rpc_fallbacks 0; ledger sha256"
+          f" {got['ledger_sha256']} (the JAX twin's), peak nodes"
+          f" {got['peak_nodes']}; trace and ledger equal to the plain"
+          f" version's run ({ref_s:.3f} s); wall {wall:.3f} s: solves"
+          f" {solve_s:.3f} s ({len(log['solves'])} solves), sweeps"
+          f" {sweep_s:.3f} s ({len(log['sweeps'])}), other"
+          f" {wall - solve_s - sweep_s:.3f} s; {launches} launches;"
+          f" device idle share {idle}", flush=True)
+
+    # d. the twin over its in-thread solverd tier
+    storm = scn["storm"]()
+    runs = []
+    for kernel in ("cuda", "cuda", "reference"):
+        cuda_ffd.counter.reset()
+        ctx = plain_forbidden() if kernel == "cuda" else (
+            contextlib.nullcontext())
+        with ctx, launch_threads() as thr, fresh_counters(m):
+            t0 = time.perf_counter()
+            res = run_scenario(storm, kernel=kernel)
+            wall = time.perf_counter() - t0
+        c, util = res.counters, res.ledger.utilization
+        bound = twin_summary(res)["bound"]
+        if (res.violations or c["rpc_fallbacks"] or c["host_fallback_pods"]
+                or c["rpc_failures"] <= 0 or c["result_rejected"]
+                or sum(util["member_solves"].values()) <= 0
+                or bound != sum(w.count for w in storm.waves)):
+            raise AssertionError(f"twin storm [{kernel}]: violations"
+                                 f" {res.violations[:3]}, counters {c},"
+                                 f" bound {bound}")
+        n = cuda_ffd.counter.total()
+        if kernel == "cuda" and (n < 1 or n != len(thr) or any(thr)):
+            raise AssertionError(f"twin storm: {n} launches, on the main"
+                                 f" thread {sum(thr)}")
+        runs.append((res, wall, n))
+        print(f"twin storm [fleet 2, kernel {kernel}]: 0 violations,"
+              f" rpc_fallbacks 0, host_fallback_pods 0, rpc_failures"
+              f" {c['rpc_failures']}, member solves {util['member_solves']},"
+              f" {bound} pods bound; {n} launches, all in the daemons'"
+              f" threads; {wall:.3f} s", flush=True)
+    first = (runs[0][0].trace_json(), runs[0][0].ledger_json())
+    for res, _, _ in runs[1:]:
+        if (res.trace_json(), res.ledger_json()) != first:
+            raise AssertionError("twin storm: the runs' traces or ledgers"
+                                 " differ")
+    cuda_ffd.counter.reset()
+    with plain_forbidden(), fresh_counters(m):
+        t0 = time.perf_counter()
+        el = run_scenario(scn["elastic"]())
+        el_s = time.perf_counter() - t0
+    decisions = [e[4] for e in el.trace if e[3] == "autoscale"]
+    if el.violations or el.counters["rpc_fallbacks"] or not any(
+            d.startswith("up ") for d in decisions) or not any(
+            d.startswith("down ") for d in decisions):
+        raise AssertionError(f"twin elastic: {el.violations[:3]},"
+                             f" {el.counters}, {decisions}")
+    el_launches = cuda_ffd.counter.total()
+    out["storm"] = dict(
+        walls_s=[w for _, w, _ in runs], launches=[n for _, _, n in runs],
+        rpc_failures=runs[0][0].counters["rpc_failures"],
+        member_solves=runs[0][0].ledger.utilization["member_solves"],
+        slo=runs[0][0].ledger.encode()["slo"])
+    out["elastic"] = dict(wall_s=el_s, launches=el_launches,
+                          peak_members=el.ledger.peak_members)
+    print(f"twin storm: the three runs' traces and ledgers byte-identical;"
+          f" twin elastic: 0 violations, the tier grew and shrank (peak"
+          f" {el.ledger.peak_members} members), {el_launches} launches,"
+          f" {el_s:.3f} s", flush=True)
+    out["launches"] = (out["http"]["launches"] + out["macro"]["launches"]
+                       + sum(out["storm"]["launches"][:2]) + el_launches)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3343,6 +3846,11 @@ def main() -> int:
     solverd = solverd_phase()
     done(12)
     launches[cuda_ffd.KERNELS[0]] += solverd["launches"]
+    # 13. entry points and the twin: the binary, the operator over HTTP,
+    # the twin in process and over its in-thread solverd tier
+    twin = twin_phase()
+    done(13)
+    launches[cuda_ffd.KERNELS[0]] += twin["launches"]
 
     k50 = krows[0]
     kp = next(r for r in brows if r["tenants"] == FLEET_GROUPS[0])
@@ -3356,6 +3864,8 @@ def main() -> int:
         "operator_launches": sum(r["scans"] for r in operator.values()),
         "solverd_launches": solverd["launches"],
         "solverd": solverd,
+        "twin_launches": twin["launches"],
+        "twin": twin,
         "blocks": k50["blocks"],
         "max_abs_err": max(r["max_abs_err"] for r in krows),
         "ms": k50["ms"],

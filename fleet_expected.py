@@ -2,14 +2,15 @@
 """The JAX package's answers that chip_smoke.py holds the port to, on the
 same problems: ``FLEET_EXPECTED_NODES`` (phase 6), ``SWEEP_EXPECTED``
 (phase 7), ``OPERATOR_EXPECTED`` (phase 8), ``GANGS_EXPECTED``,
-``GANG_TENANTS_EXPECTED`` and ``TOPO_EXPECTED`` (phases 9-10), and
-``RELAX_EXPECTED`` (phase 11).
+``GANG_TENANTS_EXPECTED`` and ``TOPO_EXPECTED`` (phases 9-10),
+``RELAX_EXPECTED`` (phase 11), ``HTTP_EXPECTED`` and ``TWIN_EXPECTED``
+(phase 13).
 
 Run from the root of a checkout, on the CPU:
 
-    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator] [gangs] [relax]
+    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator] [gangs] [relax] [http] [twin]
 
-(all five when none is named). Every problem comes from chip_smoke.py's
+(all seven when none is named). Every problem comes from chip_smoke.py's
 own recipe (built with the port's classes and carried into the JAX
 package's by pickling, the inverse of
 ``karpenter_core_tpu_torch.interop.from_reference``):
@@ -33,6 +34,14 @@ package's by pickling, the inverse of
   sequence of ``chip_smoke.RELAX_SOLVES`` (cold, settle, three warm) on one
   scheduler, each solve as ``chip_smoke.relax_summary`` (nodes, cost,
   unschedulable pods, relax outcome, template moves, digest).
+* http: its ``Operator(Options(solver="tpu"))`` over its own HTTP
+  apiserver process on phase 13's HTTP problem (``chip_smoke.HTTP_PODS``
+  pods of plain_5k_400's mix over ``HTTP_TYPES`` types), read back by a
+  second client: node count and summed node cpu.
+* twin: its ``DigitalTwin`` (``twin/harness.run_scenario``) on phase 13's
+  macro scenario (``chip_smoke.twin_scenarios()["macro"]``, carried over
+  as the scenario's JSON): ``chip_smoke.twin_summary`` (the ledger JSON's
+  sha256, pods bound, peak nodes and $-hours by cluster).
 
 The script prints each answer and exits 1 if one differs from the value
 pinned in chip_smoke.py.
@@ -188,8 +197,75 @@ def relax():
     return out, chip_smoke.RELAX_EXPECTED
 
 
+def ref_http_run(pods, catalog, pool):
+    """The JAX package's ``Operator(Options(solver="tpu"))`` over its own
+    HTTP apiserver (``python -m karpenter_core_tpu.kube.httpserver``, a
+    child process), the pool and ``pods`` created through its
+    ``HttpKubeClient``. Returns what a second client reads back (nodes,
+    cpu, every pod bound, pods bound) and the pods' bindings."""
+    import subprocess
+
+    from karpenter_core_tpu.cloudprovider.kwok import KwokCloudProvider
+    from karpenter_core_tpu.kube.httpclient import HttpKubeClient
+    from karpenter_core_tpu.operator import Operator, Options
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "karpenter_core_tpu.kube.httpserver",
+         "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        port = int(proc.stdout.readline().strip().rsplit(":", 1)[1])
+        client = HttpKubeClient("127.0.0.1", port)
+        client.create(pool)
+        for pod in pods:
+            client.create(pod)
+        op = Operator(kube=client,
+                      cloud_provider=KwokCloudProvider(client, catalog),
+                      options=Options(solver="tpu", batch_max_duration=0.0,
+                                      batch_idle_duration=0.0))
+        op.run_until_idle(disrupt=False)
+        op.shutdown()
+        probe = HttpKubeClient("127.0.0.1", port)
+        nodes, bound = probe.list_nodes(), probe.list_pods()
+        return ((len(nodes), sum(n.status.capacity.get("cpu", 0)
+                                 for n in nodes),
+                 all(p.node_name for p in bound),
+                 sum(1 for p in bound if p.node_name)),
+                sorted((p.name, p.node_name) for p in bound))
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+
+
+def http():
+    from karpenter_core_tpu.cloudprovider.kwok import bench_catalog
+
+    readback, _ = ref_http_run(
+        to_reference(chip_smoke._plain_pods(chip_smoke.HTTP_PODS)),
+        list(bench_catalog(chip_smoke.HTTP_TYPES)),
+        to_reference(chip_smoke._pool()))
+    if not readback[2]:
+        raise AssertionError(f"http: a pod is not bound ({readback})")
+    return list(readback[:2]), chip_smoke.HTTP_EXPECTED
+
+
+def twin():
+    from karpenter_core_tpu.metrics import wiring
+    from karpenter_core_tpu.twin import scenario_from_json
+    from karpenter_core_tpu.twin.harness import run_scenario
+    from karpenter_core_tpu_torch.twin import scenario_to_json
+
+    scenario = scenario_from_json(scenario_to_json(
+        chip_smoke.twin_scenarios()["macro"]()))
+    with chip_smoke.fresh_counters(wiring):
+        result = run_scenario(scenario)
+    if result.violations:
+        raise AssertionError(f"twin: {result.violations[:3]}")
+    return chip_smoke.twin_summary(result), chip_smoke.TWIN_EXPECTED
+
+
 PARTS = {"fleet": fleet, "sweep": sweep, "operator": operator,
-         "gangs": gangs, "relax": relax}
+         "gangs": gangs, "relax": relax, "http": http, "twin": twin}
 
 
 def main(argv) -> int:

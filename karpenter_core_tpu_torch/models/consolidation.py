@@ -29,8 +29,8 @@ Pods with topology constraints take the host path (callers fall back to
 binary search when any candidate carries them). Behind the solverd
 sidecar (an operator with a ``solver_client``) the sweep crosses the RPC
 seam (solver/remote.remote_frontier) and the sidecar runs this module.
-The prefix axis sharded over several devices (ROADMAP A.13) raises
-``NotImplementedError``.
+A device count that resolves above 1 (the prefix axis sharded over
+several devices, ROADMAP A.13) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -55,6 +55,7 @@ from karpenter_core_tpu_torch.ops.ffd import (
     SlotState,
     ffd_solve_batched,
 )
+from karpenter_core_tpu_torch.parallel.mesh import check_single_device
 from karpenter_core_tpu_torch.solver.snapshot import _spec_signature
 from karpenter_core_tpu_torch.utils.device import DEFAULT_DEVICE
 
@@ -312,11 +313,9 @@ def frontier_core(
     """The device sweep proper, over already-gathered inputs, on one
     ``device`` through ``kernel_backend`` (``"cuda"``: the hand kernel,
     one launch for all prefixes; ``"reference"``: its plain version)."""
-    if devices != 1:
-        raise NotImplementedError(
-            f"devices={devices}: the prefix axis sharded over several GPUs"
-            " is ported by ROADMAP item A.13"
-        )
+    # the count resolves as in the JAX package (0 = every device); the
+    # prefix axis sharded over several GPUs is ROADMAP A.13
+    check_single_device(devices, device, "prefix sweeps")
     problem = sweep_problem(
         nodepools, instance_types, cand_nodes, keep_nodes, daemonset_pods,
         base_pods, candidate_pods, max_slots=max_slots, device=device,

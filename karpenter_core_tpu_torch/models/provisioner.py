@@ -45,7 +45,8 @@ strictly wins; the verdict caches on the class batch, so a warm solve of
 the same problem is one dispatch.
 
 Outside this slice, and raising ``NotImplementedError`` that names the
-ROADMAP item that ports it: ``devices != 1`` (A.13).
+ROADMAP item that ports it: a device count that resolves above 1 (A.13;
+``parallel/mesh.resolve_devices``, so ``devices=0`` runs on one GPU).
 """
 from __future__ import annotations
 
@@ -115,6 +116,7 @@ from karpenter_core_tpu_torch.solver.vocab import (
     decode_requirements,
 )
 from karpenter_core_tpu_torch.utils import resources as resutil
+from karpenter_core_tpu_torch.parallel.mesh import check_single_device
 from karpenter_core_tpu_torch.utils.device import resolve_device
 
 KERNEL_BACKENDS = ("cuda", "reference")
@@ -399,7 +401,7 @@ class _KernelRequest:
 
 
 def _check_ported(req: _KernelRequest) -> None:
-    if req.devices != 1:
+    if req.devices > 1:
         raise NotImplementedError(
             f"devices={req.devices}: multi-GPU dispatches are ported by"
             " ROADMAP item A.13"
@@ -737,14 +739,10 @@ class DeviceScheduler:
 
         instance_types = apply_unavailable(instance_types, unavailable_offerings)
         self.unavailable_offerings = frozenset(unavailable_offerings)
-        # one device: the slot-axis sharding over several GPUs is ported by
-        # ROADMAP A.13
-        if devices != 1:
-            raise NotImplementedError(
-                f"devices={devices}: multi-GPU solves are ported by ROADMAP"
-                " item A.13"
-            )
-        self.devices = 1
+        # the device count resolves as in the JAX package (0 = every device
+        # of the kind, larger requests clamp to what exists); a count that
+        # resolves above 1 — the slot-axis sharding — is ROADMAP A.13
+        self.devices = check_single_device(devices, self.device)
         # a supplied Topology carries cluster context (existing pods,
         # exclusions); its groups are rebuilt fresh each solve round, so only
         # the constructor inputs are kept

@@ -24,9 +24,10 @@ behind the port's solverd sidecar (``solver_mode="sidecar"``: a supervised
 takes ``device_scheduler_opts["device"]`` as its ``--device``), through
 ``solver_kernel`` (``cuda``, the hand kernel, or ``reference``, its plain
 version) and ``solver_backend`` (``ffd`` or ``relax``).
-``solver_devices != 1``, and a spawned sidecar fleet (``solver_fleet > 1``
-or ``solver_autoscale``), raise ``NotImplementedError`` (ROADMAP A.13) when
-the operator is built.
+``solver_devices`` resolves as in the JAX package (0 = every device, a
+larger count clamps to what exists). A count that resolves above 1, and a
+spawned sidecar fleet (``solver_fleet > 1`` or ``solver_autoscale``), raise
+``NotImplementedError`` (ROADMAP A.13) when the operator is built.
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ from karpenter_core_tpu_torch.solver.fleet import (
 from karpenter_core_tpu_torch.state.cluster import Cluster
 from karpenter_core_tpu_torch.utils import pod as podutil
 from karpenter_core_tpu_torch.utils.clock import Clock
+from karpenter_core_tpu_torch.parallel.mesh import check_single_device
 from karpenter_core_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 # -- reconcile fault isolation -----------------------------------------------
@@ -144,8 +146,9 @@ class Options:
     solver_watchdog_seconds: float = 120.0
     solver_quarantine_journal: str = ""
     # the device count of the solve (parallel/mesh.py's slot mesh in the
-    # JAX package). Only 1 is ported: any other count raises
-    # NotImplementedError (ROADMAP A.13) when the operator is built.
+    # JAX package): 0 = every device, a request clamps to what exists. A
+    # count that resolves above 1 raises NotImplementedError (ROADMAP
+    # A.13) when the operator is built.
     solver_devices: int = 1
     # fleet tenancy (solver/fleet.py): this operator's identity at a SHARED
     # sidecar — rides every RPC (wire field + X-Solver-Tenant header) for
@@ -498,10 +501,10 @@ class Operator:
         # one device: the slot-axis sharding over several GPUs is ROADMAP
         # A.13 — refused here, where it raises to the caller (inside a
         # reconcile the fault isolation would swallow it)
-        if self.options.solver == "tpu" and self.options.solver_devices != 1:
-            raise NotImplementedError(
-                f"solver_devices={self.options.solver_devices}: multi-GPU"
-                " solves are ported by ROADMAP item A.13"
+        if self.options.solver == "tpu":
+            check_single_device(
+                self.options.solver_devices,
+                self.options.device_scheduler_opts.get("device", DEFAULT_DEVICE),
             )
         # one spawned child on the card: a spawned fleet (solver_fleet > 1)
         # or the tier autoscaler starts several children, each with its
@@ -653,11 +656,9 @@ class Operator:
                 _check_solver_kernel(device_opts["kernel_backend"])
         if self.options.solver == "tpu" and self.solver_client is None:
             device_opts.setdefault("devices", self.options.solver_devices)
-            if device_opts["devices"] != 1:
-                raise NotImplementedError(
-                    f"devices={device_opts['devices']}: multi-GPU solves"
-                    " are ported by ROADMAP item A.13"
-                )
+            check_single_device(
+                device_opts["devices"], device_opts.get("device", DEFAULT_DEVICE)
+            )
             # explicit device, no fallback: CUDA without a GPU raises here
             resolve_device(device_opts.get("device", DEFAULT_DEVICE))
         self.provisioner = Provisioner(

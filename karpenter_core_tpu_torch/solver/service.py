@@ -5,7 +5,9 @@ each solve runs the port's ``DeviceScheduler`` on ``--device`` (default
 ``cuda``; the daemon raises at construction without a GPU, and
 ``--device cpu`` asks for the CPU) through ``--kernel`` (``cuda``, the
 hand-written FFD kernel, or ``reference``, its plain torch version).
-``--devices`` other than 1 is refused (ROADMAP A.13). Where the JAX
+``--devices`` resolves as in the JAX package (0 = every device of the
+kind; a larger count clamps to what exists); one that resolves above 1 is
+refused (ROADMAP A.13). Where the JAX
 daemon points XLA's compile cache at disk at boot, this one builds the
 kernel library (``ops/cuda_ffd.build``) on a CUDA device; the profile
 toggle captures a ``torch.profiler`` chrome trace. A sticky CUDA error
@@ -95,6 +97,10 @@ from karpenter_core_tpu_torch.solver.supervisor import (
     DRAIN_EXIT_CODE,
     DRAIN_EXIT_DEADLINE_SECONDS,
     WATCHDOG_EXIT_CODE,
+)
+from karpenter_core_tpu_torch.parallel.mesh import (
+    check_single_device,
+    resolve_devices,
 )
 from karpenter_core_tpu_torch.utils.device import (
     DEFAULT_DEVICE,
@@ -265,13 +271,10 @@ class SolverDaemon:
         device=DEFAULT_DEVICE,
     ):
         # one device, explicit, no fallback: CUDA without a GPU raises here;
-        # the slot-axis sharding over several GPUs is ROADMAP A.13
-        if devices != 1:
-            raise NotImplementedError(
-                f"devices={devices}: multi-GPU solves are ported by ROADMAP"
-                " item A.13"
-            )
+        # the count resolves as in the JAX package, and one that resolves
+        # above 1 (the slot-axis sharding over several GPUs) is ROADMAP A.13
         self.device = resolve_device(device)
+        check_single_device(devices, self.device)
         self.ready = False
         self.solves = 0
         self.profile_dir = profile_dir
@@ -1336,8 +1339,10 @@ def main() -> int:
     )
     ap.add_argument(
         "--devices", type=int, default=1,
-        help="devices a solve is sharded over; only 1 is supported (the"
-        " multi-GPU slot-axis sharding is ROADMAP item A.13)",
+        help="devices a solve is sharded over (0 = every device of"
+        " --device's kind; a request clamps to what exists); a count that"
+        " resolves above 1 is refused (the multi-GPU slot-axis sharding is"
+        " ROADMAP item A.13)",
     )
     ap.add_argument(
         "--device", default=DEFAULT_DEVICE,
@@ -1428,7 +1433,7 @@ def main() -> int:
         " child (no journal = in-memory quarantine only)",
     )
     args = ap.parse_args()
-    if args.devices != 1:
+    if resolve_devices(args.devices, args.device) > 1:
         ap.error(
             f"--devices {args.devices}: multi-GPU solves are ported by"
             " ROADMAP item A.13"

@@ -210,14 +210,20 @@ def test_sweep_leaves_the_prepared_state_unchanged():
         assert torch.equal(a, b), name
 
 
-def test_frontier_rejects_other_kernels_and_devices():
+def test_frontier_rejects_other_kernels_and_devices(monkeypatch):
+    from karpenter_core_tpu_torch.parallel import mesh as pmesh
+
     inputs = chip_smoke.sweep_inputs(**SMALL)
     with pytest.raises(ValueError, match="kernel backend"):
         cons.frontier_core(**inputs, max_slots=SLOTS, device="cpu",
                            kernel_backend="xla")
+    # a count that resolves above 1 (here: a host faked to 8 devices) is
+    # the prefix axis sharded over several GPUs, ROADMAP A.13
+    monkeypatch.setattr(pmesh, "_available", lambda device: 8)
     with pytest.raises(NotImplementedError, match="A.13"):
         cons.frontier_core(**inputs, max_slots=SLOTS, device="cpu",
                            devices=2)
+    monkeypatch.undo()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cons.frontier_core(**inputs, max_slots=SLOTS)

@@ -251,8 +251,16 @@ def test_sidecar_routes():
 @pytest.mark.parametrize("opts", [
     dict(solver_devices=2), dict(device_scheduler_opts={"device": "cpu",
                                                         "devices": 0})])
-def test_other_device_counts_raise(opts):
+def test_other_device_counts_raise(opts, monkeypatch):
+    """A device count resolves as in the JAX package: on a one-device host
+    (the CPU) it is the single-device solve; a count that resolves above
+    1 raises (A.13)."""
+    from karpenter_core_tpu_torch.parallel import mesh as pmesh
+
     opts.setdefault("device_scheduler_opts", {"device": "cpu"})
+    op = Operator(options=Options(solver="tpu", **opts))
+    assert op.provisioner.new_scheduler([]).devices == 1
+    monkeypatch.setattr(pmesh, "_available", lambda device: 8)
     with pytest.raises(NotImplementedError, match="A.13"):
         Operator(options=Options(solver="tpu", **opts))
 

@@ -223,7 +223,13 @@ def _port_scheduler(**kw):
     return PortScheduler(pools, its, existing_nodes=existing, **kw)
 
 
-def test_multi_device_raises():
+def test_multi_device_raises(monkeypatch):
+    """devices=2 clamps to the one device a CPU host has (as the JAX
+    package clamps); a count that resolves above 1 raises (A.13)."""
+    from karpenter_core_tpu_torch.parallel import mesh as pmesh
+
+    assert _port_scheduler(devices=2).devices == 1
+    monkeypatch.setattr(pmesh, "_available", lambda device: 8)
     with pytest.raises(NotImplementedError, match="A.13"):
         _port_scheduler(devices=2)
 

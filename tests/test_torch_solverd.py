@@ -734,7 +734,13 @@ def test_supervisor_spawn_argv_carries_mode_kernel_and_device():
     assert not {"--solver-mode", "--kernel", "--device"} & set(plain)
 
 
-def test_daemon_refuses_other_device_counts_and_kernels():
+def test_daemon_refuses_other_device_counts_and_kernels(monkeypatch):
+    from karpenter_core_tpu_torch.parallel import mesh as pmesh
+
+    # devices=2 clamps to the CPU's one device, as in the JAX package; a
+    # count that resolves above 1 is refused (A.13)
+    assert pdaemon(devices=2).devices == 2
+    monkeypatch.setattr(pmesh, "_available", lambda device: 8)
     with pytest.raises(NotImplementedError, match="A.13"):
         pdaemon(devices=2)
     with pytest.raises(ValueError, match="unknown kernel"):
