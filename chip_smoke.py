@@ -39,7 +39,7 @@ on failure:
    requests' solo scans one after another, and the plain batched scan,
    and splits a step by stage from the stamps;
 6. batched main path: ``solve_batch`` over the 11 tenants, one cold round,
-   three warm and a warm one with the garbage collector off, with the
+   two warm and a warm one with the garbage collector off, with the
    plain step made to raise. Every tenant's node count must be the JAX
    package's (``FLEET_EXPECTED_NODES``) and its result the same as the
    tenant solved alone through the kernel and through the plain version;
@@ -87,7 +87,7 @@ on failure:
    evicting tier-0 victims, 375 gangs of 8, the rest plain; 80 existing
    nodes with four victims each; ``cpu_grid=[1, 2, 4]``, 4096 slots) plus
    16 gangs of 8 whose 4 members of 6 cpu cannot place, so every solve
-   rolls a gang back. One cold and three warm solves through
+   rolls a gang back. One cold and two warm solves through
    ``DeviceScheduler(device="cuda")`` with the plain step made to raise:
    each must give the JAX package's node count, evicted-uid set, gangs
    placed, unschedulable count and result digest (``GANGS_EXPECTED``,
@@ -174,6 +174,31 @@ on failure:
    solves, every pod bound, launches only in the daemons' threads; the
    three traces and ledgers byte-identical. Then the elastic scenario
    once: 0 violations, the tier grows and shrinks on the one card.
+14. multi-device solves and the spawned fleet: (a) ``DeviceScheduler(
+   devices=0)`` and ``devices=8`` resolve to the one card and solve
+   plain_5k_400 with the wire of devices=1; (b) the config-4 sweep through
+   ``frontier_core`` on virtual meshes of 2, 3 and 4 shards over the card
+   (``parallel/mesh.force_virtual_mesh``; 3 shards pad the 100 prefixes
+   to 102): the frontier ``SWEEP_EXPECTED`` and the one-device one, one
+   launch a shard over the padded prefixes, each shard's rows bit-equal
+   to the single launch over the same stack on the full grid and on 2
+   blocks, one shard to the plain batched scan; each shard's scan time,
+   stacked bytes and bound, and the sweep's wall at 1-4 shards (shards
+   that share one card, not a multi-GPU time); (c) the fleet batch
+   through ``solve_batch`` at devices 1, 2 and 4: ``FLEET_EXPECTED_NODES``
+   and the one-device result for every tenant, one launch a shard of each
+   batched dispatch, the largest stack's shards each bit-equal to its
+   single launch and the last to the plain batched scan; plain_50k_800 at devices=4 and plain_5k_400 at
+   devices=3 (slot width padded to 2049, held bit-equal to the plain
+   scan) with the wire and slot stats of devices=1; (d) the operator with
+   ``solver_fleet=2`` spawns two solverd members on the card and
+   provisions phase 8's pods to ``OPERATOR_EXPECTED``; the fleet's 11
+   tenants through its ``FleetRouter`` at once, each the JAX package's
+   node count, both members launching the kernel (their ``/healthz``);
+   ``FleetSupervisor.add_member`` spawns a third that answers plain_5k_400
+   as the in-process solve, and ``retire_member`` drains it with the drain
+   exit code. Spawn-to-ready times, members' device memory and the RPC
+   against the in-process wall are printed; every member stops.
 
 It prints a sha256 digest of the sources it runs (``source_digest``), a
 ``{"kernels": [...]}`` line, the card's name and power limit from
@@ -824,7 +849,7 @@ def main_path_phase():
                     f"{name}: {res.node_count()} nodes, expected"
                     f" {EXPECTED_NODES[name]}")
         with plain_forbidden():
-            idle = _idle_share(lambda: sched.solve(make()))
+            idle = _idle_share(lambda: sched.solve(make()), cpu=False)
         if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
             raise AssertionError(f"{name}: the verifier rejected a result")
         ref = scheduler(n_types, max_slots, "reference").solve(make())
@@ -1120,7 +1145,7 @@ def _split(log, before):
 
 def batched_main_path_phase():
     """``solve_batch`` over the fleet's 11 tenants on the card: one cold,
-    three warm rounds and a warm round with the garbage collector off, held
+    two warm rounds and a warm round with the garbage collector off, held
     to the JAX package's node counts and to each tenant solved alone
     through the kernel and through the plain version, with every launch and
     problem row accounted for and no solo retry; then the last round's
@@ -1137,8 +1162,8 @@ def batched_main_path_phase():
     rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
     with dispatch_spy() as log:
         # the tenants solved alone, one after another, through the kernel:
-        # a cold pass and a warm one before the batched rounds, two warm
-        # passes after them
+        # a cold pass and a warm one before the batched rounds, a warm pass
+        # after them
         alone = {n: fleet_scheduler(n) for n in tenants}
         expected = {}
 
@@ -1176,20 +1201,20 @@ def batched_main_path_phase():
         outcomes = res = pods = None
         cuda_ffd.counter.reset()
         with plain_forbidden():
-            # one cold round, three warm, and a warm round with the garbage
+            # one cold round, two warm, and a warm round with the garbage
             # collector off, whose batched scans are kept for the check below
-            for rnd in range(5):
+            for rnd in range(4):
                 t1 = time.perf_counter()
                 outcomes = res = pods = None  # the last round's, freed here
                 freed_s = time.perf_counter() - t1
                 pods = [make() for make, _k in tenants.values()]
                 gc.collect()
-                log["capture"] = rnd == 4
+                log["capture"] = rnd == 3
                 before = {k: (list(v) if isinstance(v, list) else v)
                           for k, v in log.items()}
                 launches0, rows0 = (dict(cuda_ffd.counter.launches),
                                     cuda_ffd.counter.rows)
-                if rnd == 4:
+                if rnd == 3:
                     gc.disable()
                 try:
                     t0 = time.perf_counter()
@@ -1254,12 +1279,12 @@ def batched_main_path_phase():
                     # the wall outside the generators, dispatches and keys
                     loop_s=(wall - split["gen_s"] - split["dispatch_s"]
                             - split["key_s"]),
-                    freed_s=freed_s, gc_off=rnd == 4,
+                    freed_s=freed_s, gc_off=rnd == 3,
                     slots={n: s.last_phase_stats["slots"]
                            for n, s in zip(tenants, scheds)},
                 ))
                 kind = ("cold" if rnd == 0 else
-                        "warm, garbage collector off" if rnd == 4 else "warm")
+                        "warm, garbage collector off" if rnd == 3 else "warm")
                 print(f"solve_batch round {rnd} ({kind}): {wall:.3f} s,"
                       f" {total_pods / wall:.0f} pods/s; scans (rows, steps)"
                       f" {scans}; stats {json.dumps(stats)}; launches"
@@ -1274,7 +1299,7 @@ def batched_main_path_phase():
         launches = dict(cuda_ffd.counter.launches)
         rows_served = cuda_ffd.counter.rows
         outcomes = res = pods = None
-        seq += [one_by_one() for _ in range(2)]
+        seq.append(one_by_one())
 
     # the batched kernel against its plain version at the warm rounds'
     # slot widths, on the inputs the last round's batched scans were given
@@ -1303,15 +1328,16 @@ def batched_main_path_phase():
 
     with plain_forbidden():
         pods = [make() for make, _k in tenants.values()]
-        idle = _idle_share(lambda: solve_batch(list(zip(scheds, pods))))
-    warm = [r["wall_s"] for r in rounds[1:4]]
-    seq_warm = [s["wall_s"] for s in seq[1:]]  # 1 pass before, 2 after
+        idle = _idle_share(lambda: solve_batch(list(zip(scheds, pods))),
+                           cpu=False)
+    warm = [r["wall_s"] for r in rounds[1:3]]
+    seq_warm = [s["wall_s"] for s in seq[1:]]  # 1 pass before, 1 after
     out = dict(
         tenants=list(tenants), pods=total_pods,
         nodes=dict(FLEET_EXPECTED_NODES), rounds=rounds,
         cold_s=rounds[0]["wall_s"], warm_s=warm,
         warm_p50_s=statistics.median(warm),
-        gc_off_s=rounds[4]["wall_s"],
+        gc_off_s=rounds[3]["wall_s"],
         one_by_one=seq, one_by_one_cold_s=seq[0]["wall_s"],
         one_by_one_warm_s=seq_warm,
         one_by_one_warm_p50_s=statistics.median(seq_warm),
@@ -1474,7 +1500,7 @@ def sweep_phase():
                                  f" {run_length(frontier or [])} != the JAX"
                                  f" package's {SWEEP_EXPECTED}")
     with plain_forbidden():
-        idle = _idle_share(sweep)
+        idle = _idle_share(sweep, cpu=False)
 
     # the sweep's stacked scan, held to the plain batched scan
     sched, prep, classes, kind_batch, count_batch = cons.sweep_problem(
@@ -2157,14 +2183,15 @@ def topo_problem(pool="default"):
 
 
 def gang_scheduler(problem, kernel_backend="cuda", device="cuda",
-                   max_slots=None):
+                   max_slots=None, devices=1):
     from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
 
     max_slots = GANG_SLOTS if max_slots is None else max_slots
     pool, catalog, existing, _pods = problem
     return DeviceScheduler(
         [pool], {pool.name: list(catalog)}, existing_nodes=existing,
-        max_slots=max_slots, device=device, kernel_backend=kernel_backend,
+        max_slots=max_slots, devices=devices, device=device,
+        kernel_backend=kernel_backend,
     )
 
 
@@ -2256,7 +2283,7 @@ def gang_spy():
     saved = dict(
         launch=cuda_ffd._launch_batched,
         gang=cuda_ffd.cuda_gang_solve,
-        gang_b=cuda_ffd.cuda_gang_solve_batched,
+        gang_s=cuda_ffd.cuda_gang_solve_sharded,
         failed=gangsched._step_failed,
         pre=gangsched.preempt_pass,
         pre_b=gangsched.preempt_pass_batched,
@@ -2280,7 +2307,7 @@ def gang_spy():
 
     cuda_ffd._launch_batched = timed("scan", saved["launch"])
     cuda_ffd.cuda_gang_solve = timed("gang", saved["gang"])
-    cuda_ffd.cuda_gang_solve_batched = timed("gang", saved["gang_b"])
+    cuda_ffd.cuda_gang_solve_sharded = timed("gang", saved["gang_s"])
     gangsched._step_failed = failed
     gangsched.preempt_pass = timed("preempt", saved["pre"])
     gangsched.preempt_pass_batched = timed("preempt", saved["pre_b"])
@@ -2293,7 +2320,7 @@ def gang_spy():
             setattr(gangs, n, fn)
         cuda_ffd._launch_batched = saved["launch"]
         cuda_ffd.cuda_gang_solve = saved["gang"]
-        cuda_ffd.cuda_gang_solve_batched = saved["gang_b"]
+        cuda_ffd.cuda_gang_solve_sharded = saved["gang_s"]
         gangsched._step_failed = saved["failed"]
         gangsched.preempt_pass = saved["pre"]
         gangsched.preempt_pass_batched = saved["pre_b"]
@@ -2360,7 +2387,7 @@ def gangs_phase():
         raise AssertionError(f"gangs (reference backend): {ref} !="
                              f" {GANGS_EXPECTED}")
     times, stats, launches, rows = [], [], 0, 0
-    for rep in range(4):  # one cold solve, three warm
+    for rep in range(3):  # one cold solve, two warm
         cuda_ffd.counter.reset()
         with plain_forbidden():
             t0 = time.perf_counter()
@@ -2394,7 +2421,7 @@ def gangs_phase():
     if spied != GANGS_EXPECTED:
         raise AssertionError(f"gangs (timed apart): {spied}")
     with plain_forbidden():
-        idle = _idle_share(lambda: sched.solve(pods))
+        idle = _idle_share(lambda: sched.solve(pods), cpu=False)
     if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
         raise AssertionError("gangs: the verifier rejected a result")
 
@@ -3742,10 +3769,17 @@ def twin_phase():
               f" {bound} pods bound; {n} launches, all in the daemons'"
               f" threads; {wall:.3f} s", flush=True)
     first = (runs[0][0].trace_json(), runs[0][0].ledger_json())
-    for res, _, _ in runs[1:]:
+    for k, (res, _, _) in enumerate(runs[1:], 1):
         if (res.trace_json(), res.ledger_json()) != first:
-            raise AssertionError("twin storm: the runs' traces or ledgers"
-                                 " differ")
+            at = next((i for i, (a, b) in enumerate(
+                zip(runs[0][0].trace, res.trace)) if a != b),
+                min(len(runs[0][0].trace), len(res.trace)))
+            raise AssertionError(
+                f"twin storm: run {k}'s trace or ledger differs from run"
+                f" 0's (walls {[round(w, 3) for _, w, _ in runs]} s); first"
+                f" differing trace entry {at}:"
+                f" {runs[0][0].trace[at:at + 1]} vs {res.trace[at:at + 1]};"
+                f" ledgers equal {res.ledger_json() == first[1]}")
     cuda_ffd.counter.reset()
     with plain_forbidden(), fresh_counters(m):
         t0 = time.perf_counter()
@@ -3771,6 +3805,707 @@ def twin_phase():
           f" {el_s:.3f} s", flush=True)
     out["launches"] = (out["http"]["launches"] + out["macro"]["launches"]
                        + sum(out["storm"]["launches"][:2]) + el_launches)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# multi-device solves and the spawned fleet (phase 14)
+
+# the virtual meshes of the sweep and of the batched solves: shards that
+# share the one card, one after another on its stream
+SWEEP_SHARDS = (2, 3, 4)
+BATCH_SHARDS = (2, 4)
+
+
+@contextlib.contextmanager
+def virtual_mesh(n, kind="cuda"):
+    """``n`` devices of ``kind`` laid over its physical ones for the length
+    of the block (``parallel/mesh.force_virtual_mesh``); 1 is the physical
+    count."""
+    from karpenter_core_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.force_virtual_mesh(n if n > 1 else 0, kind)
+    try:
+        yield
+    finally:
+        pmesh.force_virtual_mesh(0, kind)
+
+
+def mesh_scheduler(name, devices, kernel_backend="cuda", pool="default"):
+    """A scheduler over one of ``problems()`` at ``devices``."""
+    from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
+    from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
+
+    _make, n_types, max_slots = problems()[name]
+    pool = _pool(pool)
+    return DeviceScheduler(
+        [pool], {pool.name: list(bench_catalog(n_types))},
+        max_slots=max_slots, devices=devices, device="cuda",
+        kernel_backend=kernel_backend)
+
+
+def _solve_wire(sched, make):
+    """(result, wire without timing, wall s, launches, rows) of one solve
+    of ``make()``'s pods through the kernel, with the plain step made to
+    raise; the name and uid counters start from 1, so equal problems give
+    equal wires."""
+    import torch
+
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+    from karpenter_core_tpu_torch.solver import codec
+
+    reset_name_counters()
+    pods = make()
+    cuda_ffd.counter.reset()
+    with plain_forbidden():
+        t0 = time.perf_counter()
+        res = sched.solve(pods)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return (res, _wire_view(codec.encode_solve_results(res, 0.0)), wall,
+            cuda_ffd.counter.total(), cuda_ffd.counter.rows)
+
+
+def mesh_device_counts():
+    """14a: devices=0 and devices=8 resolve to the one card and solve
+    plain_5k_400 with the wire of devices=1."""
+    make = problems()["plain_5k_400"][0]
+    out = {}
+    for devices in (1, 0, 8):
+        sched = mesh_scheduler("plain_5k_400", devices)
+        res, wire, wall, launches, rows = _solve_wire(sched, make)
+        st = sched.last_phase_stats
+        out[devices] = wire
+        if (sched.devices != 1 or st["n_devices"] != 1
+                or res.node_count() != EXPECTED_NODES["plain_5k_400"]
+                or res.pod_errors or launches != st["rounds"]
+                or rows != st["rounds"] or wire != out[1]):
+            raise AssertionError(
+                f"devices={devices}: resolved to {sched.devices},"
+                f" n_devices {st['n_devices']}, {res.node_count()} nodes,"
+                f" {launches} launches over {rows} rows for {st['rounds']}"
+                f" scans, wire equal {wire == out[1]}")
+        print(f"mesh [devices={devices}, one H100]: resolves to 1 device,"
+              f" {res.node_count()} nodes, the wire of devices=1; cold"
+              f" {wall:.3f} s", flush=True)
+    return dict(resolved={str(d): 1 for d in out})
+
+
+def mesh_sweep():
+    """14b: the config-4 sweep through ``frontier_core`` on virtual meshes
+    of 2, 3 and 4 shards over the card: the frontier, one launch a shard
+    over the padded prefixes, each shard's rows bit-equal to the single
+    launch over the same stack (full grid and 2 blocks), one shard to the
+    plain batched scan; the shards' scans, walls and bytes."""
+    import torch
+
+    from karpenter_core_tpu_torch.models import consolidation as cons
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+    from karpenter_core_tpu_torch.parallel import mesh as pmesh
+
+    inputs = sweep_inputs()
+    P = len(inputs["candidate_pods"])
+    walls, frontiers, launches, held = {}, {}, 0, None
+    for n in (1,) + SWEEP_SHARDS:
+        Pp = pmesh.pad_to_devices(P, n)
+        runs = []
+        with virtual_mesh(n):
+            for rep in range(3):  # one cold, two warm
+                cuda_ffd.counter.reset()
+                with plain_forbidden():
+                    t0 = time.perf_counter()
+                    frontier = cons.frontier_core(
+                        **inputs, max_slots=SWEEP_SLOTS, devices=n,
+                        device="cuda", kernel_backend="cuda")
+                    torch.cuda.synchronize()
+                    runs.append(time.perf_counter() - t0)
+                if (cuda_ffd.counter.launches
+                        != dict.fromkeys(cuda_ffd.KERNELS, n)
+                        or cuda_ffd.counter.rows != Pp):
+                    raise AssertionError(
+                        f"sweep on {n} shards: {cuda_ffd.counter.launches}"
+                        f" over {cuda_ffd.counter.rows} rows, expected {n}"
+                        f" launches over {Pp}")
+                if n > 1:
+                    launches += n
+                if frontier is None or not frontier_equal(frontier,
+                                                          SWEEP_EXPECTED):
+                    raise AssertionError(
+                        f"sweep on {n} shards: frontier"
+                        f" {run_length(frontier or [])} != the JAX"
+                        f" package's {SWEEP_EXPECTED}")
+        frontiers[n], walls[n] = frontier, runs
+        if frontier != frontiers[1]:
+            raise AssertionError(f"sweep on {n} shards: frontier != the"
+                                 " one-device frontier")
+
+    sched, prep, classes, kind_batch, count_batch = cons.sweep_problem(
+        **inputs, max_slots=SWEEP_SLOTS, device="cuda")
+    rows = {}
+    for n in SWEEP_SHARDS:
+        stack = cons.prefix_stack(prep.init_state, classes, prep.statics,
+                                  pmesh.pad_rows(kind_batch, n),
+                                  pmesh.pad_rows(count_batch, n))
+        shards, last = hold_shards(stack, n, plain=n == SWEEP_SHARDS[-1])
+        rows[n] = dict(
+            padded_prefixes=int(stack[0].kind.shape[0]), shards=shards,
+            sweep_cold_s=walls[n][0], sweep_warm_s=walls[n][1:],
+            sweep_bound_ms=sum(r["bound_ms"] for r in shards))
+        held = last or held
+        print(f"mesh sweep [config 4, {n} shards sharing one H100, not a"
+              f" multi-GPU time]: frontier equals the JAX package's and the"
+              f" one-device frontier; {n} launches over"
+              f" {rows[n]['padded_prefixes']} prefixes a sweep; each shard's"
+              f" rows bit-equal to the single launch (full grid and 2"
+              f" blocks); shard scans"
+              f" {json.dumps([round(r['ms'], 3) for r in shards])} ms,"
+              f" stacked bytes {[r['stacked_bytes'] for r in shards]},"
+              f" shard bounds"
+              f" {json.dumps([round(r['bound_ms'], 4) for r in shards])}"
+              f" ms; frontier_core cold {walls[n][0]:.3f} s, warm"
+              f" {json.dumps(walls[n][1:])} s (1 device: cold"
+              f" {walls[1][0]:.3f} s, warm {json.dumps(walls[1][1:])} s)",
+              flush=True)
+    return dict(meshes={str(n): r for n, r in rows.items()},
+                one_device_s=walls[1], held=held, launches=launches)
+
+
+def hold_shards(stack, n, plain=False):
+    """A stacked scan's rows on ``n`` shards of the card, as a mesh splits
+    them: each shard's launch on the full grid (timed, on a copy of its
+    state made outside the window) and on 2 blocks bit-equal to the same
+    rows of the single launch over the whole stack; with ``plain`` the
+    last shard also to the plain batched scan. Returns (a row a shard, the
+    last shard's row with its plain time, or None)."""
+    from karpenter_core_tpu_torch.ops import cuda_ffd, ffd
+    from karpenter_core_tpu_torch.ops.ffd import LEVEL_ITERS
+    from karpenter_core_tpu_torch.parallel import mesh as pmesh
+
+    li = LEVEL_ITERS
+    single = _planes(*cuda_ffd.cuda_ffd_solve_batched(
+        _copy(stack[0]), stack[1], stack[2], li))
+    rows = []
+    with virtual_mesh(n):
+        mesh = pmesh.slot_mesh(n, stack[0].kind.device)
+        for k, (lo, hi, dev) in enumerate(
+                pmesh.row_shards(int(stack[0].kind.shape[0]), mesh)):
+            shard = pmesh.split_rows(stack, lo, hi, dev)
+            two = _planes(*cuda_ffd.cuda_ffd_solve_batched(
+                _copy(shard[0]), shard[1], shard[2], li, _max_blocks=2))
+            st = _copy(shard[0])
+            out, ms = _time_once(lambda: cuda_ffd.cuda_ffd_solve_batched(
+                st, shard[1], shard[2], li))
+            kp = _planes(*out)
+            for what, got in (("full grid", kp), ("2 blocks", two)):
+                bad = {key: c for key in got if (c := _unequal(
+                    got[key], single[key][lo:hi].to(dev)))}
+                if bad:
+                    raise AssertionError(
+                        f"{n} shards, shard {k} ({what}): rows {lo}..{hi - 1}"
+                        f" != the single launch on {bad}")
+            bound_ms, bound_by = _bound_ms(_batched_terms(*shard, *out))
+            rows.append(dict(shard=k, device=str(dev), rows=[lo, hi], ms=ms,
+                             stacked_bytes=_tree_bytes(*shard),
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             blocks=cuda_ffd.counter.blocks))
+    if not plain:
+        return rows, None
+    p_out, plain_ms = _time_once(lambda: ffd.ffd_solve_batched(*shard, li))
+    pp = _planes(*p_out)
+    bad = {key: c for key in pp if (c := _unequal(kp[key], pp[key]))}
+    if bad:
+        raise AssertionError(f"{n} shards, shard {k}: kernel != plain on"
+                             f" {bad}")
+    last = dict(rows[-1], shards=n, plain_ms=plain_ms,
+                max_abs_err=max(_max_abs_err(kp[key], pp[key]) for key in kp),
+                ms_per_step=rows[-1]["ms"] / int(stack[1].count.shape[1]))
+    print(f"mesh: shard {k} of {n} (rows {lo}..{hi - 1}) equal to the plain"
+          f" batched scan; {last['ms']:.3f} ms vs plain {plain_ms:.1f} ms",
+          flush=True)
+    return rows, last
+
+
+def mesh_batch():
+    """14c: the fleet batch through ``solve_batch`` at devices=1, 2 and 4
+    (virtual meshes over the card): every tenant's node count the JAX
+    package's and its result the one-device result, one launch a shard of
+    each batched dispatch; then plain_50k_800 at devices=4 and
+    plain_5k_400 at devices=3 (its slot width padded to 2049) with the
+    wire of devices=1, and the padded request held bit-equal to the plain
+    scan."""
+    import torch
+
+    from karpenter_core_tpu_torch.models import provisioner as tprov
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+    from karpenter_core_tpu_torch.parallel import mesh as pmesh
+
+    tenants = fleet()
+    canon, out = {}, {}
+    split = tprov._shards
+    shards_log, stacks = [], []
+
+    def logged(mesh, n_rows, trees):
+        got = split(mesh, n_rows, trees)
+        shards_log.append((n_rows, len(got)))
+        # the largest stack on the largest mesh, before its scans (they
+        # write the stacked state in place), held below
+        if not stacks or n_rows >= stacks[0][0]:
+            stacks[:] = [(n_rows, mesh.size,
+                          (_copy(trees[0]), *trees[1:3]))]
+        return got
+
+    tprov._shards = logged
+    try:
+        for devices in (1,) + BATCH_SHARDS:
+            with virtual_mesh(devices):
+                # the fleet's widths: bench_catalog(400), 2048 slots
+                scheds = [mesh_scheduler("plain_5k_400", devices, pool=n)
+                          for n in tenants]
+                pods = [make() for make, _k in tenants.values()]
+                del shards_log[:]
+                cuda_ffd.counter.reset()
+                with plain_forbidden():
+                    t0 = time.perf_counter()
+                    outcomes, stats = tprov.solve_batch(
+                        list(zip(scheds, pods)))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            solo = stats["dispatches"] - stats["batched_dispatches"]
+            if devices == 1:
+                want_launches = stats["dispatches"]
+                want_rows = stats["padded_total_rows"] + solo
+            else:
+                want_launches = sum(k for _n, k in shards_log) + solo
+                want_rows = sum(n for n, _k in shards_log) + solo
+                if (len(shards_log) != stats["batched_dispatches"]
+                        or any(k != min(devices, n)
+                               for n, k in shards_log)):
+                    raise AssertionError(f"devices={devices}: shards"
+                                         f" {shards_log} for {stats}")
+            if (cuda_ffd.counter.total() != want_launches
+                    or cuda_ffd.counter.rows != want_rows):
+                raise AssertionError(
+                    f"devices={devices}: {cuda_ffd.counter.total()} launches"
+                    f" over {cuda_ffd.counter.rows} rows, expected"
+                    f" {want_launches} over {want_rows} ({stats})")
+            for (name, _), (status, res), sched in zip(tenants.items(),
+                                                       outcomes, scheds):
+                if status != "ok" or res.pod_errors:
+                    raise AssertionError(f"devices={devices} {name}:"
+                                         f" {status} {res}")
+                if res.node_count() != FLEET_EXPECTED_NODES[name]:
+                    raise AssertionError(
+                        f"devices={devices} {name}: {res.node_count()}"
+                        f" nodes, the JAX package's"
+                        f" {FLEET_EXPECTED_NODES[name]}")
+                if canon.setdefault(name, _canonical(res)) != _canonical(
+                        res):
+                    raise AssertionError(f"devices={devices} {name}: != the"
+                                         " one-device result")
+                if sched.last_phase_stats["n_devices"] != devices:
+                    raise AssertionError(f"devices={devices} {name}:"
+                                         " n_devices"
+                                         f" {sched.last_phase_stats}")
+            out[devices] = dict(wall_s=wall, stats=stats,
+                                launches=cuda_ffd.counter.total(),
+                                rows=cuda_ffd.counter.rows,
+                                shards=list(shards_log))
+            print(f"mesh batch [{len(tenants)} tenants, devices={devices}"
+                  f"{' shards sharing one H100' if devices > 1 else ''}]:"
+                  f" every tenant's node count the JAX package's and its"
+                  f" one-device result; {cuda_ffd.counter.total()} launches"
+                  f" over {cuda_ffd.counter.rows} rows (batched dispatches"
+                  f" as (rows, shards) {shards_log}); cold round"
+                  f" {wall:.3f} s", flush=True)
+    finally:
+        tprov._shards = split
+    n_rows, n, stack = stacks[0]
+    shards, held = hold_shards(stack, n, plain=True)
+    held["all_shards"] = shards
+    print(f"mesh batch: the {n_rows}-row stack on {n} shards sharing one"
+          f" H100: each shard's rows bit-equal to the single launch (full"
+          f" grid and 2 blocks); shard scans"
+          f" {json.dumps([round(r['ms'], 3) for r in shards])} ms, bounds"
+          f" {json.dumps([round(r['bound_ms'], 4) for r in shards])} ms",
+          flush=True)
+
+    solo = {}
+    for name, devices in (("plain_50k_800", 4), ("plain_5k_400", 3)):
+        make = problems()[name][0]
+        one = mesh_scheduler(name, 1)
+        r1, w1, wall1, _l, _r = _solve_wire(one, make)
+        with virtual_mesh(devices):
+            sched = mesh_scheduler(name, devices)
+            req = first_request(sched, make())
+            width = int(req.init_state.kind.shape[0])
+            if width != pmesh.pad_to_devices(one.max_slots, devices):
+                raise AssertionError(f"{name} devices={devices}: slot width"
+                                     f" {width}")
+            err = plain_ms = None
+            if width != one.max_slots:  # the kernel on the padded width
+                err, plain_ms = hold_bit_equal(
+                    req, f"{name} devices={devices}")
+            res, wire, wall, launches, rows = _solve_wire(sched, make)
+        st, st1 = sched.last_phase_stats, one.last_phase_stats
+        if (wire != w1 or res.node_count() != EXPECTED_NODES[name]
+                or st["n_devices"] != devices
+                or any(st[k] != st1[k] for k in ("slots", "rounds",
+                                                  "used_slots"))
+                or launches != st["rounds"] or rows != st["rounds"]):
+            raise AssertionError(
+                f"{name} devices={devices}: {res.node_count()} nodes, wire"
+                f" equal {wire == w1}, stats {st} vs {st1}, {launches}"
+                f" launches")
+        solo[name] = dict(devices=devices, width=width, nodes=res.node_count(),
+                          slots=st["slots"], cold_s=wall,
+                          one_device_cold_s=wall1, plain_ms=plain_ms,
+                          max_abs_err=err)
+        print(f"mesh solve [{name}, devices={devices} shards sharing one"
+              f" H100]: n_devices {devices}, {res.node_count()} nodes, the"
+              f" wire of devices=1, slots {st['slots']} (the request's slot"
+              f" width {width}"
+              f"{', kernel bit-equal to the plain scan on it' if err is not None else ''});"
+              f" cold {wall:.3f} s vs {wall1:.3f} s on one device",
+              flush=True)
+    return dict(batch={str(d): r for d, r in out.items()}, solo=solo,
+                held=held,
+                launches=sum(r["launches"] for d, r in out.items()
+                             if d > 1))
+
+
+def mesh_gangs():
+    """14c: phase 9's four gang tenants through ``solve_batch`` at
+    devices=1, 2 and 4 (virtual meshes over the card): each tenant's node
+    count GANG_TENANTS_EXPECTED's and its summary the one-device one; the
+    batched gang dispatch through ``cuda_gang_solve_sharded``, one shard a
+    device, every shard's first scan launched before the first rollback
+    scan and two launches a rolled-back shard (every tenant rolls back);
+    the last shard of 4 held to the plain gang solve
+    (``gangsched.gang_solve_batched``) on the same inputs: its first scan,
+    its rollback scan and its answer bit-equal."""
+    import torch
+
+    from karpenter_core_tpu_torch.models.provisioner import solve_batch
+    from karpenter_core_tpu_torch.ops import cuda_ffd, ffd, gangsched
+
+    tenants = {n: gangs_problem(GANG_TENANT_PODS, pool=n)
+               for n in GANG_TENANTS}
+    scan0, sharded0 = cuda_ffd._gang_scan, cuda_ffd.cuda_gang_solve_sharded
+    log = []  # a gang dispatch: [shards, answers, [(statics, planes)]]
+
+    def snap(out):
+        return {k: v.clone() for k, v in _planes(*out).items()
+                if v is not None}
+
+    def scan(state, steps, statics, li):
+        out = scan0(state, steps, statics, li)
+        log[-1][2].append((statics, snap(out)))
+        return out
+
+    def sharded(shards, level_iters=ffd.LEVEL_ITERS):
+        log.append([shards, None, []])
+        outs = sharded0(shards, level_iters)
+        log[-1][1] = [snap(o) for o in outs]
+        return outs
+
+    summaries, out, launches, held = {}, {}, 0, None
+    cuda_ffd._gang_scan, cuda_ffd.cuda_gang_solve_sharded = scan, sharded
+    try:
+        for devices in (1,) + BATCH_SHARDS:
+            with virtual_mesh(devices):
+                entries = [(gang_scheduler(p, devices=devices), p[3])
+                           for p in tenants.values()]
+                del log[:]
+                cuda_ffd.counter.reset()
+                with plain_forbidden():
+                    t0 = time.perf_counter()
+                    outcomes, stats = solve_batch(entries)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            for n, (status, res) in zip(tenants, outcomes):
+                if status != "ok":
+                    raise AssertionError(f"devices={devices} {n}: {status}"
+                                         f" {res!r}")
+                got = gang_summary(res, tenants[n][3])
+                if got["nodes"] != GANG_TENANTS_EXPECTED[n]:
+                    raise AssertionError(
+                        f"devices={devices} {n}: {got['nodes']} nodes, the"
+                        f" JAX package's {GANG_TENANTS_EXPECTED[n]}")
+                if summaries.setdefault(n, got) != got:
+                    raise AssertionError(f"devices={devices} {n}: {got} !="
+                                         f" the one-device {summaries[n]}")
+            if len(log) != 1:
+                raise AssertionError(f"devices={devices}: {len(log)} gang"
+                                     " dispatches, expected one")
+            shards, answers, scans = log[0]
+            firsts = [id(sh[2]) for sh in shards]
+            order = [id(statics) for statics, _p in scans]
+            rolled = [bool(gangsched._step_failed(
+                scans[k][1]["takes"], sh[3], sh[4]).any())
+                for k, sh in enumerate(shards)]
+            rows = sum(int(sh[3].shape[0]) for sh in shards)
+            if (len(shards) != devices or order[:devices] != firsts
+                    or order[devices:] != firsts or not all(rolled)
+                    or cuda_ffd.counter.total() != 2 * devices
+                    or cuda_ffd.counter.rows != 2 * rows
+                    or rows != len(tenants)):
+                raise AssertionError(
+                    f"devices={devices}: {len(shards)} shards, scans in the"
+                    f" order {[firsts.index(i) for i in order]}, rolled back"
+                    f" {rolled}, {cuda_ffd.counter.launches} launches over"
+                    f" {cuda_ffd.counter.rows} rows")
+            if devices > 1:
+                launches += cuda_ffd.counter.total()
+            out[devices] = dict(wall_s=wall, stats=stats,
+                                launches=cuda_ffd.counter.total(),
+                                rows=cuda_ffd.counter.rows,
+                                shards=len(shards))
+            print(f"mesh gangs [{len(tenants)} x {GANG_TENANT_PODS} pods,"
+                  f" devices={devices}"
+                  f"{' shards sharing one H100' if devices > 1 else ''}]:"
+                  " every tenant's node count the JAX package's and its"
+                  " summary the one-device one; one gang dispatch on"
+                  f" {len(shards)} shards, every first scan launched before"
+                  f" the first rollback scan, {cuda_ffd.counter.total()}"
+                  f" launches over {cuda_ffd.counter.rows} rows; cold round"
+                  f" {wall:.3f} s", flush=True)
+    finally:
+        cuda_ffd._gang_scan, cuda_ffd.cuda_gang_solve_sharded = scan0, sharded0
+
+    # the last shard of the largest mesh against the plain gang solve
+    shard, k = shards[-1], len(shards) - 1
+    kscans = [p for statics, p in scans if statics is shard[2]]
+    pscans = []
+    plain_scan = gangsched.ffd_solve_batched
+
+    def recorded(state, steps, statics, li):
+        o = plain_scan(state, steps, statics, li)
+        pscans.append(snap(o))
+        return o
+
+    li = ffd.LEVEL_ITERS
+    gangsched.ffd_solve_batched = recorded
+    try:
+        p_out, plain_ms = _time_once(
+            lambda: gangsched.gang_solve_batched(*shard, level_iters=li))
+    finally:
+        gangsched.ffd_solve_batched = plain_scan
+    _o, ms = _time_once(lambda: sharded0([shard], li))
+    pairs = [("first scan", kscans[0], pscans[0]),
+             ("rollback scan", kscans[1], pscans[1]),
+             ("answer", answers[k], snap(p_out))]
+    if len(kscans) != 2 or len(pscans) != 2:
+        raise AssertionError(f"gang shard {k}: {len(kscans)} kernel scans,"
+                             f" {len(pscans)} plain scans")
+    for what, kp, pp in pairs:
+        bad = {key: c for key in pp if (c := _unequal(kp[key], pp[key]))}
+        if bad or kp.keys() != pp.keys():
+            raise AssertionError(f"gang shard {k} of {len(shards)} ({what}):"
+                                 f" kernel != plain on {bad}")
+    err = max(_max_abs_err(kp[key], pp[key])
+              for _w, kp, pp in pairs for key in pp)
+    held = dict(shard=k, shards=len(shards), rows=int(shard[3].shape[0]),
+                gang_dispatch_ms=ms, plain_ms=plain_ms, max_abs_err=err)
+    print(f"mesh gangs: shard {k} of {len(shards)} held to the plain gang"
+          " solve on the same inputs: first scan, rollback scan and answer"
+          f" bit-equal; gang dispatch {ms:.3f} ms vs plain {plain_ms:.1f}"
+          " ms", flush=True)
+    return dict(batch={str(d): r for d, r in out.items()}, held=held,
+                launches=launches)
+
+
+def _member_health(addr, timeout=120.0):
+    """A solverd member's /healthz body, once it reports ok."""
+    from urllib.request import urlopen
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with urlopen(f"http://{addr}/healthz", timeout=5) as r:
+                body = json.loads(r.read())
+                if body.get("ok"):
+                    return body
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"member {addr}: not ready in {timeout} s")
+        time.sleep(0.05)
+
+
+def _member_memory(pids):
+    """(pid -> device memory MiB from nvidia-smi's compute apps, None where
+    it lists no such pid (a container's pids may not be the driver's);
+    the card's memory in use, MiB)."""
+    def smi(query):
+        return subprocess.run(
+            ["nvidia-smi", query, "--format=csv,noheader,nounits"],
+            capture_output=True, text=True).stdout.splitlines()
+
+    used = {}
+    for line in smi("--query-compute-apps=pid,used_memory"):
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            used[int(parts[0])] = int(parts[1])
+    card = int(smi("--query-gpu=memory.used")[0].strip())
+    return {pid: used.get(pid) for pid in pids}, card
+
+
+def mesh_fleet():
+    """14d: the operator's spawned fleet of two solverd members on the card
+    provisions phase 8's pods; the fleet batch's 11 tenants through its
+    FleetRouter at once, both members launching the kernel; a third member
+    added (the autoscaler's scale-up) answers plain_5k_400 as the
+    in-process solve and is retired through the drain path."""
+    import threading
+
+    from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
+    from karpenter_core_tpu_torch.metrics import wiring as m
+    from karpenter_core_tpu_torch.operator import Options
+    from karpenter_core_tpu_torch.solver import remote
+    from karpenter_core_tpu_torch.solver.supervisor import DRAIN_EXIT_CODE
+
+    ns = port_classes()
+    errors0 = dict(m.RECONCILE_ERRORS.values)
+    rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
+    failures0 = _rpc_failures()
+    card = {"before": _member_memory([])[1]}
+    reset_name_counters()
+    t0 = time.perf_counter()
+    op, run = provisioning_scenario(
+        ns, Options(solver="tpu", solver_mode="sidecar", solver_fleet=2))
+    build_s = time.perf_counter() - t0
+    sup = op.solver_supervisor
+    try:
+        if len(sup.members) != 2 or sup.alive_count() != 2:
+            raise AssertionError(f"fleet: {sup.alive_count()} live members")
+        # spawn to first seen ready: the members spawn one after another,
+        # so the first one's is an upper bound
+        ready_s = []
+        for mem in sup.members:
+            _member_health(mem.addr)
+            ready_s.append(mem.time_fn() - mem._last_spawn_at)
+        card["two_ready"] = _member_memory([])[1]
+        with operator_spy() as log:
+            t0 = time.perf_counter()
+            passes = run()
+            wall = time.perf_counter() - t0
+        check_operator_run(op, log, "fleet operator", errors0, rejected0, 0,
+                           launched=False)
+        if log["solves"]:
+            raise AssertionError("fleet operator: solved in process")
+        outcome = operator_outcome(op)
+        if not outcome[2] or list(outcome[:2]) != list(
+                OPERATOR_EXPECTED["provisioning"]):
+            raise AssertionError(f"fleet operator: {outcome}, the JAX"
+                                 " operator's"
+                                 f" {OPERATOR_EXPECTED['provisioning']}")
+        # the fleet batch's tenants through the operator's router at once
+        results, errors = {}, []
+
+        def one(name, make):
+            try:
+                pool = _pool(name)
+                rs = remote.RemoteScheduler(
+                    op.solver_client, [pool],
+                    {name: list(bench_catalog(FLEET_TYPES))},
+                    device_scheduler_opts=dict(max_slots=FLEET_SLOTS))
+                results[name] = rs.solve(make())
+            except Exception as e:  # reported below, on the main thread
+                errors.append((name, repr(e)))
+
+        threads = [threading.Thread(target=one, args=(n, mk))
+                   for n, (mk, _k) in fleet().items()]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        fleet_s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"fleet batch: {errors}")
+        got = {n: r.node_count() for n, r in results.items()}
+        if got != FLEET_EXPECTED_NODES:
+            raise AssertionError(f"fleet batch: {got} !="
+                                 f" {FLEET_EXPECTED_NODES}")
+        member_launches = [_member_health(mem.addr)["kernel_launches"]
+                           for mem in sup.members]
+        if min(member_launches) < 1:
+            raise AssertionError(f"fleet: member launches {member_launches}")
+        memory, card["after_batch"] = _member_memory(
+            [mem.proc.pid for mem in sup.members])
+        # the autoscaler's scale-up actuator: a third member
+        t0 = time.perf_counter()
+        i = sup.add_member()
+        third = sup.members[i]
+        _member_health(third.addr)
+        third_ready_s = time.perf_counter() - t0
+        make, n_types, max_slots = problems()["plain_5k_400"]
+        local, _w, local_s, _l, _r = _solve_wire(
+            mesh_scheduler("plain_5k_400", 1), make)
+        pool = _pool()
+        rs = remote.RemoteScheduler(
+            remote.SolverClient(third.addr, timeout=600), [pool],
+            {pool.name: list(bench_catalog(n_types))},
+            device_scheduler_opts=dict(max_slots=max_slots))
+        reset_name_counters()
+        pods = make()
+        t0 = time.perf_counter()
+        res = rs.solve(pods)
+        rpc_s = time.perf_counter() - t0
+        third_launches = _member_health(third.addr)["kernel_launches"]
+        if _canonical(res) != _canonical(local) or third_launches < 1:
+            raise AssertionError(f"third member: {res.node_count()} nodes"
+                                 f" vs {local.node_count()} in process,"
+                                 f" {third_launches} launches")
+        third_memory, card["three_after_solve"] = _member_memory(
+            [third.proc.pid])
+        memory.update(third_memory)
+        proc = third.proc
+        clean = sup.retire_member(i)
+        if not clean or proc.returncode != DRAIN_EXIT_CODE:
+            raise AssertionError(f"third member: retired clean={clean},"
+                                 f" exit {proc.returncode}")
+        if _rpc_failures() != failures0:
+            raise AssertionError(f"fleet: an RPC failed"
+                                 f" ({dict(m.SOLVER_RPC_FAILURES.values)})")
+        pids = [mem.proc.pid for mem in sup.members] + [proc.pid]
+    finally:
+        op.shutdown()
+    if sup.alive_count():
+        raise AssertionError("fleet: a member outlived shutdown")
+    row = dict(nodes=outcome[0], cpu=outcome[1], passes=passes, wall_s=wall,
+               build_s=build_s, ready_s=ready_s, third_ready_s=third_ready_s,
+               fleet_s=fleet_s, member_launches=member_launches,
+               third_launches=third_launches,
+               memory_mib={str(p): memory.get(p) for p in pids},
+               card_memory_mib=card,
+               rpc_s=rpc_s, inproc_s=local_s)
+    print(f"mesh fleet [2 spawned solverd members on one H100]: spawn to"
+          f" ready {json.dumps(ready_s)} s (the first an upper bound;"
+          f" operator build {build_s:.3f} s);"
+          f" provisioning {outcome[0]} nodes, {outcome[1]} cpu, every pod"
+          f" bound (the JAX operator's) in {wall:.3f} s; {len(results)} tenants"
+          f" through the FleetRouter at once in {fleet_s:.3f} s, each the JAX"
+          f" package's node count, member launches {member_launches};"
+          f" third member ready in {third_ready_s:.3f} s, plain_5k_400 over"
+          f" RPC {rpc_s:.3f} s vs in process {local_s:.3f} s, the same"
+          f" result, retired by drain (exit {DRAIN_EXIT_CODE}); device"
+          f" memory MiB by pid {json.dumps(row['memory_mib'])}, the card's"
+          f" in use {json.dumps(card)}; no"
+          f" reconcile error, no failed RPC, readyz true; every member"
+          " stopped", flush=True)
+    return row
+
+
+def mesh_phase():
+    """Phase 14: device counts on the card, the sweep and batched solves
+    on virtual meshes over it, and the spawned fleet."""
+    t0 = time.perf_counter()
+    out = dict(device_counts=mesh_device_counts(), sweep=mesh_sweep(),
+               batch=mesh_batch(), gangs=mesh_gangs(), fleet=mesh_fleet())
+    out["launches"] = sum(out[k]["launches"]
+                          for k in ("sweep", "batch", "gangs"))
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3851,6 +4586,11 @@ def main() -> int:
     twin = twin_phase()
     done(13)
     launches[cuda_ffd.KERNELS[0]] += twin["launches"]
+    # 14. multi-device solves on virtual meshes over the card, and the
+    # spawned fleet
+    mesh = mesh_phase()
+    done(14)
+    held = mesh["sweep"]["held"]
 
     k50 = krows[0]
     kp = next(r for r in brows if r["tenants"] == FLEET_GROUPS[0])
@@ -4000,6 +4740,28 @@ def main() -> int:
                          for p, h in relax["held"].items()},
         "relax_choose_dispatches": relax["relax_dispatches"],
         "cfg12": relax,
+    }, {
+        "name": "ffd_step_multi_device",
+        "route": "cuda",
+        "source": "karpenter_core_tpu_torch/csrc/ffd_step.cu",
+        "replaces": "karpenter_core_tpu/ops/pallas_ffd.py:135",
+        "replaces_route": "the multi-device route: the sweep's prefix axis"
+                          " split over a mesh (models/consolidation.py"
+                          " frontier_core :266-281, parallel/mesh.py"
+                          " batch_sharding) and batched problems split over"
+                          " it, here as shards of a virtual mesh that share"
+                          " one card (the timed shard: the last of 4)",
+        "launches": mesh["launches"],
+        "blocks": held["blocks"],
+        "max_abs_err": held["max_abs_err"],
+        "ms": held["ms"],
+        "plain_ms": held["plain_ms"],
+        "bound_ms": held["bound_ms"],
+        "bound_by": held["bound_by"],
+        "library_ms": None,
+        "unequal": 0,
+        "ms_per_step": held["ms_per_step"],
+        "phase14": mesh,
     }]}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -29,8 +29,9 @@ Pods with topology constraints take the host path (callers fall back to
 binary search when any candidate carries them). Behind the solverd
 sidecar (an operator with a ``solver_client``) the sweep crosses the RPC
 seam (solver/remote.remote_frontier) and the sidecar runs this module.
-A device count that resolves above 1 (the prefix axis sharded over
-several devices, ROADMAP A.13) raises ``NotImplementedError``.
+A device count that resolves above 1 splits the prefix axis over a mesh
+(``frontier_core``), as the JAX package does: each device scans its
+contiguous prefixes with no exchange between devices.
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ from karpenter_core_tpu_torch.ops.ffd import (
     SlotState,
     ffd_solve_batched,
 )
-from karpenter_core_tpu_torch.parallel.mesh import check_single_device
+from karpenter_core_tpu_torch.parallel import mesh as pmesh
 from karpenter_core_tpu_torch.solver.snapshot import _spec_signature
 from karpenter_core_tpu_torch.utils.device import DEFAULT_DEVICE
 
@@ -111,8 +112,9 @@ def _prefix_scan(state: SlotState, classes: ClassStep, statics: FFDStatics,
     N = final.kind.shape[1]
     idx = torch.arange(N, device=final.kind.device)
     fresh = (idx >= n_existing) & (idx < final.next_free[:, None])
-    inf = torch.tensor(float("inf"), dtype=it_price.dtype,
-                       device=it_price.device)
+    # a fill on the device, not a host copy: no host wait between the
+    # shards' launches
+    inf = it_price.new_full((), float("inf"))
     slot_price = torch.where(final.itmask, it_price, inf).amin(2)
     price_lb = torch.where(fresh, slot_price, torch.zeros_like(slot_price))
     return (final.next_free,
@@ -310,12 +312,18 @@ def frontier_core(
     device=DEFAULT_DEVICE,
     kernel_backend: str = "cuda",
 ) -> Optional[List[Tuple[bool, int, float]]]:
-    """The device sweep proper, over already-gathered inputs, on one
-    ``device`` through ``kernel_backend`` (``"cuda"``: the hand kernel,
-    one launch for all prefixes; ``"reference"``: its plain version)."""
-    # the count resolves as in the JAX package (0 = every device); the
-    # prefix axis sharded over several GPUs is ROADMAP A.13
-    check_single_device(devices, device, "prefix sweeps")
+    """The device sweep proper, over already-gathered inputs, through
+    ``kernel_backend`` (``"cuda"``: the hand kernel, one launch for all
+    prefixes; ``"reference"``: its plain version).
+
+    With ``devices`` resolving above 1 the INDEPENDENT prefix axis splits
+    over a mesh of ``device``'s kind, as in the JAX package: P pads to a
+    multiple of the mesh with copies of the last prefix, the read-only
+    state, class and static planes go to each device once, each device
+    scans its contiguous prefixes (one launch a shard, every shard launched
+    before any host read), and the verdicts come back in order on the lead
+    device, the pad rows sliced off."""
+    n_dev = pmesh.resolve_devices(devices, device)
     problem = sweep_problem(
         nodepools, instance_types, cand_nodes, keep_nodes, daemonset_pods,
         base_pods, candidate_pods, max_slots=max_slots, device=device,
@@ -329,14 +337,19 @@ def frontier_core(
         return []
     E = len(sched.existing_nodes)
     it_price = torch.as_tensor(_it_price_vector(prep), device=sched.device)
-    next_free, unplaced, overflow, price_lb = _prefix_scan(
-        prep.init_state, classes, prep.statics, kind_batch, count_batch,
-        it_price, E, sched.kernel_backend,
-    )
-    next_free = next_free.cpu().numpy()
-    unplaced = unplaced.cpu().numpy()
-    overflow = overflow.cpu().numpy()
-    price_lb = price_lb.cpu().numpy()
+    mesh = pmesh.slot_mesh(n_dev, sched.device)
+    kind_batch = pmesh.pad_rows(kind_batch, n_dev)
+    count_batch = pmesh.pad_rows(count_batch, n_dev)
+    planes = pmesh.on_each(
+        mesh, (prep.init_state, classes, prep.statics, it_price))
+    verdicts = pmesh.gather_rows(mesh, [
+        _prefix_scan(*planes[k][:3], kind_batch[lo:hi], count_batch[lo:hi],
+                     planes[k][3], E, sched.kernel_backend)
+        for k, (lo, hi, _dev) in enumerate(
+            pmesh.row_shards(len(kind_batch), mesh))
+    ])
+    next_free, unplaced, overflow, price_lb = (
+        x.cpu().numpy()[:P] for x in verdicts)
     # an overflowed prefix silently counted spilled pods as placed — it is
     # NOT schedulable evidence
     return [

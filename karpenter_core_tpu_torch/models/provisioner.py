@@ -44,9 +44,15 @@ candidate FFD scan with the rounded (new_template, kstar) override riding
 strictly wins; the verdict caches on the class batch, so a warm solve of
 the same problem is one dispatch.
 
-Outside this slice, and raising ``NotImplementedError`` that names the
-ROADMAP item that ports it: a device count that resolves above 1 (A.13;
-``parallel/mesh.resolve_devices``, so ``devices=0`` runs on one GPU).
+``devices`` resolves as in the JAX package (``parallel/mesh.
+resolve_devices``: 0 = every device of the kind, a larger count clamps).
+Above 1 the scheduler prepares its planes on the lead device of a mesh
+(``parallel/mesh.slot_mesh``) and pads its slot width to a multiple of the
+mesh, as JAX does. The kernel takes whole
+planes, as JAX's Pallas route does, so a solo scan, the preemption pass and
+``relax_choose`` run on the mesh's lead device; a batched dispatch's scans
+split the problem axis into contiguous shards, one launch a shard, and
+gather the rows back on the lead device.
 """
 from __future__ import annotations
 
@@ -116,7 +122,7 @@ from karpenter_core_tpu_torch.solver.vocab import (
     decode_requirements,
 )
 from karpenter_core_tpu_torch.utils import resources as resutil
-from karpenter_core_tpu_torch.parallel.mesh import check_single_device
+from karpenter_core_tpu_torch.parallel import mesh as pmesh
 from karpenter_core_tpu_torch.utils.device import resolve_device
 
 KERNEL_BACKENDS = ("cuda", "reference")
@@ -400,19 +406,21 @@ class _KernelRequest:
         )
 
 
-def _check_ported(req: _KernelRequest) -> None:
-    if req.devices > 1:
-        raise NotImplementedError(
-            f"devices={req.devices}: multi-GPU dispatches are ported by"
-            " ROADMAP item A.13"
-        )
+def _mesh_of(req: _KernelRequest) -> pmesh.SlotMesh:
+    """The request's device mesh: ``req.devices`` devices of its kind, led
+    by the device the scheduler prepared its planes on (one device: that
+    device alone)."""
+    dev = (req.relax[0] if req.init_state is None
+           else req.init_state.kind).device
+    return pmesh.slot_mesh(req.devices, dev)
 
 
 def _run_kernel_solo(req: _KernelRequest):
     """Answer one request; the trailing element is the dispatch seconds
     (host enqueue time on the card — the fetch that follows waits for the
-    device)."""
-    _check_ported(req)
+    device). On a mesh everything runs whole on the lead device, where the
+    scheduler prepared it (JAX's replicated commit before the Pallas
+    call)."""
     t0 = time.perf_counter()
     if req.kind == "relax":
         nt, ks, changed = relax_ops.relax_choose(
@@ -480,10 +488,14 @@ def _run_kernel_batched(reqs: List[_KernelRequest]):
 
     The problem axis pads to a power of two with copies of the first
     request's tensors (their outputs are sliced off before anyone reads
-    them). Returns (per-request (state, takes_bc, unplaced_bc, seconds)
-    list, padded B)."""
+    them). On a mesh the scans split the padded axis into contiguous
+    shards, one launch a shard, each shard's first launch before any host
+    read, and the rows come back in order on the lead device (JAX
+    replicates the problem axis and splits slots; splitting problems needs
+    no exchange inside a scan, and gives the same rows); the preemption
+    pass and ``relax_choose`` run whole on the lead device. Returns
+    (per-request (state, takes_bc, unplaced_bc, seconds) list, padded B)."""
     head = reqs[0]
-    _check_ported(head)
     B = len(reqs)
     t0 = time.perf_counter()
     Bp = _bucket(B, lo=_BATCH_PAD_LO)
@@ -525,24 +537,21 @@ def _run_kernel_batched(reqs: List[_KernelRequest]):
             (extra_bc[b], mleft_bc[b], evicted_b[b], share)
             for b in range(B)
         ], Bp
+    cuda = head.backend == "cuda"
+    mesh = _mesh_of(head)
     if head.gang_of_step is not None:
-        gang_solve = (cuda_ffd.cuda_gang_solve_batched
-                      if head.backend == "cuda"
-                      else gangsched.gang_solve_batched)
-        state_b, takes_b, unplaced_b = gang_solve(
-            state, steps, statics,
-            torch.stack([r.gang_of_step for r in reqs_p]),
-            torch.stack([r.gang_min for r in reqs_p]),
-            level_iters=head.level_iters,
-        )
-    elif head.backend == "cuda":
-        state_b, takes_b, unplaced_b = cuda_ffd.cuda_ffd_solve_batched(
-            state, steps, statics, level_iters=head.level_iters
-        )
+        gang_sharded = (cuda_ffd.cuda_gang_solve_sharded if cuda
+                        else gangsched.gang_solve_sharded)
+        trees = (state, steps, statics,
+                 torch.stack([r.gang_of_step for r in reqs_p]),
+                 torch.stack([r.gang_min for r in reqs_p]))
+        parts = gang_sharded(_shards(mesh, Bp, trees),
+                             level_iters=head.level_iters)
     else:
-        state_b, takes_b, unplaced_b = ffd_solve_batched(
-            state, steps, statics, level_iters=head.level_iters
-        )
+        scan = cuda_ffd.cuda_ffd_solve_batched if cuda else ffd_solve_batched
+        parts = [scan(*shard, level_iters=head.level_iters)
+                 for shard in _shards(mesh, Bp, (state, steps, statics))]
+    state_b, takes_b, unplaced_b = pmesh.gather_rows(mesh, parts)
     takes_bc, unplaced_bc = aggregate_takes_batched(
         takes_b, unplaced_b, step_class, num_classes=head.num_classes
     )
@@ -559,6 +568,13 @@ def _run_kernel_batched(reqs: List[_KernelRequest]):
         for b in range(B)
     ]
     return outs, Bp
+
+
+def _shards(mesh, n_rows, trees):
+    """``trees`` split into the mesh's contiguous row shards, each on its
+    device."""
+    return [pmesh.split_rows(trees, lo, hi, dev)
+            for lo, hi, dev in pmesh.row_shards(n_rows, mesh)]
 
 
 def solve_batch(entries):
@@ -740,9 +756,11 @@ class DeviceScheduler:
         instance_types = apply_unavailable(instance_types, unavailable_offerings)
         self.unavailable_offerings = frozenset(unavailable_offerings)
         # the device count resolves as in the JAX package (0 = every device
-        # of the kind, larger requests clamp to what exists); a count that
-        # resolves above 1 — the slot-axis sharding — is ROADMAP A.13
-        self.devices = check_single_device(devices, self.device)
+        # of the kind, larger requests clamp to what exists); above 1 the
+        # mesh's lead device holds every plane the solve prepares (the
+        # batched scans split their problem axis over the mesh)
+        self.devices = pmesh.resolve_devices(devices, self.device)
+        self.device = pmesh.slot_mesh(self.devices, self.device).lead
         # a supplied Topology carries cluster context (existing pods,
         # exclusions); its groups are rebuilt fresh each solve round, so only
         # the constructor inputs are kept
@@ -944,7 +962,10 @@ class DeviceScheduler:
             "decode_s": 0.0, "fetch_bytes": 0, "h2d_bytes": 0,
             "rounds": 0, "slots": max_slots, "used_slots": 0,
             "prep_cache_hits": 0, "prep_cache_misses": 0,
-            # per-device h2d/fetch bytes, equal to the totals on one device
+            # per-device h2d/fetch bytes: the bytes the port puts on (and
+            # fetches from) its lead device, which holds every prepared
+            # plane whole, so they equal the totals on a mesh too (JAX
+            # counts its sharded slot planes at 1/n)
             "n_devices": self.devices,
             "h2d_dev_bytes": 0, "fetch_dev_bytes": 0,
             # which backend served this solve (bench/ops attribution)
@@ -1320,7 +1341,7 @@ class DeviceScheduler:
         stats["kernel_s"] += kdt
         fetched = sum(np.asarray(v).nbytes for v in out.values()) + 16
         stats["fetch_bytes"] += fetched  # + the head scalars
-        # one device: the per-device share is the whole fetch
+        # the fetch comes whole from the lead device
         stats["fetch_dev_bytes"] += fetched
         m.SOLVER_FETCH_BYTES.inc(by=fetched)
         # slice bucketed device shapes back to the natural sizes decode
@@ -2461,7 +2482,10 @@ class DeviceScheduler:
         classes = plan.device_classes
         catalog = self._catalog_union()
         E = len(self.existing_nodes)
-        N = max_slots
+        # the slot width pads to a multiple of the mesh, as the JAX
+        # package pads its sharded slot axis (the padded slots are inert),
+        # so rounds, slots and overflow rescans follow its
+        N = pmesh.pad_to_devices(max_slots, self.devices)
         if E > N:
             raise _SlotOverflow()
 
@@ -2757,8 +2781,8 @@ class DeviceScheduler:
         return self._dev_ev(planes), ev_uids, ev_freed
 
     def _dev_ev(self, planes):
-        """Host->device copy of the EvPlanes with byte accounting (one
-        device: the per-device share is the whole copy)."""
+        """Host->device copy of the EvPlanes with byte accounting (the
+        lead device takes the whole copy)."""
         for leaf in planes:
             self._h2d_bytes += leaf.nbytes
             self._h2d_dev_bytes += leaf.nbytes

@@ -25,9 +25,12 @@ takes ``device_scheduler_opts["device"]`` as its ``--device``), through
 ``solver_kernel`` (``cuda``, the hand kernel, or ``reference``, its plain
 version) and ``solver_backend`` (``ffd`` or ``relax``).
 ``solver_devices`` resolves as in the JAX package (0 = every device, a
-larger count clamps to what exists). A count that resolves above 1, and a
-spawned sidecar fleet (``solver_fleet > 1`` or ``solver_autoscale``), raise
-``NotImplementedError`` (ROADMAP A.13) when the operator is built.
+larger count clamps to what exists); above 1 the solve runs on a mesh of
+that many devices (in process, or in the child, which gets ``--devices``).
+A spawned fleet (``solver_fleet > 1``) and the tier autoscaler
+(``solver_autoscale``) run as in the JAX package: supervised children on
+distinct ports, each its own process with its own CUDA context, routed by
+the ``FleetRouter``.
 """
 from __future__ import annotations
 
@@ -69,7 +72,6 @@ from karpenter_core_tpu_torch.solver.fleet import (
 from karpenter_core_tpu_torch.state.cluster import Cluster
 from karpenter_core_tpu_torch.utils import pod as podutil
 from karpenter_core_tpu_torch.utils.clock import Clock
-from karpenter_core_tpu_torch.parallel.mesh import check_single_device
 from karpenter_core_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 # -- reconcile fault isolation -----------------------------------------------
@@ -145,10 +147,13 @@ class Options:
     # (empty = in-memory quarantine only)
     solver_watchdog_seconds: float = 120.0
     solver_quarantine_journal: str = ""
-    # the device count of the solve (parallel/mesh.py's slot mesh in the
-    # JAX package): 0 = every device, a request clamps to what exists. A
-    # count that resolves above 1 raises NotImplementedError (ROADMAP
-    # A.13) when the operator is built.
+    # the device count of the solve (parallel/mesh.py): 0 = every device,
+    # 1 = single-device, a request clamps to what exists; above 1 the
+    # solve runs on a mesh (solo scans on its lead device, batched scans
+    # and the consolidation sweep split over it). In-proc this threads
+    # into the DeviceScheduler; in sidecar mode it rides the spawned
+    # child's command line (solverd --devices) — an external
+    # --solver-addr sidecar configures its own.
     solver_devices: int = 1
     # fleet tenancy (solver/fleet.py): this operator's identity at a SHARED
     # sidecar — rides every RPC (wire field + X-Solver-Tenant header) for
@@ -174,16 +179,15 @@ class Options:
     # client-side with digest affinity + spill-over (solver/remote.
     # FleetRouter). 1 = the classic single sidecar. An external
     # --solver-addr may name a comma-separated member list instead.
-    # The port spawns one child: a spawned fleet > 1 raises
-    # NotImplementedError (ROADMAP A.13) when the operator is built.
+    # Spawned members share the card(s): each is a process with its own
+    # CUDA context and kernel library, pinned to no GPU.
     solver_fleet: int = 1
     # closed-loop elastic tier (solver/autoscale.py): when
     # enabled, a TierAutoscaler sizes the SPAWNED fleet between min/max
     # off the gateways' queue-wait/shed signals — scale-up through
     # FleetSupervisor.add_member, scale-down through the faultless drain
     # path, brownout ladder at max scale. --solver-fleet stays the
-    # STARTING size; 0 min/max default to 1 / max(fleet, min). Refused
-    # on the port with a spawned fleet (ROADMAP A.13).
+    # STARTING size; 0 min/max default to 1 / max(fleet, min).
     solver_autoscale: bool = False
     solver_fleet_min: int = 0
     solver_fleet_max: int = 0
@@ -498,38 +502,13 @@ class Operator:
         self.cloud_provider = MetricsDecorator(cloud_provider)
         self.cluster = Cluster(self.kube, self.clock)
         self.recorder = Recorder(self.clock)
-        # one device: the slot-axis sharding over several GPUs is ROADMAP
-        # A.13 — refused here, where it raises to the caller (inside a
-        # reconcile the fault isolation would swallow it)
-        if self.options.solver == "tpu":
-            check_single_device(
-                self.options.solver_devices,
-                self.options.device_scheduler_opts.get("device", DEFAULT_DEVICE),
-            )
-        # one spawned child on the card: a spawned fleet (solver_fleet > 1)
-        # or the tier autoscaler starts several children, each with its
-        # own CUDA context and kernel library, and no card run has held
-        # them yet — refused with the multi-GPU work (ROADMAP A.13). An
-        # external --solver-addr member list is routed as in the JAX
-        # package: its members own their cards.
-        if (
-            self.options.solver == "tpu"
-            and self.options.solver_mode == "sidecar"
-            and solver_client is None
-            and not self.options.solver_addr
-            and (self.options.solver_fleet > 1 or self.options.solver_autoscale)
-        ):
-            raise NotImplementedError(
-                f"solver_fleet={self.options.solver_fleet}, solver_autoscale="
-                f"{self.options.solver_autoscale}: a spawned solverd fleet"
-                " is ported with ROADMAP item A.13"
-            )
         device_opts = dict(self.options.device_scheduler_opts)
         # solverd sidecar wiring (solver_mode=sidecar): a supervised child
         # process (unless an external --solver-addr is given) plus the
         # fault-tolerant RPC client the provisioner routes solves through
         self.solver_supervisor = None
         self.solver_client = None
+        self.solver_autoscaler = None
         if solver_client is not None:
             # injection seam (the digital twin, twin/harness.py): the
             # caller owns the client/router — typically one whose breaker
@@ -555,7 +534,10 @@ class Operator:
                 if a.strip()
             ]
             if not addrs:
-                from karpenter_core_tpu_torch.solver.supervisor import SolverSupervisor
+                from karpenter_core_tpu_torch.solver.supervisor import (
+                    FleetSupervisor,
+                    SolverSupervisor,
+                )
 
                 child_kwargs = dict(
                     # the spawned sidecar arms torch.profiler capture
@@ -570,6 +552,13 @@ class Operator:
                     # continuous-batching shape for the child's gateway
                     max_batch=self.options.solver_max_batch,
                     batch_window_ms=self.options.solver_batch_window_ms,
+                    # only a non-default device count rides the argv, so a
+                    # respawned child re-reads the operator's choice
+                    devices=(
+                        self.options.solver_devices
+                        if self.options.solver_devices != 1
+                        else None
+                    ),
                     # the child owns the card: the operator's device rides
                     # its argv (only a non-default one)
                     device=(
@@ -603,13 +592,30 @@ class Operator:
                         else None
                     ),
                 )
-                self.solver_supervisor = SolverSupervisor(
-                    on_event=self._publish_sidecar_event,
-                    **child_kwargs,
-                )
-                addrs = [self.solver_supervisor.start()]
+                if (
+                    self.options.solver_fleet > 1
+                    or self.options.solver_autoscale
+                ):
+                    # N children on distinct ports; the router below does
+                    # digest-affinity placement across them. The autoscaler
+                    # needs the fleet shape even at a starting size of 1 —
+                    # add_member/retire_member are its actuators.
+                    self.solver_supervisor = FleetSupervisor(
+                        self.options.solver_fleet,
+                        on_event=self._publish_sidecar_event,
+                        **child_kwargs,
+                    )
+                    addrs = self.solver_supervisor.start()
+                else:
+                    self.solver_supervisor = SolverSupervisor(
+                        on_event=self._publish_sidecar_event,
+                        **child_kwargs,
+                    )
+                    addrs = [self.solver_supervisor.start()]
 
-            fleet_shaped = len(addrs) > 1
+            fleet_shaped = (
+                len(addrs) > 1 or self.options.solver_autoscale
+            )
 
             def _make_client(a: str, member: str) -> "SolverClient":
                 return SolverClient(
@@ -636,6 +642,29 @@ class Operator:
                 )
             else:
                 self.solver_client = _make_client(addrs[0], "0")
+            if (
+                self.options.solver_autoscale
+                and self.solver_supervisor is not None
+            ):
+                from karpenter_core_tpu_torch.solver.autoscale import (
+                    SpawnedTier,
+                    TierAutoscaler,
+                )
+
+                mn = self.options.solver_fleet_min or 1
+                mx = self.options.solver_fleet_max or max(
+                    self.options.solver_fleet, mn
+                )
+                self.solver_autoscaler = TierAutoscaler(
+                    SpawnedTier(
+                        self.solver_supervisor,
+                        [self.solver_client],
+                        _make_client,
+                    ),
+                    mn,
+                    mx,
+                    on_decision=self._publish_autoscale_event,
+                )
         # in-proc solves run on device_scheduler_opts["device"] (sidecar
         # mode leaves the device to the child, which owns the card)
         if self.options.solver == "tpu":
@@ -656,9 +685,6 @@ class Operator:
                 _check_solver_kernel(device_opts["kernel_backend"])
         if self.options.solver == "tpu" and self.solver_client is None:
             device_opts.setdefault("devices", self.options.solver_devices)
-            check_single_device(
-                device_opts["devices"], device_opts.get("device", DEFAULT_DEVICE)
-            )
             # explicit device, no fallback: CUDA without a GPU raises here
             resolve_device(device_opts.get("device", DEFAULT_DEVICE))
         self.provisioner = Provisioner(
@@ -780,6 +806,20 @@ class Operator:
             else "Normal",
             reason=reason,
             message=message,
+        ))
+
+    def _publish_autoscale_event(self, action: str, arg: str) -> None:
+        """Autoscaler decisions -> the event stream so the ops surface can
+        audit every resize/brownout transition after the fact."""
+        from karpenter_core_tpu_torch.events import Event
+
+        if action == "hold":
+            return
+        self.recorder.publish(Event(
+            involved_object="Solverd/sidecar",
+            type="Warning" if action.startswith("rung") else "Normal",
+            reason="SolverFleetScale",
+            message=f"autoscaler decided {action} ({arg})",
         ))
 
     def _publish_circuit_event(self, state: str) -> None:
@@ -921,10 +961,25 @@ class Operator:
         self._pass_id += 1
         self._pass_seen = set()
         if self.solver_supervisor is not None:
-            # supervise the sidecar every pass; after a respawn the
-            # client follows the fresh address — no operator restart
-            if self.solver_supervisor.poll() and self.solver_client is not None:
-                self.solver_client.set_addr(self.solver_supervisor.addr)
+            # supervise the sidecar(s) every pass; after a respawn the
+            # client follows the (possibly fresh) address — no operator
+            # restart. A FleetSupervisor reports WHICH members respawned
+            # so the router re-points exactly those.
+            restarted = self.solver_supervisor.poll()
+            if self.solver_client is not None:
+                if isinstance(restarted, list):
+                    for i in restarted:
+                        self.solver_client.set_member_addr(
+                            i, self.solver_supervisor.addrs[i]
+                        )
+                elif restarted:
+                    self.solver_client.set_addr(self.solver_supervisor.addr)
+        if self.solver_autoscaler is not None:
+            # one observe->decide->actuate step per reconcile pass; the
+            # controller loop IS the autoscaler's clock, so twin replays
+            # that drive reconcile_once on a virtual clock stay
+            # deterministic.
+            self._guarded("solver.autoscale", self.solver_autoscaler.step)
         for pool in list(self.kube.list_nodepools()):
             self._guarded("nodepool.hash", self.nodepool_hash.reconcile, pool)
             self._guarded(

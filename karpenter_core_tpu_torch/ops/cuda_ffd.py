@@ -33,9 +33,12 @@ A step axis with a ``topo_rank`` plane (rack-aware gangs) hands the plane
 to the kernel, whose existing-slot first-fit is then level-grouped; with
 none the pointer is null and the classic prefix runs. The gang-atomic
 solve's scans (``ops/gangsched.py``) run through the kernel in
-``cuda_gang_solve`` and ``cuda_gang_solve_batched``: one launch when
+``cuda_gang_solve`` and ``cuda_gang_solve_sharded``: one launch when
 every gang commits, a second from the same init state when one rolls
-back (one host read of the failure check decides).
+back (one host read of the failure check decides). The sharded one is a
+batched dispatch's route: the stacked problems split over the shards of
+a device mesh (one shard on one device), every shard's first launch
+before the first host read.
 """
 from __future__ import annotations
 
@@ -261,29 +264,28 @@ def cuda_gang_solve(state: SlotState, steps: ClassStep,
                                      gang_of_step, gang_min, level_iters)
 
 
-def cuda_gang_solve_batched(state: SlotState, steps: ClassStep,
-                            statics: FFDStatics, gang_of_step, gang_min,
-                            level_iters: int = LEVEL_ITERS):
-    """``cuda_gang_solve`` over stacked problems, through
-    ``cuda_ffd_solve_batched``: one batched launch when every row's gangs
-    commit, and a second over the whole stack (failed counts zeroed) when
-    a row's do not. The batched kernel writes its state in place, so each
-    scan gets its own copy of the stack, and ``state`` is left as it was."""
-    dev = state.kind.device
+def cuda_gang_solve_sharded(shards, level_iters: int = LEVEL_ITERS):
+    """``cuda_gang_solve`` over stacked problems, split into the shards of
+    a problem axis (each a (state, steps, statics, gang_of_step, gang_min)
+    tuple on its own device of a mesh; one shard on one device), through
+    ``cuda_ffd_solve_batched``: every shard's first launch goes out before
+    the first host read, then a second launch over each shard whose rows'
+    gangs failed (failed counts zeroed). The batched kernel writes its
+    state in place, so each scan gets its own copy of the shard's state,
+    and the shards' states are left as they were. On CPU tensors it is the
+    plain version."""
+    dev = shards[0][0].kind.device
     if dev.type == "cpu":
-        return gangsched.gang_solve_batched(state, steps, statics,
-                                            gang_of_step, gang_min,
-                                            level_iters)
+        return gangsched.gang_solve_sharded(shards, level_iters)
     if dev.type != "cuda":
-        raise ValueError(f"cuda_gang_solve_batched: unsupported device {dev}")
+        raise ValueError(f"cuda_gang_solve_sharded: unsupported device {dev}")
+    return gangsched.gang_solve_sharded_with(_gang_scan, shards, level_iters)
 
-    def scan(st, cl, stc, li):
-        return _launch_batched(SlotState(*(x.clone() for x in st)), cl,
-                               stc, li)
 
-    return gangsched.gang_solve_batched_with(scan, state, steps, statics,
-                                             gang_of_step, gang_min,
-                                             level_iters)
+def _gang_scan(state, steps, statics, level_iters):
+    """A batched gang scan on the card, over its own copy of the state."""
+    return _launch_batched(SlotState(*(x.clone() for x in state)), steps,
+                           statics, level_iters)
 
 
 def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
@@ -303,7 +305,12 @@ def _launch(state: SlotState, steps: ClassStep, statics: FFDStatics,
 
 @contextlib.contextmanager
 def _device_stream(dev):
-    """The current stream of ``dev`` as a handle for the C entry."""
+    """The current stream of ``dev`` as a handle for the C entry, with
+    ``dev`` the current device meanwhile: the entry's ``cudaGetDevice``,
+    occupancy query and ``cudaFuncSetAttribute`` then size the launch for
+    that device. Each device has one current stream, so the shards of a
+    virtual mesh over one card run one after another, never two
+    cooperative grids on one card at once."""
     with torch.cuda.device(dev):
         yield ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 

@@ -21,9 +21,10 @@ Port of ``karpenter_core_tpu/ops/gangsched.py``. The FFD scan
   (cumulative freed capacity -> pods admitted), and nodes are claimed
   cheapest-cost-per-admitted-pod first, at most ``NODE_ROUNDS`` a class.
 
-``gang_solve_with`` / ``gang_solve_batched_with`` take the scan function,
-so the kernel route (``ops/cuda_ffd.cuda_gang_solve[_batched]``) runs the
-same rollback and guard around the hand kernel. The preemption pass is
+``gang_solve_with``, ``gang_solve_batched_with`` and
+``gang_solve_sharded_with`` take the scan function, so the kernel route
+(``ops/cuda_ffd.cuda_gang_solve[_sharded]``) runs the same
+rollback and guard around the hand kernel. The preemption pass is
 torch ops on the device (the JAX package lowers it through XLA, with no
 Pallas kernel). Its float carry is bit-equal to the JAX package's: the
 small evictable-pod axis P is summed in one fixed left-to-right order (the
@@ -139,11 +140,30 @@ def gang_solve_batched_with(solve_batched, state: SlotState,
     each row's failed counts zeroed, and each row that failed takes the
     second scan (a row with no failure scans its unchanged inputs again,
     and keeps its first answer), so every row equals its solo answer."""
-    final, takes, unplaced = solve_batched(state, classes, statics,
-                                           level_iters)
+    return gang_solve_sharded_with(
+        solve_batched, [(state, classes, statics, gang_of_step, gang_min)],
+        level_iters)[0]
+
+
+def gang_solve_sharded_with(solve_batched, shards, level_iters=LEVEL_ITERS):
+    """``gang_solve_batched_with`` over the shards of a problem axis, each
+    a (state, classes, statics, gang_of_step, gang_min) tuple on its own
+    device: every shard's first scan is launched before the first host
+    read, so the devices scan together; then each shard decides its
+    rollback scan. Returns each shard's (final, takes, unplaced)."""
+    firsts = [solve_batched(st, cl, stc, level_iters)
+              for st, cl, stc, _g, _m in shards]
+    return [_gang_finish_batched(solve_batched, first, *shard, level_iters)
+            for first, shard in zip(firsts, shards)]
+
+
+def _gang_finish_batched(solve_batched, first, state, classes, statics,
+                         gang_of_step, gang_min, level_iters):
+    """The rollback and the guard after a stack's first scan."""
+    final, takes, unplaced = first
     step_failed = _step_failed(takes, gang_of_step, gang_min)  # [B, J]
     row_failed = step_failed.any(dim=1)
-    if bool(row_failed.any()):
+    if bool(row_failed.any()):  # the one host read: roll back?
         classes2 = classes._replace(count=torch.where(
             step_failed, torch.zeros_like(classes.count), classes.count))
         final2, takes2, unplaced2 = solve_batched(state, classes2, statics,
@@ -177,6 +197,12 @@ def gang_solve_batched(state: SlotState, classes: ClassStep,
     return gang_solve_batched_with(ffd_solve_batched, state, classes,
                                    statics, gang_of_step, gang_min,
                                    level_iters)
+
+
+def gang_solve_sharded(shards, level_iters: int = LEVEL_ITERS):
+    """The plain gang-atomic solve over the shards of a problem axis
+    (``gang_solve_sharded_with`` with ``ffd_solve_batched`` scans)."""
+    return gang_solve_sharded_with(ffd_solve_batched, shards, level_iters)
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,36 @@
-"""Device count of the solve.
+"""Device mesh and placement of the solve.
 
-The device-count half of ``karpenter_core_tpu/parallel/mesh.py``: a
-request resolves against the devices of its kind that exist, as in the JAX
-package, so ``devices=0`` ("every device") and a count larger than the host
-has both run the single-device solve on a one-GPU machine. The slot-axis
-sharding over several GPUs (the rest of that module) is ROADMAP A.13; a
-count that resolves above 1 raises ``NotImplementedError`` where a solver is
-built.
+Port of ``karpenter_core_tpu/parallel``: a device-count request resolves
+against the devices of its kind that exist, as in the JAX package, and a
+count above 1 builds a mesh of that many devices (``slot_mesh``). The
+port's kernel takes whole planes, as the JAX package's Pallas route does:
+the solo routes run on the mesh's lead device, and the work that splits
+with no exchange between devices, the consolidation sweep's prefix axis
+and the batched problem axis, splits into contiguous shards, one a
+device (``parallel/mesh.py`` says where each JAX sharding went).
 """
 from karpenter_core_tpu_torch.parallel.mesh import (
-    check_single_device,
+    SlotMesh,
+    force_virtual_mesh,
+    gather_rows,
+    on_each,
+    pad_rows,
     pad_to_devices,
     resolve_devices,
+    row_shards,
+    slot_mesh,
+    split_rows,
 )
 
-__all__ = ["check_single_device", "pad_to_devices", "resolve_devices"]
+__all__ = [
+    "SlotMesh",
+    "force_virtual_mesh",
+    "gather_rows",
+    "on_each",
+    "pad_rows",
+    "pad_to_devices",
+    "resolve_devices",
+    "row_shards",
+    "slot_mesh",
+    "split_rows",
+]

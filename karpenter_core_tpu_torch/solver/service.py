@@ -6,8 +6,8 @@ each solve runs the port's ``DeviceScheduler`` on ``--device`` (default
 ``--device cpu`` asks for the CPU) through ``--kernel`` (``cuda``, the
 hand-written FFD kernel, or ``reference``, its plain torch version).
 ``--devices`` resolves as in the JAX package (0 = every device of the
-kind; a larger count clamps to what exists); one that resolves above 1 is
-refused (ROADMAP A.13). Where the JAX
+kind; a larger count clamps to what exists); above 1 every solve and sweep
+runs on a mesh of that many devices (``parallel/mesh.py``). Where the JAX
 daemon points XLA's compile cache at disk at boot, this one builds the
 kernel library (``ops/cuda_ffd.build``) on a CUDA device; the profile
 toggle captures a ``torch.profiler`` chrome trace. A sticky CUDA error
@@ -90,6 +90,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from karpenter_core_tpu_torch.kube.httpserver import read_body, send_body
+from karpenter_core_tpu_torch.ops import cuda_ffd
 from karpenter_core_tpu_torch.solver import codec, fleet, segments
 from karpenter_core_tpu_torch.solver import incremental as incsolve
 from karpenter_core_tpu_torch.solver.autoscale import BROWNOUT_MAX_RUNG
@@ -97,10 +98,6 @@ from karpenter_core_tpu_torch.solver.supervisor import (
     DRAIN_EXIT_CODE,
     DRAIN_EXIT_DEADLINE_SECONDS,
     WATCHDOG_EXIT_CODE,
-)
-from karpenter_core_tpu_torch.parallel.mesh import (
-    check_single_device,
-    resolve_devices,
 )
 from karpenter_core_tpu_torch.utils.device import (
     DEFAULT_DEVICE,
@@ -270,11 +267,8 @@ class SolverDaemon:
         incremental=None,
         device=DEFAULT_DEVICE,
     ):
-        # one device, explicit, no fallback: CUDA without a GPU raises here;
-        # the count resolves as in the JAX package, and one that resolves
-        # above 1 (the slot-axis sharding over several GPUs) is ROADMAP A.13
+        # the device, explicit, no fallback: CUDA without a GPU raises here
         self.device = resolve_device(device)
-        check_single_device(devices, self.device)
         self.ready = False
         self.solves = 0
         self.profile_dir = profile_dir
@@ -326,6 +320,10 @@ class SolverDaemon:
         if kernel not in ("cuda", "reference"):
             raise ValueError(f"unknown kernel {kernel!r} (cuda | reference)")
         self.kernel = kernel
+        # every solve/sweep runs on a mesh of this many devices of
+        # self.device's kind (0 = all; requests clamp to what exists, so a
+        # multi-device config runs the single-device path on a one-GPU
+        # box); resolved per scheduler construction
         self.devices = devices
         self.profiling = False
         self._traces = 0
@@ -1048,6 +1046,11 @@ class SolverDaemon:
             # (--kernel): results are byte-identical across kernels, so
             # this is a performance-dashboard fact, not a routing one
             "kernel": self.kernel,
+            # the scan kernel's launches and problem rows in this process
+            # (ops/cuda_ffd.counter), so a fleet's members can be told
+            # apart by the device work each did
+            "kernel_launches": cuda_ffd.counter.total(),
+            "kernel_rows": cuda_ffd.counter.rows,
             # continuous-batching stats: how much device serialization the
             # coalescer is currently buying back (mean problems per grant,
             # lifetime coalesced count, the configured window/size bounds)
@@ -1070,8 +1073,6 @@ class SolverDaemon:
         the first solve does not pay nvcc; with ``prewarm`` also run the
         synthetic shape-bucket solves."""
         if self.device.type == "cuda" and self.kernel == "cuda":
-            from karpenter_core_tpu_torch.ops import cuda_ffd
-
             cuda_ffd.build()
         if prewarm:
             from karpenter_core_tpu_torch.api.nodepool import NodePool, NodePoolSpec
@@ -1339,10 +1340,10 @@ def main() -> int:
     )
     ap.add_argument(
         "--devices", type=int, default=1,
-        help="devices a solve is sharded over (0 = every device of"
-        " --device's kind; a request clamps to what exists); a count that"
-        " resolves above 1 is refused (the multi-GPU slot-axis sharding is"
-        " ROADMAP item A.13)",
+        help="run every solve/sweep on a mesh of the first N devices of"
+        " --device's kind (0 = every device, 1 = single-device; a request"
+        " clamps to what exists): solo scans on the first device, batched"
+        " scans and the consolidation sweep split over the mesh",
     )
     ap.add_argument(
         "--device", default=DEFAULT_DEVICE,
@@ -1433,11 +1434,8 @@ def main() -> int:
         " child (no journal = in-memory quarantine only)",
     )
     args = ap.parse_args()
-    if resolve_devices(args.devices, args.device) > 1:
-        ap.error(
-            f"--devices {args.devices}: multi-GPU solves are ported by"
-            " ROADMAP item A.13"
-        )
+    if args.devices < 0:
+        ap.error("--devices must be >= 0 (0 = every device)")
     if args.watchdog_seconds < 0:
         ap.error("--watchdog-seconds must be >= 0 (0 disables)")
     if args.max_batch < 1:

@@ -39,19 +39,24 @@ Port of ``karpenter_core_tpu/twin/harness.py``. The edits:
 * The in-thread tier (``_FleetTier``) and the elastic tier
   (``_TwinTierAdapter``) stay in-thread: every daemon shares this
   process's one CUDA context. The operators get their router through the
-  ``solver_client`` seam, so the operator's refusal of a *spawned* fleet
-  does not apply.
+  ``solver_client`` seam, not a spawned fleet.
 * **No fallback.** The port's sidecar client has no greedy degradation:
   a partition window or a murdered member fails the solve, its reconcile
   fails and the pods wait for a member that answers (the reference
   re-solves them on the host greedy Scheduler). ``rpc_fallbacks`` keeps
   its key and stays 0; the counters add ``rpc_failures``
   (``SOLVER_RPC_FAILURES``), which the ledger does not carry.
+* **A murdered member refuses in process** (``_install_murder_gate``):
+  the port's client keeps retrying a dead member, so a connect to its
+  freed port must not depend on the host; the client raises the socket's
+  own refusal instead, and the run's trace and ledger are unchanged.
 """
 from __future__ import annotations
 
+import errno
 import itertools
 import json
+import os
 import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -193,6 +198,9 @@ class _FleetTier:
         # routers' rendezvous ranks and the utilization ledger never
         # alias a retired member's successor
         self.member_ids: List[str] = []
+        # addresses of murdered members: every connection to one is
+        # refused in process (DigitalTwin._install_murder_gate)
+        self.dead: set = set()
         self._next = 0
         self.member_solves: Dict[str, int] = {}
         for _ in range(n):
@@ -238,11 +246,13 @@ class _FleetTier:
         )
         srv = self._service.serve(0, daemon=daemon)
         addr = f"127.0.0.1:{srv.server_address[1]}"
+        self.dead.discard(addr)  # the host may hand a dead port out again
         return daemon, srv, addr
 
     def murder(self, i: int) -> None:
         """Tear the member down: its socket closes under any client."""
         self._bank_solves(i)
+        self.dead.add(self.addrs[i])
         self.servers[i].shutdown()
         self.servers[i].server_close()
         self.servers[i] = None
@@ -380,6 +390,8 @@ class DigitalTwin:
         # scenario, not with the wall — days of churn in minutes
         client.breaker.time_fn = vclock.monotonic
         self._install_partition_gate(cluster, client)
+        # and the murder gate: a murdered member refuses in process
+        self._install_murder_gate(client)
         return client
 
     def _make_router(self, cluster: int, tier: _FleetTier, vclock):
@@ -427,6 +439,27 @@ class DigitalTwin:
             return _orig(*args, **kwargs)
 
         client.call = gated
+
+    def _install_murder_gate(self, client) -> None:
+        """A murdered member's address refuses every connection in process:
+        the client meets the socket's own ``ConnectionRefusedError`` and
+        takes the same retry, breaker and quarantine path, with no connect
+        to the dead port. The port's client retries a dead member until the
+        run ends (a failed solve waits for a member that answers), and a
+        real connect to the freed port can wait out the client's 30-s
+        real-time deadline instead of being refused (seen once on a GPU
+        host), which would make the run's trace turn on the host's network
+        stack."""
+        orig = client._once
+
+        def gated(path, body, headers=None, _orig=orig):
+            if client.addr in self._tier.dead:
+                client._apply_fault()
+                raise ConnectionRefusedError(
+                    errno.ECONNREFUSED, os.strerror(errno.ECONNREFUSED))
+            return _orig(path, body, headers)
+
+        client._once = gated
 
     def _make_operator(
         self, cluster: int, vclock, tier: Optional[_FleetTier]
@@ -504,6 +537,7 @@ class DigitalTwin:
             if s.fleet
             else None
         )
+        self._tier = tier
         notes: List[tuple] = []
         note_seq = itertools.count()
 

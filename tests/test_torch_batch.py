@@ -306,11 +306,27 @@ def test_shape_key_splits_on_backend_and_device():
     pytest.param(dict(devices=2), "A.13", id="change2-A.13"),
 ])
 def test_later_dispatch_kinds_raise(change, item):
-    req = dataclasses.replace(_port_request(), **change)
-    with pytest.raises(NotImplementedError, match=item):
-        tprov._run_kernel_batched([req, req])
-    with pytest.raises(NotImplementedError, match=item):
-        tprov._run_kernel_solo(req)
+    """Every dispatch kind the JAX package runs is answered: a request for
+    two devices (ROADMAP ``item``, once refused) runs on a 2-device
+    virtual CPU mesh, the batched scan split one problem a device and the
+    solo scan on the lead device, and answers as on one device."""
+    from karpenter_core_tpu_torch.parallel import mesh as pmesh
+
+    base = _port_request()
+    req = dataclasses.replace(base, **change)
+    want_b, pad_b = tprov._run_kernel_batched([base, base])
+    want_s = tprov._run_kernel_solo(base)
+    pmesh.force_virtual_mesh(2, "cpu")
+    try:
+        got_b, pad = tprov._run_kernel_batched([req, req])
+        got_s = tprov._run_kernel_solo(req)
+    finally:
+        pmesh.force_virtual_mesh(0, "cpu")
+    assert pad == pad_b == 2
+    for got, want in zip(got_b + [got_s], want_b + [want_s]):
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 # ---------------------------------------------------------------------------

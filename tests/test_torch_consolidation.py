@@ -217,13 +217,19 @@ def test_frontier_rejects_other_kernels_and_devices(monkeypatch):
     with pytest.raises(ValueError, match="kernel backend"):
         cons.frontier_core(**inputs, max_slots=SLOTS, device="cpu",
                            kernel_backend="xla")
-    # a count that resolves above 1 (here: a host faked to 8 devices) is
-    # the prefix axis sharded over several GPUs, ROADMAP A.13
-    monkeypatch.setattr(pmesh, "_available", lambda device: 8)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        cons.frontier_core(**inputs, max_slots=SLOTS, device="cpu",
-                           devices=2)
-    monkeypatch.undo()
+    # a count that resolves above 1 (here: an 8-device virtual CPU mesh)
+    # splits the prefix axis over the mesh, with the frontier of one
+    # device and of the JAX package's 2-device sweep
+    one = cons.frontier_core(**inputs, max_slots=SLOTS, device="cpu")
+    pmesh.force_virtual_mesh(8, "cpu")
+    try:
+        two = cons.frontier_core(**inputs, max_slots=SLOTS, device="cpu",
+                                 devices=2)
+    finally:
+        pmesh.force_virtual_mesh(0, "cpu")
+    assert two == one
+    assert_frontiers_equal(two, ref_cons.frontier_core(
+        **to_reference(inputs), max_slots=SLOTS, devices=2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cons.frontier_core(**inputs, max_slots=SLOTS)

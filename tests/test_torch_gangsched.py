@@ -277,9 +277,9 @@ def test_gang_solve_batched_equal():
     for b, r in enumerate(reqs):
         solo = jgs.gang_solve(*_gang_args(r), level_iters=li)
         assert_equal(port[1][b], solo[1], f"row {b} takes")
-    via_wrapper = cuda_ffd.cuda_gang_solve_batched(
-        *_t(tuple(args[:3])), torch.tensor(args[3]), torch.tensor(args[4]),
-        li)
+    via_wrapper = cuda_ffd.cuda_gang_solve_sharded(
+        [(*_t(tuple(args[:3])), torch.tensor(args[3]),
+          torch.tensor(args[4]))], li)[0]
     _assert_gang_equal(via_wrapper, ref, "batched wrapper")
 
 
@@ -671,9 +671,10 @@ def test_plain_problem_never_dispatches_gang_routes(monkeypatch):
         raise AssertionError("gang route dispatched on a plain problem")
 
     for mod, names in ((tgs, ("gang_solve", "gang_solve_batched",
-                              "preempt_pass", "preempt_pass_batched")),
+                              "gang_solve_sharded", "preempt_pass",
+                              "preempt_pass_batched")),
                        (cuda_ffd, ("cuda_gang_solve",
-                                   "cuda_gang_solve_batched"))):
+                                   "cuda_gang_solve_sharded"))):
         for n in names:
             monkeypatch.setattr(mod, n, boom)
     _, r_ref, _, r_port = solve_both(_plain_off_by_default())
@@ -773,7 +774,11 @@ def test_shape_key_splits_gang_and_plain_requests():
 
 def test_relax_mode_gang_dispatch_runs_and_devices_raise():
     """A relax problem's gang dispatch (mode="relax") is answered like an
-    ffd one; only a multi-device request still raises (A.13)."""
+    ffd one, and so is a multi-device request: on a 2-device virtual CPU
+    mesh the gang dispatch runs on the lead device with the one-device
+    answer."""
+    from karpenter_core_tpu_torch.parallel import mesh as pmesh
+
     req = _port_request()
     relax = dataclasses.replace(req, mode="relax")
     assert relax.shape_key() != req.shape_key()
@@ -785,8 +790,16 @@ def test_relax_mode_gang_dispatch_runs_and_devices_raise():
                                          for x in req.init_state))))
     for a, b in zip(out[1:3], ref[1:3]):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        tprov._run_kernel_solo(dataclasses.replace(req, devices=2))
+    pmesh.force_virtual_mesh(2, "cpu")
+    try:
+        two = tprov._run_kernel_solo(dataclasses.replace(
+            req, devices=2, init_state=tprov.SlotState(
+                *(x.clone() for x in req.init_state))))
+    finally:
+        pmesh.force_virtual_mesh(0, "cpu")
+    for a, b in zip(two[:3], ref[:3]):
+        for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert torch.equal(x, y)
 
 
 def _port_request():

@@ -253,29 +253,78 @@ def test_sidecar_routes():
                                                         "devices": 0})])
 def test_other_device_counts_raise(opts, monkeypatch):
     """A device count resolves as in the JAX package: on a one-device host
-    (the CPU) it is the single-device solve; a count that resolves above
-    1 raises (A.13)."""
+    (the CPU) it is the single-device solve; on an 8-device virtual CPU
+    mesh it resolves as JAX's does on its 8-device mesh, and the
+    operator's scheduler solves on that mesh with the one-device answer,
+    wire for wire. (The name is kept from when other counts were
+    refused.)"""
+    from karpenter_core_tpu.parallel import mesh as ref_mesh
+    from karpenter_core_tpu.solver import codec
     from karpenter_core_tpu_torch.parallel import mesh as pmesh
 
     opts.setdefault("device_scheduler_opts", {"device": "cpu"})
     op = Operator(options=Options(solver="tpu", **opts))
     assert op.provisioner.new_scheduler([]).devices == 1
-    monkeypatch.setattr(pmesh, "_available", lambda device: 8)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        Operator(options=Options(solver="tpu", **opts))
+    pods = [make_pod(cpu=1.0, name=f"dc{i}") for i in range(12)]
+    op.kube.create(interop.from_reference(make_nodepool()))
+    align_counters()
+    want = op.provisioner.new_scheduler([]).solve(
+        interop.from_reference(pods))
+    requested = opts.get("solver_devices",
+                         opts["device_scheduler_opts"].get("devices"))
+    pmesh.force_virtual_mesh(8, "cpu")
+    try:
+        op8 = Operator(options=Options(solver="tpu", **opts))
+        op8.kube.create(interop.from_reference(make_nodepool()))
+        sched = op8.provisioner.new_scheduler([])
+        assert sched.devices == ref_mesh.resolve_devices(requested)
+        assert sched.devices > 1
+        align_counters()
+        got = sched.solve(interop.from_reference(pods))
+    finally:
+        pmesh.force_virtual_mesh(0, "cpu")
+    assert sched.last_phase_stats["n_devices"] == sched.devices
+    assert got.node_count() == want.node_count() > 0
+    assert (codec.encode_solve_results(to_reference(got), 0.0)
+            == codec.encode_solve_results(to_reference(want), 0.0))
 
 
 @pytest.mark.parametrize("opts", [dict(solver_fleet=2),
                                   dict(solver_autoscale=True)])
-def test_spawned_sidecar_fleet_raises(opts):
-    """A spawned fleet (several children on the card) is refused when the
-    operator is built, before any child spawns; an external member list
-    is routed."""
+def test_spawned_sidecar_fleet_raises(opts, monkeypatch):
+    """A spawned fleet (``solver_fleet=2``) and the autoscaled tier run as
+    in the JAX package: the operator spawns its CPU children under a
+    ``FleetSupervisor``, routes through a ``FleetRouter``, and provisions
+    tests/test_segments.py's battery to the in-process operator's answer
+    with no failed RPC; an external member list is routed."""
+    from tests.torch_ported import ported
+    from karpenter_core_tpu_torch.cloudprovider.kwok import build_catalog
     from karpenter_core_tpu_torch.solver.remote import FleetRouter
+    from karpenter_core_tpu_torch.solver.supervisor import FleetSupervisor
 
-    with pytest.raises(NotImplementedError, match="A.13"):
-        Operator(options=Options(solver="tpu", solver_mode="sidecar",
-                                 **opts))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    segments = ported("test_segments")
+    cat = build_catalog(cpu_grid=[1, 2, 4, 8], mem_factors=[2, 4])
+    cpu = dict(solver_kernel="reference",
+               device_scheduler_opts={"device": "cpu"})
+    inproc = segments._battery(segments._operator(
+        dict(solver_mode="inproc", **cpu), cat), "f")
+    failures0 = dict(m.SOLVER_RPC_FAILURES.values)
+    spawned = segments._operator(dict(solver_mode="sidecar", **opts, **cpu),
+                                 cat)
+    try:
+        assert isinstance(spawned.solver_supervisor, FleetSupervisor)
+        assert isinstance(spawned.solver_client, FleetRouter)
+        assert len(spawned.solver_supervisor.members) == opts.get(
+            "solver_fleet", 1)
+        assert (spawned.solver_autoscaler is not None) == bool(
+            opts.get("solver_autoscale"))
+        assert segments._battery(spawned, "f") == inproc
+        assert dict(m.SOLVER_RPC_FAILURES.values) == failures0
+        assert spawned.readyz()
+    finally:
+        spawned.shutdown()
+    assert spawned.solver_supervisor.alive_count() == 0
     op = Operator(options=Options(solver="tpu", solver_mode="sidecar",
                                   solver_addr="127.0.0.1:1,127.0.0.1:2"))
     assert op.solver_supervisor is None

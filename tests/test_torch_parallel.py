@@ -7,8 +7,9 @@ other count clamps to what exists. So ``DeviceScheduler(devices=0)`` and
 packages. The JAX side runs on this suite's 8-device virtual CPU mesh (a
 sharded solve, whose wire equals the single-device one) and, for the
 ``n_devices`` stat, on a one-device view of the same host, which is what
-the port sees on the CPU. A count that resolves above 1 still raises on
-the port (ROADMAP A.13).
+the port sees on the CPU. A count that resolves above 1, on the port's virtual
+CPU mesh, is held to the JAX package's sharded solves in
+``tests/test_torch_sharded.py``.
 """
 from __future__ import annotations
 

@@ -225,13 +225,24 @@ def _port_scheduler(**kw):
 
 def test_multi_device_raises(monkeypatch):
     """devices=2 clamps to the one device a CPU host has (as the JAX
-    package clamps); a count that resolves above 1 raises (A.13)."""
+    package clamps); on an 8-device virtual CPU mesh it resolves to 2 and
+    solves on the mesh with the one-device answer."""
     from karpenter_core_tpu_torch.parallel import mesh as pmesh
 
     assert _port_scheduler(devices=2).devices == 1
-    monkeypatch.setattr(pmesh, "_available", lambda device: 8)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        _port_scheduler(devices=2)
+    pods = interop.from_reference(fuzz_problem(0))[3]
+    _align_hostnames()
+    one = _port_scheduler(devices=1, max_slots=64)
+    want = codec.encode_solve_results(to_reference(one.solve(pods)), 0.0)
+    pmesh.force_virtual_mesh(8, "cpu")
+    try:
+        two = _port_scheduler(devices=2, max_slots=64)
+        _align_hostnames()
+        got = codec.encode_solve_results(to_reference(two.solve(pods)), 0.0)
+    finally:
+        pmesh.force_virtual_mesh(0, "cpu")
+    assert two.devices == 2 and two.last_phase_stats["n_devices"] == 2
+    assert got == want
 
 
 def test_unknown_backend_rejected():

@@ -737,12 +737,21 @@ def test_supervisor_spawn_argv_carries_mode_kernel_and_device():
 def test_daemon_refuses_other_device_counts_and_kernels(monkeypatch):
     from karpenter_core_tpu_torch.parallel import mesh as pmesh
 
-    # devices=2 clamps to the CPU's one device, as in the JAX package; a
-    # count that resolves above 1 is refused (A.13)
+    # devices=2 clamps to the CPU's one device, as in the JAX package; on
+    # an 8-device virtual CPU mesh it solves on a 2-device mesh with the
+    # JAX daemon's answer at devices=2
     assert pdaemon(devices=2).devices == 2
-    monkeypatch.setattr(pmesh, "_available", lambda device: 8)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        pdaemon(devices=2)
+    body = _encode([make_nodepool()], {"default": fake_instance_types(5)},
+                   [], [], [make_pod(cpu=1.0, name=f"d{i}")
+                            for i in range(12)], max_slots=64)
+    pmesh.force_virtual_mesh(8, "cpu")
+    try:
+        daemon = pdaemon(devices=2)
+        both(body, ref=jservice.SolverDaemon(devices=2), port=daemon)
+    finally:
+        pmesh.force_virtual_mesh(0, "cpu")
+    cached = next(iter(daemon._sched_cache._entries.values()))[0]
+    assert cached.devices == 2
     with pytest.raises(ValueError, match="unknown kernel"):
         service.SolverDaemon(device="cpu", kernel="pallas")
 
