@@ -200,10 +200,21 @@ on failure:
    exit code. Spawn-to-ready times, members' device memory and the RPC
    against the in-process wall are printed; every member stops.
 
+15. the port's bench: ``python3 bench_torch.py`` in a child process under
+   ``BENCH_FAST=1`` (bench.py's fast sizes: the primary at 50,000 pods x
+   800 types, the small cfg10-cfg18), its last line parsed: the device
+   block must name the card (``platform`` gpu, nvidia-smi's name), every
+   config must be ``correct`` (the JAX package's answers at these sizes),
+   every ``phases`` block of the kernel's backend must say ``cuda``, every
+   kernel-driven config must count kernel launches, and the exit code
+   must be 0 (1 only with ``budget_ok`` false: the primary's p50 over
+   bench.py's 1-s budget, a speed verdict, not an answer).
+
 It prints a sha256 digest of the sources it runs (``source_digest``), a
 ``{"kernels": [...]}`` line, the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. The problems are
-built here, from a fixed recipe (no randomness). ``fleet_expected.py``
+built from fixed recipes (no randomness), the bench's shared with
+``bench_torch.py``. ``fleet_expected.py``
 computes ``FLEET_EXPECTED_NODES``, ``SWEEP_EXPECTED``,
 ``OPERATOR_EXPECTED``, ``GANGS_EXPECTED``, ``GANG_TENANTS_EXPECTED``,
 ``TOPO_EXPECTED``, ``RELAX_EXPECTED``, ``HTTP_EXPECTED`` and
@@ -220,6 +231,16 @@ import subprocess
 import sys
 import time
 
+# the bench's recipes, one copy for the port's bench and this smoke
+from bench_torch import (  # noqa: F401
+    _gang_tier_pods,
+    _plain_pods,
+    _pool,
+    _relax_world as relax_world,
+    _result_cost as result_cost,
+    _topology_pods,
+)
+
 GIB = 2.0**30
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 non-tensor ops/s
 PEAK_BYTES_S = 3.35e12
@@ -229,14 +250,15 @@ EXPECTED_NODES = {"plain_50k_800": 444, "plain_5k_400": 171,
 
 
 def source_digest():
-    """(sha256 hex, file count) over this script and the port package's
-    Python and CUDA sources, in path order; computable without a card:
+    """(sha256 hex, file count) over this script, the port's bench
+    (``bench_torch.py``) and the port package's Python and CUDA sources, in
+    path order; computable without a card:
     ``python3 -c 'import chip_smoke; print(chip_smoke.source_digest())'``."""
     from pathlib import Path
 
     root = Path(__file__).resolve().parent
     pkg = root / "karpenter_core_tpu_torch"
-    files = [root / "chip_smoke.py"] + sorted(
+    files = [root / "chip_smoke.py", root / "bench_torch.py"] + sorted(
         p for p in pkg.rglob("*")
         if p.suffix in (".py", ".cu") and "build" not in p.parts)
     h = hashlib.sha256()
@@ -244,122 +266,6 @@ def source_digest():
         h.update(str(p.relative_to(root)).encode() + b"\0")
         h.update(p.read_bytes())
     return h.hexdigest(), len(files)
-
-
-def _pool(name="default"):
-    from karpenter_core_tpu_torch.api.nodepool import NodePool, NodePoolSpec
-    from karpenter_core_tpu_torch.api.objects import ObjectMeta
-
-    pool = NodePool(metadata=ObjectMeta(name=name))
-    pool.spec = NodePoolSpec()
-    return pool
-
-
-def _plain_pods(n, shapes=(16, 12)):
-    """Diverse cpu/mem shapes -> many pod classes (the bench's plain mix)."""
-    from karpenter_core_tpu_torch.api.objects import ObjectMeta, Pod
-
-    a, b = shapes
-    return [
-        Pod(
-            metadata=ObjectMeta(name=f"p{i}"),
-            resource_requests={
-                "cpu": 0.1 * (1 + i % a),
-                "memory": 0.25 * GIB * (1 + (i // a) % b),
-            },
-        )
-        for i in range(n)
-    ]
-
-
-def _topology_pods(n, n_deploys=10):
-    """The bench's diverse topology mix: 1/6 each generic, zonal node
-    affinity, nodeSelector, zone spread, hostname spread, hostname
-    anti-affinity, in deployment-style cohorts."""
-    from karpenter_core_tpu_torch.api import labels as L
-    from karpenter_core_tpu_torch.api.objects import (
-        Affinity,
-        LabelSelector,
-        NodeAffinity,
-        NodeSelectorRequirement,
-        NodeSelectorTerm,
-        ObjectMeta,
-        Pod,
-        PodAffinity,
-        PodAffinityTerm,
-        TopologySpreadConstraint,
-    )
-
-    def selector(labels):
-        return LabelSelector(match_labels=tuple(sorted(labels.items())))
-
-    pods = []
-    for i in range(n):
-        kind = i % 6
-        dep = (i // 6) % n_deploys
-        requests = {
-            "cpu": 0.1 * (1 + i % 8),
-            "memory": 0.25 * GIB * (1 + (i // 8) % 6),
-        }
-        name = f"t{i}"
-        if kind == 0:
-            pods.append(Pod(metadata=ObjectMeta(name=name),
-                            resource_requests=requests))
-        elif kind == 1:
-            pods.append(Pod(
-                metadata=ObjectMeta(name=name),
-                resource_requests=requests,
-                affinity=Affinity(node_affinity=NodeAffinity(required=[
-                    NodeSelectorTerm(match_expressions=(
-                        NodeSelectorRequirement(
-                            L.LABEL_TOPOLOGY_ZONE, "In",
-                            ("zone-a", "zone-b")),
-                    ))
-                ])),
-            ))
-        elif kind == 2:
-            pods.append(Pod(
-                metadata=ObjectMeta(name=name),
-                resource_requests=requests,
-                node_selector={L.LABEL_OS: "linux"},
-            ))
-        elif kind == 3:
-            labels = {"app": f"spread-z-{dep}"}
-            pods.append(Pod(
-                metadata=ObjectMeta(name=name, labels=labels),
-                resource_requests=requests,
-                topology_spread_constraints=[TopologySpreadConstraint(
-                    max_skew=1,
-                    topology_key=L.LABEL_TOPOLOGY_ZONE,
-                    when_unsatisfiable="DoNotSchedule",
-                    label_selector=selector(labels),
-                )],
-            ))
-        elif kind == 4:
-            labels = {"app": f"spread-h-{dep}"}
-            pods.append(Pod(
-                metadata=ObjectMeta(name=name, labels=labels),
-                resource_requests=requests,
-                topology_spread_constraints=[TopologySpreadConstraint(
-                    max_skew=1,
-                    topology_key=L.LABEL_HOSTNAME,
-                    when_unsatisfiable="DoNotSchedule",
-                    label_selector=selector(labels),
-                )],
-            ))
-        else:
-            labels = {"app": f"anti-{dep}"}
-            pods.append(Pod(
-                metadata=ObjectMeta(name=name, labels=labels),
-                resource_requests=requests,
-                affinity=Affinity(pod_anti_affinity=PodAffinity(required=[
-                    PodAffinityTerm(
-                        topology_key=L.LABEL_HOSTNAME,
-                        label_selector=selector(labels),
-                    )
-                ])),
-            ))
-    return pods
 
 
 def problems():
@@ -764,6 +670,12 @@ def _idle_share(fn, cpu=True):
     not overlap). None when the profiler recorded no device time.
     ``cpu=False`` traces the device only: a long host-bound run (the twin)
     spends most of a CPU trace recording its host ops."""
+    return traced_idle(fn, cpu)[0]
+
+
+def traced_idle(fn, cpu=True):
+    """(``_idle_share``, the scan kernel's launches in the trace) over one
+    profiled run of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -776,12 +688,14 @@ def _idle_share(fn, cpu=True):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
     busy_us = sum(
         getattr(evt, "self_device_time_total",
                 getattr(evt, "self_cuda_time_total", 0.0))
-        for evt in prof.key_averages()
+        for evt in events
     )
-    return 1.0 - busy_us / wall_us if busy_us else None
+    scans = sum(evt.count for evt in events if "k_ffd_scan" in evt.key)
+    return (1.0 - busy_us / wall_us if busy_us else None), scans
 
 
 def _canonical(res):
@@ -2058,62 +1972,14 @@ def gangs_problem(n_pods=None, pool="default", fail_gangs=None):
     tier 0 cannot place, so the first scan's gang check rolls them back
     and a second scan runs (``n_pods`` and ``fail_gangs`` default to
     GANG_PODS and FAIL_GANGS). Returns (pool, catalog, existing, pods)."""
+    from bench_torch import _gangs_problem
+
     from karpenter_core_tpu_torch.api.objects import ObjectMeta, Pod
-    from karpenter_core_tpu_torch.cloudprovider.kwok import build_catalog
-    from karpenter_core_tpu_torch.controllers.provisioning.scheduling.inflight import (
-        EvictablePod,
-        SimNode,
-    )
     from karpenter_core_tpu_torch.solver.gangs import GANG_ANNOTATION
 
     n_pods = GANG_PODS if n_pods is None else n_pods
     fail_gangs = FAIL_GANGS if fail_gangs is None else fail_gangs
-    catalog = build_catalog(cpu_grid=[1, 2, 4])
-    existing = [
-        SimNode(
-            name=f"exist-{i}",
-            labels={
-                "topology.kubernetes.io/zone": "zone-a",
-                "kubernetes.io/hostname": f"exist-{i}",
-                "kubernetes.io/os": "linux",
-                "kubernetes.io/arch": "amd64",
-                "karpenter.sh/capacity-type": "on-demand",
-                "karpenter.sh/nodepool": pool,
-            },
-            taints=[],
-            available={"cpu": 0.5, "memory": 8 * GIB, "pods": 100.0},
-            capacity={"cpu": 16.0, "memory": 16 * GIB, "pods": 110.0},
-            initialized=True,
-            evictable=tuple(
-                EvictablePod(
-                    uid=f"victim-{i}-{j}", priority=0,
-                    requests={"cpu": 3.0, "memory": 0.5 * GIB},
-                    cost=1.0 + 0.01 * j,
-                )
-                for j in range(4)
-            ),
-        )
-        for i in range(max(4, n_pods // 250))
-    ]
-    n_gang = int(n_pods * 0.15) // 8 * 8
-    pods = [
-        Pod(metadata=ObjectMeta(name=f"g{i}", annotations={
-                GANG_ANNOTATION: f"gang-{i // 8}"}),
-            resource_requests={"cpu": 0.5 * (1 + (i // 8) % 3),
-                               "memory": 0.25 * GIB * (1 + (i // 8) % 4)})
-        for i in range(n_gang)
-    ]
-    pods += [
-        Pod(metadata=ObjectMeta(name=f"c{i}"),
-            resource_requests={"cpu": 6.0,
-                               "memory": 0.25 * GIB * (1 + i % 16)},
-            priority=2_000_000_000)
-        for i in range(int(n_pods * 0.10))
-    ]
-    plain = _plain_pods(n_pods - len(pods))
-    for p in plain:
-        p.metadata.name = f"pl-{p.metadata.name}"
-    pods += plain
+    catalog, existing, pods = _gangs_problem(n_pods, pool=pool)
     pods += [
         Pod(metadata=ObjectMeta(name=f"fg{k}-{i}", annotations={
                 GANG_ANNOTATION: f"fgang-{k}"}),
@@ -2132,54 +1998,14 @@ def topo_problem(pool="default"):
     interleaved in slot order, racks of 2 nodes, superpods of 2 racks), on
     a ``cpu_grid=[1, 2]`` catalog (fresh nodes top out at 2 cpu, so the
     gangs live on the fleet). Returns (pool, catalog, existing, pods)."""
-    from karpenter_core_tpu_torch.api import labels as L
-    from karpenter_core_tpu_torch.api.objects import ObjectMeta, Pod
-    from karpenter_core_tpu_torch.cloudprovider.kwok import build_catalog
-    from karpenter_core_tpu_torch.controllers.provisioning.scheduling.inflight import (
-        SimNode,
-    )
-    from karpenter_core_tpu_torch.solver.gangs import (
-        GANG_ANNOTATION,
-        GANG_MAX_HOPS_ANNOTATION,
-        GANG_MIN_SIZE_ANNOTATION,
-        GANG_RANK_ANNOTATION,
-    )
+    from bench_torch import _racked_nodes, _topoaware_pods
 
-    existing = []
-    for i in range(4 * TOPO_GANGS + 8):
-        zone = "zone-a" if i % 2 == 0 else "zone-b"
-        zi = i // 2
-        existing.append(SimNode(
-            name=f"exist-{i}",
-            labels={
-                "topology.kubernetes.io/zone": zone,
-                "kubernetes.io/hostname": f"exist-{i}",
-                "kubernetes.io/os": "linux",
-                "kubernetes.io/arch": "amd64",
-                "karpenter.sh/capacity-type": "on-demand",
-                "karpenter.sh/nodepool": pool,
-                L.LABEL_TOPOLOGY_RACK: f"{zone}-r{zi // 2}",
-                L.LABEL_TOPOLOGY_SUPERPOD: f"{zone}-s{zi // 4}",
-            },
-            taints=[],
-            available={"cpu": 6.5, "memory": 8 * GIB, "pods": 100.0},
-            capacity={"cpu": 16.0, "memory": 16 * GIB, "pods": 110.0},
-            initialized=True,
-        ))
-    pods = [
-        Pod(metadata=ObjectMeta(name=f"tg{g}-{i}", annotations={
-                GANG_ANNOTATION: f"tgang-{g}",
-                GANG_MIN_SIZE_ANNOTATION: "8",
-                GANG_MAX_HOPS_ANNOTATION: "2",
-                GANG_RANK_ANNOTATION: str(i)}),
-            resource_requests={"cpu": 3.0, "memory": 0.25 * GIB})
-        for g in range(TOPO_GANGS) for i in range(8)
-    ]
-    plain = _plain_pods(TOPO_PLAIN)
-    for p in plain:
-        p.metadata.name = f"pl-{p.metadata.name}"
+    from karpenter_core_tpu_torch.cloudprovider.kwok import build_catalog
+
+    existing = _racked_nodes(4 * TOPO_GANGS + 8, with_topo_labels=True,
+                             pool=pool)
     return (_pool(pool), build_catalog(cpu_grid=[1, 2]), existing,
-            pods + plain)
+            _topoaware_pods(TOPO_GANGS, TOPO_PLAIN))
 
 
 def gang_scheduler(problem, kernel_backend="cuda", device="cuda",
@@ -2651,50 +2477,6 @@ RELAX_EXPECTED = {
 }
 
 
-def relax_world():
-    """bench.py ``_relax_bench``'s two pools: ``a-first`` (first by name)
-    offers only 4-cpu nodes, ``b-dense`` 16-cpu nodes at 0.75x the kwok
-    price, so first-template-wins packs a-first and the relaxation
-    b-dense. Returns (pools, instance types)."""
-    from karpenter_core_tpu_torch.cloudprovider.kwok import build_catalog
-
-    cat_a = build_catalog(cpu_grid=[4], mem_factors=[4], oses=["linux"],
-                          arches=["amd64"])
-    cat_b = build_catalog(cpu_grid=[16], mem_factors=[4], oses=["linux"],
-                          arches=["amd64"])
-    for it in cat_b:
-        for off in it.offerings:
-            off.price *= 0.75
-    return ([_pool("a-first"), _pool("b-dense")],
-            {"a-first": list(cat_a), "b-dense": list(cat_b)})
-
-
-def _gang_tier_pods(n):
-    """bench.py ``_relax_bench``'s cfg11-shaped traffic: 15% in 8-pod
-    gangs, 10% at priority 1e6, the rest plain."""
-    from karpenter_core_tpu_torch.api.objects import ObjectMeta, Pod
-    from karpenter_core_tpu_torch.solver.gangs import GANG_ANNOTATION
-
-    n_gang = int(n * 0.15) // 8 * 8
-    pods = [
-        Pod(metadata=ObjectMeta(name=f"g{i}", annotations={
-                GANG_ANNOTATION: f"gang-{i // 8}"}),
-            resource_requests={"cpu": 0.5 * (1 + (i // 8) % 3),
-                               "memory": 0.25 * GIB * (1 + (i // 8) % 4)})
-        for i in range(n_gang)
-    ]
-    pods += [
-        Pod(metadata=ObjectMeta(name=f"c{i}"),
-            resource_requests={"cpu": 1.0, "memory": 0.25 * GIB * (1 + i % 4)},
-            priority=1_000_000)
-        for i in range(int(n * 0.10))
-    ]
-    plain = _plain_pods(n - len(pods), shapes=(4, 3))
-    for p in plain:
-        p.metadata.name = f"pl-{p.metadata.name}"
-    return pods + plain
-
-
 def relax_problems(n_pods=None):
     """problem -> pods factory: bench.py ``_relax_bench``'s two shapes."""
     n = RELAX_PODS if n_pods is None else n_pods
@@ -2711,14 +2493,6 @@ def relax_scheduler(mode, kernel_backend="cuda"):
     return DeviceScheduler(pools, its, max_slots=RELAX_SLOTS,
                            solver_mode=mode, kernel_backend=kernel_backend,
                            device="cuda")
-
-
-def result_cost(res):
-    """bench.py's $-cost of a result: the cheapest available offering of
-    each new claim's instance-type options."""
-    return sum(min(off.price for it in c.instance_type_options
-                   for off in it.offerings if off.available)
-               for c in res.new_node_claims)
 
 
 def relax_summary(res, pods, stats):
@@ -4509,6 +4283,116 @@ def mesh_phase():
     return out
 
 
+# configs whose readings count no kernel launch: the fast twin runs only
+# greedy-solver scenarios, and the incremental engine's replayed rounds
+# re-solve their dirty classes on the host (solver/incremental.py
+# _replay_partial)
+BENCH_NO_KERNEL = ("cfg14_twin", "cfg15_incremental")
+
+
+def _walk(tree, path=()):
+    """(path, dict) of every dict in a JSON tree."""
+    if isinstance(tree, dict):
+        yield path, tree
+        for k, v in tree.items():
+            yield from _walk(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _walk(v, path + (i,))
+
+
+def bench_child():
+    """``python3 bench_torch.py`` under BENCH_FAST=1 (bench.py's fast sizes)
+    in a child process: (its process result, its last JSON line or None,
+    wall seconds)."""
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BENCH_PODS", "BENCH_TYPES")}
+    env["BENCH_FAST"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(root / "bench_torch.py")],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    line = None
+    for cand in reversed(proc.stdout.strip().splitlines()):
+        try:
+            line = json.loads(cand)
+            break
+        except ValueError:
+            continue
+    return proc, line, wall
+
+
+def bench_phase(card_name):
+    """Phase 15: the port's bench (``bench_torch.py``) under BENCH_FAST=1
+    in a child process on the card, its last JSON line held to the card,
+    the JAX package's answers and the kernel."""
+    proc, line, wall = bench_child()
+    if line is None:
+        raise AssertionError(f"bench_torch.py printed no JSON line (rc"
+                             f" {proc.returncode}): {proc.stderr[-2000:]}")
+    return hold_bench_line(line, proc.returncode, card_name, wall,
+                           proc.stderr)
+
+
+def hold_bench_line(line, rc, card_name, wall, stderr=""):
+    """Phase 15's checks of bench_torch.py's JSON line and exit code."""
+    dev = line["device"]
+    if dev["platform"] != "gpu" or dev["name"] != card_name:
+        raise AssertionError(f"bench_torch.py device block {dev}, expected"
+                             f" the card {card_name!r}")
+    wrong = [n for n, c in line["detail"].items() if not c["correct"]]
+    if wrong or not line["correct"]:
+        raise AssertionError(f"bench_torch.py: configs not correct {wrong}:"
+                             + json.dumps({n: [line["detail"][n]["answers"],
+                                               line["detail"][n]["expected"]]
+                                           for n in wrong}))
+    backends, launches = {}, {}
+    for name, cfg in line["detail"].items():
+        for path, d in _walk(cfg):
+            where = ".".join(map(str, (name,) + path))
+            # cfg17 runs the plain scan on purpose as the kernel's oracle
+            plain = "reference" in path
+            if "kernel_backend" in d:
+                backends[where] = d["kernel_backend"]
+                if d["kernel_backend"] != ("reference" if plain else "cuda"):
+                    raise AssertionError(f"{where}: kernel_backend"
+                                         f" {d['kernel_backend']}")
+            if "kernel_launches" in d:
+                launches[where] = d["kernel_launches"]
+                if plain and d["kernel_launches"]:
+                    raise AssertionError(f"{where}: the plain scan launched"
+                                         f" the kernel")
+    ran = [n for n in line["detail"] if n not in BENCH_NO_KERNEL]
+    missing = [n for n in ran if not any(w.split(".")[0] == n and v > 0
+                                         for w, v in launches.items())]
+    if missing:
+        raise AssertionError(f"bench_torch.py: no kernel launches counted"
+                             f" for {missing}")
+    want_rc = 0 if line["budget_ok"] else 1
+    if rc != want_rc:
+        raise AssertionError(f"bench_torch.py exited {rc}, expected"
+                             f" {want_rc}: {stderr[-2000:]}")
+    primary = line["detail"]["primary"]
+    out = dict(wall_s=wall, rc=rc, build_s=line["build_s"],
+               configs=list(line["detail"]), budget_ok=line["budget_ok"],
+               primary_p50_s=primary["p50_solve_s"],
+               primary_launches=primary["phases"]["kernel_launches"],
+               launches=sum(launches.values()),
+               source_digest=line["source_digest"])
+    print(f"bench [BENCH_FAST=1]: {len(line['detail'])} configs correct on"
+          f" {dev['name']} ({dev['power_limit_w']} W); kernel_backend cuda"
+          f" on {sum(1 for v in backends.values() if v == 'cuda')} phases"
+          f" blocks; kernel launches {json.dumps(launches)}; primary p50"
+          f" {primary['p50_solve_s']} s (budget_ok {line['budget_ok']});"
+          f" rc {rc}; {wall:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4590,6 +4474,9 @@ def main() -> int:
     # spawned fleet
     mesh = mesh_phase()
     done(14)
+    # 15. the port's bench under BENCH_FAST=1, in a child
+    bench = bench_phase(smi.rsplit(",", 1)[0].strip())
+    done(15)
     held = mesh["sweep"]["held"]
 
     k50 = krows[0]
@@ -4619,6 +4506,8 @@ def main() -> int:
         "plain_ms_per_step": k50["plain_ms_per_step"],
         "shapes": krows,
         "main_path": mrows,
+        # phase 15's child process: its own launches, not in this count
+        "bench": bench,
     }, {
         "name": "ffd_step_batched",
         "route": "cuda",

@@ -8,10 +8,10 @@ same problems: ``FLEET_EXPECTED_NODES`` (phase 6), ``SWEEP_EXPECTED``
 
 Run from the root of a checkout, on the CPU:
 
-    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator] [gangs] [relax] [http] [twin]
+    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator] [gangs] [relax] [http] [twin] [bench]
 
-(all seven when none is named). Every problem comes from chip_smoke.py's
-own recipe (built with the port's classes and carried into the JAX
+(all but bench when none is named). Every problem comes from chip_smoke.py's
+own recipe (the bench's shared with bench_torch.py) (built with the port's classes and carried into the JAX
 package's by pickling, the inverse of
 ``karpenter_core_tpu_torch.interop.from_reference``):
 
@@ -42,9 +42,17 @@ package's by pickling, the inverse of
   macro scenario (``chip_smoke.twin_scenarios()["macro"]``, carried over
   as the scenario's JSON): ``chip_smoke.twin_summary`` (the ledger JSON's
   sha256, pods bound, peak nodes and $-hours by cluster).
+* bench: the answers ``bench_torch.py`` holds its configs to that bench.py
+  does not print, through its ``DeviceScheduler`` (xla backend) on the
+  bench's recipes (bench.py's own where they are functions, else
+  bench_torch.py's carried over): shape_churn's node count a round, the
+  cfg10 tenant problem's node count (default and BENCH_FAST sizes) and
+  cfg11's final warm solve's node count (default and BENCH_FAST sizes).
+  Pinned in ``bench_torch.EXPECTED`` / ``EXPECTED_FAST`` (run only when
+  named: ``fleet_expected.py bench``, ~2 min).
 
 The script prints each answer and exits 1 if one differs from the value
-pinned in chip_smoke.py.
+pinned in chip_smoke.py (bench: in bench_torch.py).
 """
 from __future__ import annotations
 
@@ -264,19 +272,97 @@ def twin():
     return chip_smoke.twin_summary(result), chip_smoke.TWIN_EXPECTED
 
 
+def bench_churn_nodes(n=20000, types=800, rounds=6):
+    """bench.py ``_shape_churn_bench``'s rounds on one scheduler: the node
+    count a round."""
+    import bench
+    from karpenter_core_tpu.cloudprovider.kwok import bench_catalog
+    from karpenter_core_tpu.models.provisioner import DeviceScheduler
+
+    sched = DeviceScheduler([bench._pool()],
+                            {"default": list(bench_catalog(types))},
+                            max_slots=1024)
+    out = []
+    for r in range(rounds):
+        res = sched.solve(bench._plain_pods(
+            n + 53 * r, shapes=(14 + r % 3, 11 + r % 2)))
+        assert res.all_pods_scheduled()
+        out.append(res.node_count())
+    return out
+
+
+def bench_batch_nodes(n_pods=120, n_types=60):
+    """bench.py ``_batch_bench``'s tenant problem (every tenant's has the
+    same shape; the pool name differs): its node count."""
+    import bench
+    from karpenter_core_tpu.cloudprovider.kwok import bench_catalog
+    from karpenter_core_tpu.models.provisioner import DeviceScheduler
+
+    res = DeviceScheduler([bench._pool("bt00")],
+                          {"bt00": list(bench_catalog(n_types))},
+                          max_slots=256).solve(
+        bench._plain_pods(n_pods, shapes=(6, 4)))
+    assert res.all_pods_scheduled()
+    return res.node_count()
+
+
+def bench_gangs_nodes(n_pods=20000, n_existing=None, repeats=3):
+    """cfg11's problem (``bench_torch._gangs_problem``, bench.py's inline
+    recipe) through one scheduler, a cold solve then ``repeats`` warm
+    ones: the last solve's node count."""
+    import bench_torch
+    from karpenter_core_tpu.models.provisioner import DeviceScheduler
+
+    catalog, existing, pods = to_reference(
+        bench_torch._gangs_problem(n_pods, n_existing))
+    sched = DeviceScheduler([to_reference(bench_torch._pool())],
+                            {"default": list(catalog)},
+                            existing_nodes=existing, max_slots=4096)
+    for _ in range(1 + repeats):
+        res = sched.solve(pods)
+    return res.node_count()
+
+
+def bench():
+    import bench_torch
+
+    got = {
+        "default": {
+            "shape_churn": {"nodes_by_round": bench_churn_nodes()},
+            "cfg10_batch": {"nodes": [bench_batch_nodes()]},
+            "cfg11_gangs": {"nodes": bench_gangs_nodes()},
+        },
+        "fast": {
+            "cfg10_batch": {"nodes": [bench_batch_nodes(24, 12)]},
+            "cfg11_gangs": {"nodes": bench_gangs_nodes(200, 4, repeats=2)},
+        },
+    }
+    tables = {"default": bench_torch.EXPECTED,
+              "fast": bench_torch.EXPECTED_FAST}
+    pinned = {
+        size: {name: {k: (tables[size].get(name) or {}).get(k)
+                      for k in answer}
+               for name, answer in configs.items()}
+        for size, configs in got.items()
+    }
+    return got, pinned
+
+
 PARTS = {"fleet": fleet, "sweep": sweep, "operator": operator,
-         "gangs": gangs, "relax": relax, "http": http, "twin": twin}
+         "gangs": gangs, "relax": relax, "http": http, "twin": twin,
+         "bench": bench}
 
 
 def main(argv) -> int:
-    names = argv or list(PARTS)
+    names = argv or [name for name in PARTS if name != "bench"]
     same = True
     for name in names:
         t0 = time.perf_counter()
         got, pinned = PARTS[name]()
         print(f"{name} ({time.perf_counter() - t0:.1f} s): {got}")
-        print("equal to the pinned value in chip_smoke.py" if got == pinned
-              else "DIFFERENT from the pinned value in chip_smoke.py")
+        where = "bench_torch.py" if name == "bench" else "chip_smoke.py"
+        print(f"equal to the pinned value in {where}" if got == pinned
+              else f"DIFFERENT from the pinned value in {where}")
         same = same and got == pinned
     return 0 if same else 1
 

@@ -1,8 +1,9 @@
 """Layout rules of the PyTorch port.
 
-* No module of the port, and not chip_smoke.py, imports JAX or anything of
-  the JAX package (an AST scan of every import statement, including the
-  ones inside functions).
+* No module of the port, and not chip_smoke.py or bench_torch.py, imports
+  JAX or anything of the JAX package, nor bench.py or fleet_expected.py
+  (which drive it): an AST scan of every import statement, including the
+  ones inside functions.
 * The host-side modules copied from the JAX package equal their sources
   byte for byte once the package name is rewritten (read as text, never
   imported here).
@@ -85,11 +86,13 @@ def _imported_modules(path: Path):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "karpenter_core_tpu")
+    return top in ("jax", "jaxlib", "karpenter_core_tpu", "bench",
+                   "fleet_expected")
 
 
 def _port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "bench_torch.py"]
     return [f for f in files if "build" not in f.relative_to(ROOT).parts]
 
 
@@ -97,6 +100,7 @@ def test_port_sources_exist():
     names = {str(f.relative_to(ROOT)) for f in _port_sources()}
     for required in (
         "chip_smoke.py",
+        "bench_torch.py",
         "karpenter_core_tpu_torch/interop.py",
         "karpenter_core_tpu_torch/utils/device.py",
         "karpenter_core_tpu_torch/ops/ffd.py",
@@ -215,3 +219,14 @@ def test_default_device_raises_without_gpu():
     pool.spec = NodePoolSpec()
     with pytest.raises(RuntimeError, match="cuda"):
         DeviceScheduler([pool], {"default": build_catalog()[:4]})
+
+
+def test_source_digest_covers_the_bench():
+    """chip_smoke.source_digest() ties a run to a tree: this script, the
+    port's bench and every Python and CUDA source of the package."""
+    import chip_smoke
+
+    digest, n_files = chip_smoke.source_digest()
+    pkg = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu")
+           and "build" not in p.relative_to(ROOT).parts]
+    assert n_files == len(pkg) + 2 and len(digest) == 64
