@@ -14,9 +14,10 @@ on failure:
    port's own prepare hands the scan at the 50k-pod x 800-type plain shape
    and the 5k-pod x 400-type topology shape: every plane of the final slot
    state, the takes and the unplaced counts must be bit-equal, on the full
-   grid and on a grid forced down to 2 blocks; times the kernel's scan and
-   the plain scan with CUDA events, and splits a step by stage from the
-   kernel's own device clock stamps;
+   grid and on a grid forced down to 2 blocks; times the kernel's scan
+   (the wrapper's pack and unpack passes of the requirement plane
+   included, and timed alone) and the plain scan with CUDA events, and
+   splits a step by stage from the kernel's own device clock stamps;
 4. main path: ``DeviceScheduler(device="cuda").solve`` on the three bench
    problems (50k plain pods x 800 types, 5k plain x 400, 5k topology x
    400), one cold solve and three warm ones each, with the plain step
@@ -58,14 +59,20 @@ on failure:
 7. consolidation sweep: multi-node consolidation's prefix sweep at
    BASELINE config 4 (2,000 nodes, 100 candidate prefixes, 400 types,
    2560 slots) through ``models/consolidation.frontier_core``, with the
-   plain step made to raise: one kernel launch of 100 rows a sweep, and
-   the frontier equal to the JAX package's (``SWEEP_EXPECTED``). Its
-   stacked scan must be bit-equal to the plain batched scan on the full
-   grid and on 2 blocks, each row to the solo kernel, and the prepared
-   state unchanged. Prints the stacked bytes, times the kernel's scan,
-   the device sweep (stack, scan, verdicts) cold and warm, the plain
-   scan and ``frontier_core``, splits a step by stage, and the device idle
-   share of a profiled warm sweep;
+   plain step made to raise: one kernel launch of 100 rows a sweep,
+   through the sweep's entry (``cuda_ffd_solve_prefixes``, counted in
+   ``counter.prefix_launches``), and the frontier equal to the JAX
+   package's (``SWEEP_EXPECTED``). Its stacked scan (the slot state
+   packed, the class steps and statics one copy shared by the rows) must
+   be bit-equal to the plain batched scan on the full grid and on 2
+   blocks, each row to the solo kernel, the final plane unpacked for the
+   comparison, and the prepared state unchanged. Prints the packed and
+   shared bytes against the old interface's, times the kernel's scan, the
+   device sweep (stack, scan, verdicts) cold and warm, the plain scan and
+   ``frontier_core``, splits a step by stage, gives three bounds (the
+   scan's interface, the old stacked interface, the bytes the sweep
+   needs), the peak device memory of one warm ``frontier_core`` and the
+   device idle share of a profiled warm sweep;
 8. operator: the port's ``Operator(Options(solver="tpu"))`` with its
    defaults (device cuda, kernel cuda) and the plain step made to raise,
    on 5,000 pending pods over 400 types and on a 100-node under-utilized
@@ -611,19 +618,27 @@ def kernel_phase():
         bound_ms, bound_by = _bound(req, *k_out)
         stages = _stage_stamps(
             lambda st: cuda_ffd.cuda_ffd_solve(*args, _stamps=st), J)
+        # the wrapper's two passes around the launch (in ms above): the
+        # plane packed for the kernel, and the final plane unpacked
+        vm = req.init_state.valmask
+        packed = cuda_ffd.pack_values(vm)
+        pack_ms = _time_ms(lambda: cuda_ffd.pack_values(vm), 50)
+        unpack_ms = _time_ms(lambda: cuda_ffd.unpack_values(packed), 50)
         rows.append(dict(
             problem=name, J=J, N=N, T=T, K=K, V=V, blocks=blocks,
             unequal=0, max_abs_err=err,
             ms=ms, ms_per_step=ms / J, plain_ms=plain_ms,
             plain_ms_per_step=plain_ms / J,
             bound_ms=bound_ms, bound_by=bound_by, stage_us_per_step=stages,
+            pack_ms=pack_ms, unpack_ms=unpack_ms,
         ))
         print(f"kernel vs plain [{name}] J={J} N={N} T={T} K={K} V={V}:"
               f" 0 unequal elements on {blocks} blocks and on 2; scan"
-              f" {ms:.3f} ms ({ms / J * 1e3:.2f} us/step) vs plain"
-              f" {plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by});"
-              f" device us/step by stage (stamps) {json.dumps(stages)}",
-              flush=True)
+              f" {ms:.3f} ms ({ms / J * 1e3:.2f} us/step; the wrapper's"
+              f" pack {pack_ms:.4f} ms and unpack {unpack_ms:.4f} ms"
+              f" included) vs plain {plain_ms:.1f} ms; bound"
+              f" {bound_ms:.4f} ms ({bound_by}); device us/step by stage"
+              f" (stamps) {json.dumps(stages)}", flush=True)
 
     # every constraint family and existing nodes, at small widths
     from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
@@ -836,25 +851,31 @@ def fleet_groups(reqs):
     return list(groups.values())
 
 
-def hold_batched_bit_equal(state, steps, statics, li, names, grids=(0,)):
+def hold_batched_bit_equal(state, steps, statics, li, names, grids=(0,),
+                           scan=None):
     """Run a stacked scan through the batched kernel (on a copy of the
     state, which it updates in place), once for each grid cap in ``grids``
     (0: the full grid), and through the plain batched scan on the card;
     raise unless every plane is bit-equal, row b is bit-equal to the solo
     kernel's scan of row b for each member ``names[b]``, and each pad row
-    past the members equals row 0. Returns (the full grid's kernel outputs,
-    the planes' largest absolute difference (0.0), plain scan ms)."""
+    past the members equals row 0. ``scan`` is the kernel's entry
+    (``cuda_ffd_solve_batched`` by default; the sweep's packed stack runs
+    through ``cuda_ffd_solve_prefixes``); a packed final plane is
+    unpacked for the comparisons. Returns (the full grid's kernel outputs
+    as the entry gave them; the planes' largest absolute difference (0.0);
+    plain scan ms)."""
     from karpenter_core_tpu_torch.ops import cuda_ffd, ffd
     from karpenter_core_tpu_torch.ops.ffd import _row
 
+    scan = scan or cuda_ffd.cuda_ffd_solve_batched
+    plain_state = cuda_ffd.unpack_state(state)
     p_out, plain_ms = _time_once(
-        lambda: ffd.ffd_solve_batched(state, steps, statics, li))
+        lambda: ffd.ffd_solve_batched(plain_state, steps, statics, li))
     pb = _planes(*p_out)
     err = 0.0
     for grid in grids:
-        out = cuda_ffd.cuda_ffd_solve_batched(_copy(state), steps, statics,
-                                              li, _max_blocks=grid)
-        kg = _planes(*out)
+        out = scan(_copy(state), steps, statics, li, _max_blocks=grid)
+        kg = _planes(cuda_ffd.unpack_state(out[0]), *out[1:])
         bad = {k: n for k in kg if (n := _unequal(kg[k], pb[k]))}
         if bad:
             raise AssertionError(f"{names} (grid cap {grid}, blocks"
@@ -865,7 +886,7 @@ def hold_batched_bit_equal(state, steps, statics, li, names, grids=(0,)):
             k_out, kb = out, kg
     for b, name in enumerate(names):
         sp = _planes(*cuda_ffd.cuda_ffd_solve(
-            _row(state, b), _row(steps, b), _row(statics, b), li))
+            _row(plain_state, b), _row(steps, b), _row(statics, b), li))
         bad = {k: n for k in sp if (n := _unequal(kb[k][b], sp[k]))}
         if bad:
             raise AssertionError(f"{name}: batched row != solo kernel on {bad}")
@@ -1374,14 +1395,43 @@ def _tree_bytes(*trees):
                if x is not None)
 
 
+def _stack_bound(init, steps, statics, state, takes, unplaced):
+    """``_bound_batched`` of a stacked scan at its own interface: every
+    row's slot state read and written as the kernel has it (packed or
+    not), and a leaf shared over the rows (stride 0) read once; the same
+    operations."""
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+
+    ops = sum(t[1] for t in _batched_terms(
+        cuda_ffd.unpack_state(init), steps, statics,
+        cuda_ffd.unpack_state(state), takes, unplaced))
+    moved = (_tree_bytes(init, state) + _stored_bytes(steps, statics)
+             + takes.numel() * 4 + unplaced.numel() * 4)
+    return _bound_ms([(moved, ops)])
+
+
+def _stored_bytes(*trees):
+    """``_tree_bytes`` counting a leaf expanded with stride 0 over its
+    leading axis (the sweep's shared class steps and statics) once."""
+    def one(x):
+        if x.dim() and x.shape[0] > 1 and x.stride(0) == 0:
+            x = x[0]
+        return x.numel() * x.element_size()
+
+    return sum(one(x) for t in trees for x in t if x is not None)
+
+
 def sweep_phase():
     """The consolidation sweep at config 4 through the kernel: the port's
-    ``frontier_core`` (one batched launch, B = 100) held to the JAX
-    package's frontier; its stacked scan held bit-equal to the plain
-    batched scan on the full grid and on 2 blocks, each row to the solo
-    kernel; timed (the kernel's scan, the whole sweep cold and warm, the
-    plain scan), split by stage from the stamps, with the device idle
-    share of one profiled warm sweep."""
+    ``frontier_core`` (one launch through the sweep's entry,
+    ``cuda_ffd_solve_prefixes``, B = 100) held to the JAX package's
+    frontier; its stacked scan (packed slot state, shared class steps and
+    statics) held bit-equal to the plain batched scan on the full grid and
+    on 2 blocks, each row to the solo kernel, the final plane unpacked for
+    the comparison; timed (the kernel's scan, the whole sweep cold and
+    warm, the plain scan), split by stage from the stamps, with the peak
+    device memory of one warm ``frontier_core`` and the device idle share
+    of one profiled warm sweep."""
     import torch
 
     from karpenter_core_tpu_torch.models import consolidation as cons
@@ -1405,16 +1455,28 @@ def sweep_phase():
             walls.append(time.perf_counter() - t0)
         grew = dict(cuda_ffd.counter.launches)
         if (grew != dict.fromkeys(cuda_ffd.KERNELS, 1)
+                or cuda_ffd.counter.prefix_launches != 1
                 or cuda_ffd.counter.rows != P):
-            raise AssertionError(f"sweep {rep}: launches {grew} over"
-                                 f" {cuda_ffd.counter.rows} rows, expected"
-                                 f" one launch over {P}")
+            raise AssertionError(
+                f"sweep {rep}: launches {grew}"
+                f" ({cuda_ffd.counter.prefix_launches} through"
+                f" cuda_ffd_solve_prefixes) over {cuda_ffd.counter.rows}"
+                f" rows, expected one launch of the sweep's entry over {P}")
         if frontier is None or not frontier_equal(frontier, SWEEP_EXPECTED):
             raise AssertionError(f"sweep {rep}: frontier"
                                  f" {run_length(frontier or [])} != the JAX"
                                  f" package's {SWEEP_EXPECTED}")
+    prefix_launches = cuda_ffd.counter.prefix_launches
     with plain_forbidden():
         idle = _idle_share(sweep, cpu=False)
+    # the peak device memory of one warm frontier_core, over what was
+    # allocated before it
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sweep()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
 
     # the sweep's stacked scan, held to the plain batched scan
     sched, prep, classes, kind_batch, count_batch = cons.sweep_problem(
@@ -1423,51 +1485,63 @@ def sweep_phase():
     it_price = torch.as_tensor(cons._it_price_vector(prep), device="cuda")
     init0 = _copy(prep.init_state)
     state, steps, statics = cons.prefix_stack(
-        prep.init_state, classes, prep.statics, kind_batch, count_batch)
+        cuda_ffd.pack_state(prep.init_state), classes, prep.statics,
+        kind_batch, count_batch)
     li = LEVEL_ITERS
     J = int(steps.count.shape[1])
-    N, K, V = (int(x) for x in state.valmask.shape[1:])
+    N, K = (int(x) for x in state.valmask.shape[1:3])
+    V = int(state.zcount.shape[2])
     T = int(state.itmask.shape[2])
-    stacked = _tree_bytes(state, steps, statics)
+    packed_bytes = _tree_bytes(state)
+    shared_bytes = _stored_bytes(steps, statics)
+    old_bytes = _tree_bytes(cuda_ffd.unpack_state(state), steps, statics)
     scratch = cuda_ffd.scratch_bytes(state, statics)
     outputs = P * J * N * 4 + P * J * 4
     print(f"sweep [config 4] P={P} J={J} N={N} T={T} K={K} V={V}: stacked"
-          f" inputs {stacked} bytes (state {_tree_bytes(state)}, steps"
-          f" {_tree_bytes(steps)}, statics {_tree_bytes(statics)}), scratch"
-          f" {scratch}, takes and unplaced {outputs}", flush=True)
+          f" inputs {packed_bytes + shared_bytes} bytes: the slot state,"
+          f" packed, {packed_bytes} ({P} rows), the shared class steps and"
+          f" statics {shared_bytes} (one copy, stride 0; steps"
+          f" {_stored_bytes(steps)}, statics {_stored_bytes(statics)});"
+          f" the old interface's {old_bytes} (P bool copies of every leaf);"
+          f" scratch {scratch}, takes and unplaced {outputs}", flush=True)
     names = [f"prefix-{p + 1}" for p in range(P)]
-    k_out, err, plain_ms = hold_batched_bit_equal(state, steps, statics, li,
-                                                  names, (0, 2))
+    k_out, err, plain_ms = hold_batched_bit_equal(
+        state, steps, statics, li, names, (0, 2),
+        scan=cuda_ffd.cuda_ffd_solve_prefixes)
     blocks = cuda_ffd.counter.blocks
 
     def kernel_ms(reps):
-        """The batched scan alone, by CUDA events, each on a fresh copy of
+        """The sweep's scan alone, by CUDA events, each on a fresh copy of
         the stacked state made outside the timed window."""
         total = 0.0
         for _ in range(reps):
             st = _copy(state)
             _out, ms = _time_once(
-                lambda: cuda_ffd.cuda_ffd_solve_batched(st, steps, statics,
-                                                        li))
+                lambda: cuda_ffd.cuda_ffd_solve_prefixes(st, steps, statics,
+                                                         li))
             total += ms
         return total / reps
 
     kernel_ms(1)  # warm
     ms = kernel_ms(10)
-    # the bound of the stacked interface (every row's copies read and
-    # written), and the bound of the bytes the sweep needs: one prepared
-    # state, one set of class steps and statics, the per-prefix kind and
-    # count planes, the per-prefix verdicts; the same operations
-    terms = _batched_terms(state, steps, statics, *k_out)
-    bound_ms, bound_by = _bound_ms(terms)
+    # three bounds, the same operations: the scan's own interface (every
+    # row's packed state read and written, one copy of the shared steps
+    # and statics), the old interface's (every row's bool copies of every
+    # leaf, as PRs 4-9 stacked them), and the bytes the sweep needs (one
+    # prepared state, one set of steps and statics, the per-prefix kind
+    # and count planes and verdicts), which no layout changes
+    terms = _batched_terms(cuda_ffd.unpack_state(state), steps, statics,
+                           cuda_ffd.unpack_state(k_out[0]), *k_out[1:])
+    ops = sum(t[1] for t in terms)
+    bound_ms, bound_by = _stack_bound(state, steps, statics, *k_out)
+    old_bound_ms, old_bound_by = _bound_ms(terms)
     unique_bytes = (_tree_bytes(prep.init_state, classes, prep.statics)
                     + kind_batch.size * state.kind.element_size()
                     + count_batch.size * steps.count.element_size()
                     + P * (4 + 4 + 1 + 4))
-    unique_bound_ms, unique_bound_by = _bound_ms(
-        [(unique_bytes, sum(t[1] for t in terms))])
+    unique_bound_ms, unique_bound_by = _bound_ms([(unique_bytes, ops)])
     stages = _stage_stamps(
-        lambda st: cuda_ffd.cuda_ffd_solve_batched(
+        lambda st: cuda_ffd.cuda_ffd_solve_prefixes(
             _copy(state), steps, statics, li, _stamps=st), J)
 
     # the whole device sweep (stack, scan, verdicts), cold and warm, and
@@ -1489,29 +1563,41 @@ def sweep_phase():
         raise AssertionError(f"the sweep wrote the prepared state: {bad}")
     row = dict(
         P=P, J=J, N=N, T=T, K=K, V=V, blocks=blocks, unequal=0,
-        max_abs_err=err, stacked_bytes=stacked, scratch_bytes=scratch,
-        output_bytes=outputs, ms=ms, ms_per_step=ms / J, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, unique_bytes=unique_bytes,
+        max_abs_err=err, packed_state_bytes=packed_bytes,
+        shared_bytes=shared_bytes, old_stacked_bytes=old_bytes,
+        scratch_bytes=scratch, output_bytes=outputs, ms=ms,
+        ms_per_step=ms / J, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, old_bound_ms=old_bound_ms,
+        old_bound_by=old_bound_by, unique_bytes=unique_bytes,
         unique_bound_ms=unique_bound_ms, unique_bound_by=unique_bound_by,
-        stage_us_per_step=stages, frontier_cold_s=walls[0], frontier_warm_s=walls[1:],
+        stage_us_per_step=stages, frontier_cold_s=walls[0],
+        frontier_warm_s=walls[1:],
         frontier_warm_p50_s=statistics.median(walls[1:]),
+        frontier_peak_bytes=peak, frontier_base_bytes=base,
+        frontier_peak_over_base_bytes=peak - base,
+        prefix_launches=prefix_launches,
         sweep_cold_ms=sweep_ms[0], sweep_warm_ms=sweep_ms[1:],
         sweep_warm_p50_ms=statistics.median(sweep_ms[1:]),
         device_idle_share=idle, frontier=run_length(frontier),
     )
     print(f"sweep [config 4]: frontier equals the JAX package's"
-          f" ({row['frontier']}); one launch of {P} rows a sweep; batched"
-          f" scan 0 unequal elements against the plain batched scan on"
-          f" {blocks} blocks and on 2, each row equal to its solo kernel"
-          f" scan; scan {ms:.3f} ms ({ms / J * 1e3:.2f} us/step) vs plain"
-          f" {plain_ms:.1f} ms; bound of the stacked interface"
-          f" {bound_ms:.4f} ms ({bound_by}), of the {unique_bytes} bytes the"
-          f" sweep needs {unique_bound_ms:.4f} ms ({unique_bound_by}); device"
-          f" us/step by stage (stamps) {json.dumps(stages)}; device sweep"
-          f" (stack, scan, verdicts) cold {sweep_ms[0]:.3f} ms, warm"
-          f" {json.dumps(sweep_ms[1:])} ms; frontier_core cold"
-          f" {walls[0]:.3f} s, warm {json.dumps(walls[1:])} s; device idle"
-          f" share {idle}; the prepared state unchanged", flush=True)
+          f" ({row['frontier']}); one launch of {P} rows a sweep, through"
+          f" cuda_ffd_solve_prefixes ({prefix_launches} in the last sweep);"
+          f" the stacked scan 0 unequal elements against the plain batched"
+          f" scan on {blocks} blocks and on 2, each row equal to its solo"
+          f" kernel scan; scan {ms:.3f} ms ({ms / J * 1e3:.2f} us/step) vs"
+          f" plain {plain_ms:.1f} ms; bound of its interface"
+          f" {bound_ms:.4f} ms ({bound_by}), of the old stacked interface"
+          f" {old_bound_ms:.4f} ms ({old_bound_by}), of the {unique_bytes}"
+          f" bytes the sweep needs {unique_bound_ms:.4f} ms"
+          f" ({unique_bound_by}); device us/step by stage (stamps)"
+          f" {json.dumps(stages)}; device sweep (stack, scan, verdicts) cold"
+          f" {sweep_ms[0]:.3f} ms, warm {json.dumps(sweep_ms[1:])} ms;"
+          f" frontier_core cold {walls[0]:.3f} s, warm"
+          f" {json.dumps(walls[1:])} s; peak device memory of a warm"
+          f" frontier_core {peak} bytes ({peak - base} over the {base}"
+          f" allocated before it); device idle share {idle}; the prepared"
+          f" state unchanged", flush=True)
     return row
 
 
@@ -1625,8 +1711,9 @@ def operator_spy():
     steps (a request with none launches nothing), each pass's frontier
     triples and (passing, dubious) sizes, and, for the first sweep of each
     prefix count P, its ``_prefix_scan`` arguments and verdicts and the
-    stacked inputs and outputs of its batched kernel launch (copies:
-    the kernel writes its final state into its input)."""
+    stacked inputs and outputs of its kernel launch through the sweep's
+    entry, ``cuda_ffd_solve_prefixes`` (copies: the kernel writes its
+    final state into its input; the plane packed, as the kernel has it)."""
     from karpenter_core_tpu_torch.controllers.disruption import methods
     from karpenter_core_tpu_torch.models import consolidation as cons
     from karpenter_core_tpu_torch.models import provisioner as prov
@@ -1639,16 +1726,19 @@ def operator_spy():
     run_1 = prov._run_kernel_solo
     sched_frontier = cons.schedulability_frontier
     prefix_scan = cons._prefix_scan
-    batched = cuda_ffd.cuda_ffd_solve_batched
+    prefixes = cuda_ffd.cuda_ffd_solve_prefixes
 
     def counted(fn, entry):
         l0, r0 = cuda_ffd.counter.total(), cuda_ffd.counter.rows
+        p0 = cuda_ffd.counter.prefix_launches
         t0 = time.perf_counter()
         try:
             out = fn()
         finally:
             entry.update(s=time.perf_counter() - t0,
                          launches=cuda_ffd.counter.total() - l0,
+                         prefix_launches=(cuda_ffd.counter.prefix_launches
+                                          - p0),
                          rows=cuda_ffd.counter.rows - r0)
         return out
 
@@ -1694,13 +1784,13 @@ def operator_spy():
         cap["verdicts"] = tuple(x.clone() for x in out)
         return out
 
-    def spy_batched(state, steps, statics, level_iters, **kwargs):
+    def spy_prefixes(state, steps, statics, level_iters, **kwargs):
         cap = log["capture"]
         if cap is None:
-            return batched(state, steps, statics, level_iters, **kwargs)
+            return prefixes(state, steps, statics, level_iters, **kwargs)
         cap["kernel_in"] = (_copy(state), _copy(steps), _copy(statics),
                             level_iters)
-        out = batched(state, steps, statics, level_iters, **kwargs)
+        out = prefixes(state, steps, statics, level_iters, **kwargs)
         cap["kernel_out"] = (_copy(out[0]), out[1].clone(), out[2].clone())
         return out
 
@@ -1709,7 +1799,7 @@ def operator_spy():
     methods.MultiNodeConsolidation._device_frontier = spy_frontier
     cons.schedulability_frontier = spy_sched_frontier
     cons._prefix_scan = spy_prefix_scan
-    cuda_ffd.cuda_ffd_solve_batched = spy_batched
+    cuda_ffd.cuda_ffd_solve_prefixes = spy_prefixes
     try:
         yield log
     finally:
@@ -1718,20 +1808,21 @@ def operator_spy():
         methods.MultiNodeConsolidation._device_frontier = frontier
         cons.schedulability_frontier = sched_frontier
         cons._prefix_scan = prefix_scan
-        cuda_ffd.cuda_ffd_solve_batched = batched
+        cuda_ffd.cuda_ffd_solve_prefixes = prefixes
 
 
 def hold_operator_sweeps(log, name):
     """Hold the batched scans of the first sweep of each prefix count that
     the operator ran through the kernel: the stacked inputs it handed the
-    kernel, run again through the batched kernel (full grid and 2 blocks),
-    the plain batched scan and the solo kernel row by row
-    (``hold_batched_bit_equal``); the main path's own launch output
-    bit-equal to them; and its verdicts (next free slot, unplaced pods,
-    overflow exactly, the price bound to a relative 1e-6) equal to
-    ``_prefix_scan`` through the plain batched scan on the same
+    sweep's entry, run again through it (full grid and 2 blocks), the
+    plain batched scan and the solo kernel row by row
+    (``hold_batched_bit_equal``, the planes unpacked); the main path's own
+    launch output bit-equal to them; and its verdicts (next free slot,
+    unplaced pods, overflow exactly, the price bound to a relative 1e-6)
+    equal to ``_prefix_scan`` through the plain batched scan on the same
     arguments. Returns a row per prefix count."""
     from karpenter_core_tpu_torch.models import consolidation as cons
+    from karpenter_core_tpu_torch.ops import cuda_ffd
 
     rows = []
     for P, cap in sorted(log["captured"].items()):
@@ -1740,9 +1831,12 @@ def hold_operator_sweeps(log, name):
                                  " not reach the batched kernel")
         state, steps, statics, li = cap["kernel_in"]
         names = [f"{name} sweep P={P} prefix-{p + 1}" for p in range(P)]
-        k_out, err, plain_ms = hold_batched_bit_equal(state, steps, statics,
-                                                      li, names, (0, 2))
-        live, again = _planes(*cap["kernel_out"]), _planes(*k_out)
+        k_out, err, plain_ms = hold_batched_bit_equal(
+            state, steps, statics, li, names, (0, 2),
+            scan=cuda_ffd.cuda_ffd_solve_prefixes)
+        live_state, *live_rest = cap["kernel_out"]
+        live = _planes(cuda_ffd.unpack_state(live_state), *live_rest)
+        again = _planes(cuda_ffd.unpack_state(k_out[0]), *k_out[1:])
         bad = {k: n for k in live if (n := _unequal(live[k], again[k]))}
         if bad:
             raise AssertionError(f"{name}: the operator's sweep launch"
@@ -1805,17 +1899,20 @@ def reset_name_counters():
 
 
 def check_launches(log, name):
-    """One launch a provisioning scan and one launch of P rows a sweep, in
-    an ``operator_spy`` log."""
+    """One launch a provisioning scan and one launch of P rows a sweep,
+    through the sweep's entry, in an ``operator_spy`` log."""
     for s in log["solves"]:
         if s["launches"] != s["scans"] or s["rows"] != s["scans"]:
             raise AssertionError(f"{name}: a solve of {s['scans']} scans"
                                  f" launched {s['launches']} over"
                                  f" {s['rows']} rows")
     for s in log["sweeps"]:
-        if s["launches"] != 1 or s["rows"] != s["candidates"]:
+        if (s["launches"] != 1 or s["prefix_launches"] != 1
+                or s["rows"] != s["candidates"]):
             raise AssertionError(f"{name}: a sweep of {s['candidates']}"
-                                 f" prefixes launched {s['launches']} over"
+                                 f" prefixes launched {s['launches']}"
+                                 f" ({s['prefix_launches']} through"
+                                 " cuda_ffd_solve_prefixes) over"
                                  f" {s['rows']} rows")
 
 
@@ -1882,6 +1979,7 @@ def operator_phase():
             wall = time.perf_counter() - t0
             launches, rows_served = (cuda_ffd.counter.total(),
                                      cuda_ffd.counter.rows)
+            prefix_launches = cuda_ffd.counter.prefix_launches
         check_operator_run(op, log, name, errors0, rejected0, expect_sweep)
         outcome = operator_outcome(op)
         if not outcome[2]:
@@ -1893,6 +1991,7 @@ def operator_phase():
         scans = sum(s["scans"] for s in log["solves"])
         prefixes = sum(s["candidates"] for s in log["sweeps"])
         if (launches != scans + len(log["sweeps"])
+                or prefix_launches != len(log["sweeps"])
                 or rows_served != scans + prefixes):
             raise AssertionError(f"{name}: {launches} launches over"
                                  f" {rows_served} rows for {scans} scans and"
@@ -1925,7 +2024,8 @@ def operator_phase():
             solve_s=solve_s, sweep_s=sweep_s,
             other_s=wall - solve_s - sweep_s, solves=len(log["solves"]),
             scans=scans, sweeps=[s["candidates"] for s in log["sweeps"]],
-            launches=launches, rows=rows_served, held=held,
+            launches=launches, prefix_launches=prefix_launches,
+            rows=rows_served, held=held,
         )
         print(f"operator [{name}]: {outcome[0]} nodes, {outcome[1]} cpu,"
               " every pod bound (the JAX operator's, and the plain"
@@ -3695,11 +3795,14 @@ def mesh_sweep():
                     runs.append(time.perf_counter() - t0)
                 if (cuda_ffd.counter.launches
                         != dict.fromkeys(cuda_ffd.KERNELS, n)
+                        or cuda_ffd.counter.prefix_launches != n
                         or cuda_ffd.counter.rows != Pp):
                     raise AssertionError(
                         f"sweep on {n} shards: {cuda_ffd.counter.launches}"
-                        f" over {cuda_ffd.counter.rows} rows, expected {n}"
-                        f" launches over {Pp}")
+                        f" ({cuda_ffd.counter.prefix_launches} through"
+                        f" cuda_ffd_solve_prefixes) over"
+                        f" {cuda_ffd.counter.rows} rows, expected {n}"
+                        f" launches of the sweep's entry over {Pp}")
                 if n > 1:
                     launches += n
                 if frontier is None or not frontier_equal(frontier,
@@ -3717,10 +3820,12 @@ def mesh_sweep():
         **inputs, max_slots=SWEEP_SLOTS, device="cuda")
     rows = {}
     for n in SWEEP_SHARDS:
-        stack = cons.prefix_stack(prep.init_state, classes, prep.statics,
+        stack = cons.prefix_stack(cuda_ffd.pack_state(prep.init_state),
+                                  classes, prep.statics,
                                   pmesh.pad_rows(kind_batch, n),
                                   pmesh.pad_rows(count_batch, n))
-        shards, last = hold_shards(stack, n, plain=n == SWEEP_SHARDS[-1])
+        shards, last = hold_shards(stack, n, plain=n == SWEEP_SHARDS[-1],
+                                   scan=cuda_ffd.cuda_ffd_solve_prefixes)
         rows[n] = dict(
             padded_prefixes=int(stack[0].kind.shape[0]), shards=shards,
             sweep_cold_s=walls[n][0], sweep_warm_s=walls[n][1:],
@@ -3744,9 +3849,11 @@ def mesh_sweep():
                 one_device_s=walls[1], held=held, launches=launches)
 
 
-def hold_shards(stack, n, plain=False):
+def hold_shards(stack, n, plain=False, scan=None):
     """A stacked scan's rows on ``n`` shards of the card, as a mesh splits
-    them: each shard's launch on the full grid (timed, on a copy of its
+    them: each shard's launch through ``scan`` (``cuda_ffd_solve_batched``
+    by default; the sweep's packed stack through
+    ``cuda_ffd_solve_prefixes``) on the full grid (timed, on a copy of its
     state made outside the window) and on 2 blocks bit-equal to the same
     rows of the single launch over the whole stack; with ``plain`` the
     last shard also to the plain batched scan. Returns (a row a shard, the
@@ -3756,19 +3863,18 @@ def hold_shards(stack, n, plain=False):
     from karpenter_core_tpu_torch.parallel import mesh as pmesh
 
     li = LEVEL_ITERS
-    single = _planes(*cuda_ffd.cuda_ffd_solve_batched(
-        _copy(stack[0]), stack[1], stack[2], li))
+    scan = scan or cuda_ffd.cuda_ffd_solve_batched
+    single = _planes(*scan(_copy(stack[0]), stack[1], stack[2], li))
     rows = []
     with virtual_mesh(n):
         mesh = pmesh.slot_mesh(n, stack[0].kind.device)
         for k, (lo, hi, dev) in enumerate(
                 pmesh.row_shards(int(stack[0].kind.shape[0]), mesh)):
             shard = pmesh.split_rows(stack, lo, hi, dev)
-            two = _planes(*cuda_ffd.cuda_ffd_solve_batched(
-                _copy(shard[0]), shard[1], shard[2], li, _max_blocks=2))
+            two = _planes(*scan(_copy(shard[0]), shard[1], shard[2], li,
+                                _max_blocks=2))
             st = _copy(shard[0])
-            out, ms = _time_once(lambda: cuda_ffd.cuda_ffd_solve_batched(
-                st, shard[1], shard[2], li))
+            out, ms = _time_once(lambda: scan(st, shard[1], shard[2], li))
             kp = _planes(*out)
             for what, got in (("full grid", kp), ("2 blocks", two)):
                 bad = {key: c for key in got if (c := _unequal(
@@ -3777,15 +3883,17 @@ def hold_shards(stack, n, plain=False):
                     raise AssertionError(
                         f"{n} shards, shard {k} ({what}): rows {lo}..{hi - 1}"
                         f" != the single launch on {bad}")
-            bound_ms, bound_by = _bound_ms(_batched_terms(*shard, *out))
+            bound_ms, bound_by = _stack_bound(*shard, *out)
             rows.append(dict(shard=k, device=str(dev), rows=[lo, hi], ms=ms,
-                             stacked_bytes=_tree_bytes(*shard),
+                             stacked_bytes=_stored_bytes(*shard),
                              bound_ms=bound_ms, bound_by=bound_by,
                              blocks=cuda_ffd.counter.blocks))
     if not plain:
         return rows, None
-    p_out, plain_ms = _time_once(lambda: ffd.ffd_solve_batched(*shard, li))
+    p_out, plain_ms = _time_once(lambda: ffd.ffd_solve_batched(
+        cuda_ffd.unpack_state(shard[0]), shard[1], shard[2], li))
     pp = _planes(*p_out)
+    kp = _planes(cuda_ffd.unpack_state(out[0]), *out[1:])
     bad = {key: c for key in pp if (c := _unequal(kp[key], pp[key]))}
     if bad:
         raise AssertionError(f"{n} shards, shard {k}: kernel != plain on"
@@ -4504,6 +4612,9 @@ def main() -> int:
         "ms_per_step": k50["ms_per_step"],
         "stage_us_per_step": k50["stage_us_per_step"],
         "plain_ms_per_step": k50["plain_ms_per_step"],
+        # the wrapper's passes around the launch, inside "ms"
+        "pack_ms": k50["pack_ms"],
+        "unpack_ms": k50["unpack_ms"],
         "shapes": krows,
         "main_path": mrows,
         # phase 15's child process: its own launches, not in this count
@@ -4542,8 +4653,11 @@ def main() -> int:
                           " models/consolidation.py _prefix_scan (:61-72),"
                           " on the problem axis of _pallas_ffd_solve_batched"
                           "_impl (pallas_ffd.py:197-216)",
+        "entry": "ops/cuda_ffd.cuda_ffd_solve_prefixes",
         "launches": sum(r["launches"] - r["scans"]
                         for r in operator.values()),
+        "prefix_launches": sum(r["prefix_launches"]
+                               for r in operator.values()),
         "rows": sum(r["rows"] - r["scans"] for r in operator.values()),
         "blocks": sweep["blocks"],
         "max_abs_err": max([sweep["max_abs_err"]] + [
@@ -4552,8 +4666,12 @@ def main() -> int:
         "plain_ms": sweep["plain_ms"],
         "bound_ms": sweep["bound_ms"],
         "bound_by": sweep["bound_by"],
+        "old_bound_ms": sweep["old_bound_ms"],
+        "old_bound_by": sweep["old_bound_by"],
         "unique_bound_ms": sweep["unique_bound_ms"],
         "unique_bound_by": sweep["unique_bound_by"],
+        "frontier_peak_over_base_bytes":
+            sweep["frontier_peak_over_base_bytes"],
         "library_ms": None,
         "unequal": sweep["unequal"] + sum(
             h["unequal"] for r in operator.values() for h in r["held"]),

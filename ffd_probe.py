@@ -40,7 +40,10 @@ _STAGE_CALLS = (
     "                 (int)(i % parts), parts, lane);",
     "decide(problem(args, b), j, red, region);",
     "merge(problem(args, (int)(sl / open)), j, (int)(sl % open),\n"
-    "              (int)(i % parts), parts, lane);",
+    "                (int)(i % parts), parts, lane);",
+    "merge_out_of_line(problem(args, (int)(sl / open)), j,\n"
+    "                              (int)(sl % open), (int)(it % parts), parts,\n"
+    "                              lane);",
 )
 
 # extra stamps: a stamp goes between the two texts

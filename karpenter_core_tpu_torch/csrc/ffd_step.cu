@@ -80,6 +80,37 @@
 //     outcomes, and every thread walks the tree with them, so the level is
 //     the reference's on every input. The sub-step water-fill over values
 //     does the same on one warp, a lane a node, 5 rounds a vote.
+//
+// The consolidation sweep (models/consolidation.py _prefix_scan: B = 100
+// prefixes of one prepared problem, N = 2560 slots of which 2000 are open
+// existing nodes, K = 16 keys of V = 512 values) runs in another regime:
+// there the bound is bytes. Every step's feasibility stage reads the
+// requirement plane of every open slot of every row, ~1.6 GB a step at one
+// byte a value, which no L2 holds, while the decisions and the merge touch
+// a few slots. So the design for that route is about those bytes:
+//   * The requirement plane is bit-packed: valmask is [N, K, V/8], bit
+//     v % 8 of byte v / 8 the value v (V a power of two >= 8), and so are
+//     the planes it is ANDed with, the templates' t_mask [S, K, V/8] (the
+//     wrapper packs it) and the step's effective class mask in eff (the
+//     prologue writes it packed): 1 KB a slot at config 4, not 8.
+//   * The feasibility read is coalesced: a warp takes a slot's K x V/8
+//     bytes in contiguous units of up to 32 bytes (two 16-byte loads),
+//     neighbouring lanes on neighbouring units and every lane busy (config
+//     4: the slot's 1 KB in one round), and ORs each key's overlap
+//     across the lanes of its units with shuffles; a key's leading lane
+//     then applies the compatibility rules. The merge's intersect-on-add,
+//     the zone/capacity-type rows and the label-group counts (set bits
+//     walked with __ffsll) read the same packed words.
+//   * Read-only trees are shared across the problem axis: step_stride and
+//     static_stride (0 or 1) scale problem b's offset into the class steps
+//     and the statics, so the sweep hands one copy of each (a stride-0
+//     expand) instead of B; only the slot state and the per-row class
+//     counts have a row each.
+// The wrapper (ops/cuda_ffd.py) packs and unpacks the plane around the
+// solo, batched and gang scans, whose public layout stays bool [N, K, V];
+// the sweep's entry (cuda_ffd_solve_prefixes) stacks packed state and never
+// unpacks it.
+//
 // Slot state changes inside the launch, so it is never read through __ldg
 // or a const __restrict__ pointer (ro() is for class steps and statics
 // only); the grid barriers order it. Fresh slots never write past N: an
@@ -112,6 +143,9 @@ constexpr int WF_SMEM = 8192;
 constexpr int STAGE_MAX = 8192;
 // instance types a lane takes at once in the slot stages' type loops
 constexpr int TU = 4;
+// the merge tests a warp's items for a joined slot 32 at a time when each
+// warp has more than this many (a slot that did not join is skipped)
+constexpr int MERGE_BATCH = 8;
 // binary-search rounds of the claims' water-fill per block barrier: warp w
 // evaluates node w of the tree of the next rounds' midpoints
 constexpr int DEPTH = 4;
@@ -144,10 +178,12 @@ extern "C" {
 // Field order is mirrored by ops/cuda_ffd.py::_Args (pointers, then ints);
 // ffd_args_size() lets the wrapper check the two layouts agree. Every
 // pointer but stamps is to problem 0 of B problems laid out one after
-// another, each plane's per-problem size as the comments say.
+// another, each plane's per-problem size as the comments say; the class
+// steps (c_count aside) and the statics advance by step_stride and
+// static_stride problems a problem (0: one copy that every problem reads).
 struct FfdArgs {
   // slot state, updated in place
-  uint8_t* valmask;     // [N,K,V]
+  uint8_t* valmask;     // [N,K,V/8]: bit v % 8 of byte v / 8 is value v
   uint8_t* defines;     // [N,K]
   uint8_t* complement;  // [N,K]
   uint8_t* negative;    // [N,K]
@@ -195,7 +231,7 @@ struct FfdArgs {
   const uint8_t* off_avail;     // [T,Z,CT]
   const int32_t* zone_key;      // []
   const int32_t* ct_key;        // []
-  const uint8_t* t_mask;        // [S,K,V]
+  const uint8_t* t_mask;        // [S,K,V/8], packed as valmask
   const uint8_t* t_defines;     // [S,K]
   const uint8_t* t_complement;  // [S,K]
   const uint8_t* t_negative;    // [S,K]
@@ -218,7 +254,8 @@ struct FfdArgs {
   int32_t* unplaced;            // [J]
   // scratch
   int32_t* sc;                  // [SC_COUNT_]
-  uint8_t* eff;                 // [K*V + 3K]: mask, defines, concrete, negative
+  uint8_t* eff;                 // [eff_bytes]: mask [K,V/8] (packed),
+                                // defines, concrete, negative [K] each
   uint8_t* hboot;               // [Gh]
   float* k_fresh;               // [T]
   uint8_t* off_fresh;           // [T]
@@ -234,22 +271,37 @@ struct FfdArgs {
   int32_t* open;                // [1] for the whole launch: slots below
                                 // it may be open (kind > 0), all problems
   int64_t* stamps;              // [J,STAMPS] for the whole launch, or null
-  // dims; B problems of J class steps each
-  int32_t N, K, V, T, R, S, Z, CT, Gh, Gz, level_iters, B, J, pad_;
+  // dims; B problems of J class steps each; the problem strides of the
+  // class steps and of the statics (1, or 0 when every problem shares one)
+  int32_t N, K, V, T, R, S, Z, CT, Gh, Gz, level_iters, B, J;
+  int32_t step_stride, static_stride, pad_;
 };
 
 }  // extern "C"
 
 namespace {
 
+__host__ __device__ __forceinline__ int align16(int x) {
+  return (x + 15) & ~15;
+}
+
+// bytes of a problem's eff scratch: the packed mask, then three [K] rows,
+// rounded up so that every problem's mask starts 16-byte aligned
+__host__ __device__ __forceinline__ int eff_bytes(int K, int V) {
+  return align16(K * (V >> 3) + 3 * K);
+}
+
 // the arguments with every pointer moved to problem b's planes
 __device__ __forceinline__ FfdArgs problem(const FfdArgs& a, int b) {
   FfdArgs p = a;
   const size_t ub = (size_t)b;
+  // the class steps' and the statics' problem, 0 when they are shared
+  const size_t sb = ub * (size_t)a.step_stride;
+  const size_t tb = ub * (size_t)a.static_stride;
   const size_t N = a.N, K = a.K, V = a.V, T = a.T, R = a.R, S = a.S;
-  const size_t Gh = a.Gh, Gz = a.Gz, J = a.J;
+  const size_t Gh = a.Gh, Gz = a.Gz, J = a.J, VB = V / 8;
   // slot state
-  p.valmask += ub * N * K * V;
+  p.valmask += ub * N * K * VB;
   p.defines += ub * N * K;
   p.complement += ub * N * K;
   p.negative += ub * N * K;
@@ -266,61 +318,61 @@ __device__ __forceinline__ FfdArgs problem(const FfdArgs& a, int b) {
   p.hcount += ub * N * Gh;
   p.zcount += ub * Gz * V;
   p.carry += ub;
-  // class steps
-  p.c_mask += ub * J * K * V;
-  p.c_defines += ub * J * K;
-  p.c_concrete += ub * J * K;
-  p.c_negative += ub * J * K;
-  p.c_gt += ub * J * K;
-  p.c_lt += ub * J * K;
+  // class steps (the counts have a row a problem)
+  p.c_mask += sb * J * K * V;
+  p.c_defines += sb * J * K;
+  p.c_concrete += sb * J * K;
+  p.c_negative += sb * J * K;
+  p.c_gt += sb * J * K;
+  p.c_lt += sb * J * K;
   p.c_count += ub * J;
-  p.c_requests += ub * J * R;
-  p.c_class_it += ub * J * T;
-  p.c_tmpl_ok += ub * J * S;
-  p.c_exist_taint_ok += ub * J * N;
-  p.c_new_template += ub * J;
-  p.c_kstar += ub * J;
-  p.c_smask += ub * J * K * V;
-  p.c_h_sel += ub * J * Gh;
-  p.c_h_owner += ub * J * Gh;
-  p.c_z_sel += ub * J * Gz;
-  p.c_z_owner += ub * J * Gz;
-  p.c_sub_value += ub * J;
-  p.c_sub_first += ub * J;
-  p.c_sub_last += ub * J;
-  p.c_wf_group += ub * J;
-  p.c_wf_key += ub * J;
-  p.c_zone_rest += ub * J * V;
-  if (p.c_topo_rank != nullptr) p.c_topo_rank += ub * J * N;
+  p.c_requests += sb * J * R;
+  p.c_class_it += sb * J * T;
+  p.c_tmpl_ok += sb * J * S;
+  p.c_exist_taint_ok += sb * J * N;
+  p.c_new_template += sb * J;
+  p.c_kstar += sb * J;
+  p.c_smask += sb * J * K * V;
+  p.c_h_sel += sb * J * Gh;
+  p.c_h_owner += sb * J * Gh;
+  p.c_z_sel += sb * J * Gz;
+  p.c_z_owner += sb * J * Gz;
+  p.c_sub_value += sb * J;
+  p.c_sub_first += sb * J;
+  p.c_sub_last += sb * J;
+  p.c_wf_group += sb * J;
+  p.c_wf_key += sb * J;
+  p.c_zone_rest += sb * J * V;
+  if (p.c_topo_rank != nullptr) p.c_topo_rank += sb * J * N;
   // statics
-  p.it_alloc += ub * T * R;
-  p.off_avail += ub * T * (size_t)a.Z * (size_t)a.CT;
-  p.zone_key += ub;
-  p.ct_key += ub;
-  p.t_mask += ub * S * K * V;
-  p.t_defines += ub * S * K;
-  p.t_complement += ub * S * K;
-  p.t_negative += ub * S * K;
-  p.t_gt += ub * S * K;
-  p.t_lt += ub * S * K;
-  p.t_it += ub * S * T;
-  p.t_overhead += ub * S * R;
-  p.well_known += ub * K;
-  p.h_type += ub * Gh;
-  p.h_skew += ub * Gh;
-  p.h_possel0 += ub * Gh;
-  p.z_type += ub * Gz;
-  p.z_skew += ub * Gz;
-  p.z_key += ub * Gz;
-  p.z_mindom += ub * Gz;
-  p.z_domains += ub * Gz * V;
-  p.z_rank += ub * Gz * V;
+  p.it_alloc += tb * T * R;
+  p.off_avail += tb * T * (size_t)a.Z * (size_t)a.CT;
+  p.zone_key += tb;
+  p.ct_key += tb;
+  p.t_mask += tb * S * K * VB;
+  p.t_defines += tb * S * K;
+  p.t_complement += tb * S * K;
+  p.t_negative += tb * S * K;
+  p.t_gt += tb * S * K;
+  p.t_lt += tb * S * K;
+  p.t_it += tb * S * T;
+  p.t_overhead += tb * S * R;
+  p.well_known += tb * K;
+  p.h_type += tb * Gh;
+  p.h_skew += tb * Gh;
+  p.h_possel0 += tb * Gh;
+  p.z_type += tb * Gz;
+  p.z_skew += tb * Gz;
+  p.z_key += tb * Gz;
+  p.z_mindom += tb * Gz;
+  p.z_domains += tb * Gz * V;
+  p.z_rank += tb * Gz * V;
   // outputs
   p.takes += ub * J * N;
   p.unplaced += ub * J;
   // scratch
   p.sc += ub * SC_COUNT_;
-  p.eff += ub * (K * V + 3 * K);
+  p.eff += ub * (size_t)eff_bytes(a.K, a.V);
   p.hboot += ub * Gh;
   p.k_fresh += ub * T;
   p.off_fresh += ub * T;
@@ -370,20 +422,52 @@ __device__ __forceinline__ T ro(const T* p) {
   return __ldg(p);
 }
 
-// the bits of the first `count` bytes (each 0 or 1) of the 8-byte words
-// at p (V is a multiple of 8, so every row of a [.., V] plane is aligned)
+// Packed value rows: a row of V values is V/8 bytes (VB), bit v % 8 of
+// byte v / 8 the value v; V is a power of two >= 8, so VB is 1, 2, 4 or a
+// multiple of 8 and every row is VB-aligned.
+
+// the 64 values from byte 0 of p (a row's first word; `bytes` < 8: the
+// row's bytes, the values past them 0)
+__device__ __forceinline__ unsigned long long word_at(const uint8_t* p,
+                                                     int bytes) {
+  if (bytes >= 8) return *(const unsigned long long*)p;
+  unsigned long long x = 0ull;
+  for (int i = 0; i < bytes; ++i) x |= (unsigned long long)p[i] << (8 * i);
+  return x;
+}
+
+// values [0, count) of the packed row p, ANDed with the row mask if given
+// (count <= 64)
 __device__ __forceinline__ unsigned long long row_bits(const uint8_t* p,
                                                       const uint8_t* mask,
-                                                      int count) {
-  unsigned long long bits = 0ull;
-  for (int w = 0; w * 8 < count; ++w) {
-    unsigned long long x = ((const unsigned long long*)p)[w];
-    if (mask != nullptr) x &= ((const unsigned long long*)mask)[w];
-    for (int b = 0; b < 8 && w * 8 + b < count; ++b) {
-      if ((x >> (8 * b)) & 0xffull) bits |= 1ull << (w * 8 + b);
-    }
+                                                      int count, int VB) {
+  unsigned long long x = word_at(p, VB);
+  if (mask != nullptr) x &= word_at(mask, VB);
+  return count >= 64 ? x : x & ((1ull << count) - 1ull);
+}
+
+__device__ __forceinline__ unsigned and_any(uint4 p, uint4 q) {
+  return (p.x & q.x) | (p.y & q.y) | (p.z & q.z) | (p.w & q.w);
+}
+
+// whether the `ub` bytes at x and at y (ub a power of two <= 32, both
+// ub-aligned) share a set bit; all loads issued before any is used
+__device__ __forceinline__ bool unit_overlap(const uint8_t* x,
+                                             const uint8_t* y, int ub) {
+  if (ub == 32) {
+    const uint4 p0 = ((const uint4*)x)[0], p1 = ((const uint4*)x)[1];
+    const uint4 q0 = ((const uint4*)y)[0], q1 = ((const uint4*)y)[1];
+    return (and_any(p0, q0) | and_any(p1, q1)) != 0u;
   }
-  return bits;
+  if (ub == 16) return and_any(*(const uint4*)x, *(const uint4*)y) != 0u;
+  if (ub == 8) {
+    return (*(const unsigned long long*)x & *(const unsigned long long*)y) != 0ull;
+  }
+  if (ub == 4) return (*(const unsigned*)x & *(const unsigned*)y) != 0u;
+  if (ub == 2) {
+    return (*(const unsigned short*)x & *(const unsigned short*)y) != 0;
+  }
+  return (*x & *y) != 0;
 }
 
 // the class's joined zone / capacity-type rows of slot n as bitmasks
@@ -394,11 +478,11 @@ __device__ __forceinline__ void joined_zone_ct(const FfdArgs& a, int n,
                                                const uint8_t* effd,
                                                unsigned long long* zb,
                                                unsigned long long* cb) {
-  const int K = a.K, V = a.V;
-  *zb = row_bits(a.valmask + ((size_t)n * K + zk) * V,
-                 effd[zk] ? effm + zk * V : nullptr, a.Z);
-  *cb = row_bits(a.valmask + ((size_t)n * K + ck) * V,
-                 effd[ck] ? effm + ck * V : nullptr, a.CT);
+  const int K = a.K, VB = a.V >> 3;
+  *zb = row_bits(a.valmask + ((size_t)n * K + zk) * VB,
+                 effd[zk] ? effm + zk * VB : nullptr, a.Z, VB);
+  *cb = row_bits(a.valmask + ((size_t)n * K + ck) * VB,
+                 effd[ck] ? effm + ck * VB : nullptr, a.CT, VB);
 }
 
 // type t has an available offering in a zone of zb and a capacity type of
@@ -623,12 +707,8 @@ __device__ __forceinline__ void walk(int* lo, int* hi, int d,
 // shared memory of a block: the reduction partials, then one region that
 // the prologue and the decisions use in turn (grid barriers between them)
 
-__host__ __device__ __forceinline__ int align16(int x) {
-  return (x + 15) & ~15;
-}
-
-__host__ __device__ __forceinline__ int prologue_bytes(int K, int V, int Gz) {
-  return (4 * V + Gz) * (int)sizeof(int) + Gz * V + Gz + K * V + 3 * K;
+__host__ __device__ __forceinline__ int prologue_bytes(int V, int Gz) {
+  return (4 * V + Gz) * (int)sizeof(int) + Gz * V + Gz;
 }
 
 __host__ __device__ __forceinline__ int wf_smem_entries(int N) {
@@ -648,7 +728,7 @@ __host__ __device__ __forceinline__ int decide_bytes(int N) {
 }
 
 int scan_smem(const FfdArgs& a) {
-  const int pro = align16(prologue_bytes(a.K, a.V, a.Gz));
+  const int pro = align16(prologue_bytes(a.V, a.Gz));
   const int dec = decide_bytes(a.N);
   return RED_BYTES + (pro > dec ? pro : dec);
 }
@@ -666,10 +746,6 @@ __device__ __forceinline__ void prologue(const FfdArgs& a, int j,
   int* s_zkey = s_wadm + V;           // [Gz]
   uint8_t* s_adm = (uint8_t*)(s_zkey + Gz);  // [Gz*V]
   uint8_t* s_zown = s_adm + Gz * V;          // [Gz]: owned, not the pin's
-  uint8_t* s_effm = s_zown + Gz;             // [K*V]
-  uint8_t* s_effd = s_effm + K * V;         // [K]
-  uint8_t* s_effc = s_effd + K;             // [K]
-  uint8_t* s_effn = s_effc + K;             // [K]
 
   const uint8_t* cmask = a.c_mask + (size_t)j * K * V;
   const uint8_t* smask = a.c_smask + (size_t)j * K * V;
@@ -728,35 +804,36 @@ __device__ __forceinline__ void prologue(const FfdArgs& a, int j,
   }
   __syncthreads();
 
-  // effective class requirements: restriction by owned groups + wf pin
+  // effective class requirements: restriction by owned groups + wf pin;
+  // the mask packed, a thread a byte (values v0 .. v0 + 7 of key k), from
+  // the last thread down (warps 0 and 1 go on to the step's quota)
   const bool has_wf = wf_group >= 0;
-  for (int e = tid; e < K * V; e += THREADS) {
-    const int k = e / V, v = e % V;
-    bool viol = false, topo_def = false;
+  const int VB = V >> 3;
+  uint8_t* effd = a.eff + K * VB;
+  for (int e = THREADS - 1 - tid; e < K * VB; e += THREADS) {
+    const int k = e / VB, v0 = (e % VB) * 8;
+    unsigned viol = 0u;  // bit i: value v0 + i outside an owned group's
+    bool topo_def = false;
     for (int g = 0; g < Gz; ++g) {
       if (!(s_zown[g] && s_zkey[g] == k)) continue;
       topo_def = true;
-      viol = viol || !s_adm[g * V + v];
+      for (int i = 0; i < 8; ++i) viol |= s_adm[g * V + v0 + i] ? 0u : 1u << i;
     }
-    bool restr = !viol;
-    const bool pin_row = v == imax(sub_value, 0) && sub_value >= 0;
     const bool wf_oh = k == imax(wf_key, 0) && has_wf;
-    restr = restr && (!wf_oh || pin_row);
     topo_def = topo_def || wf_oh;
-    const bool effm = cmask[e] && restr;
-    s_effm[e] = effm;
-    a.eff[e] = effm;
-    if (v == 0) {
+    unsigned bits = 0u;
+    for (int i = 0; i < 8; ++i) {
+      const int v = v0 + i;
+      const bool pin_row = v == imax(sub_value, 0) && sub_value >= 0;
+      const bool restr = !((viol >> i) & 1u) && (!wf_oh || pin_row);
+      bits |= (cmask[k * V + v] && restr) ? 1u << i : 0u;
+    }
+    a.eff[e] = (uint8_t)bits;
+    if (v0 == 0) {
       const size_t ck = (size_t)j * K + k;
-      const bool d = a.c_defines[ck] || topo_def;
-      const bool c = a.c_concrete[ck] || topo_def;
-      const bool ng = a.c_negative[ck] && !topo_def;
-      s_effd[k] = d;
-      s_effc[k] = c;
-      s_effn[k] = ng;
-      a.eff[K * V + k] = d;
-      a.eff[K * V + K + k] = c;
-      a.eff[K * V + 2 * K + k] = ng;
+      effd[k] = a.c_defines[ck] || topo_def;
+      effd[K + k] = a.c_concrete[ck] || topo_def;
+      effd[2 * K + k] = a.c_negative[ck] && !topo_def;
     }
   }
   // affinity groups that bootstrap: no positive count anywhere yet
@@ -880,13 +957,10 @@ __device__ __forceinline__ void fresh_row(const FfdArgs& a, int j, int t) {
   const float* creq = a.c_requests + (size_t)j * R;
   const float* oh = a.t_overhead + (size_t)s * R;
   const int zk = ro(a.zone_key), ck = ro(a.ct_key);
-  unsigned long long zb = 0ull, cb = 0ull;
-  for (int i = 0; i < a.Z; ++i) {
-    if (ro(a.t_mask + ((size_t)s * K + zk) * V + i) && a.eff[zk * V + i]) zb |= 1ull << i;
-  }
-  for (int i = 0; i < a.CT; ++i) {
-    if (ro(a.t_mask + ((size_t)s * K + ck) * V + i) && a.eff[ck * V + i]) cb |= 1ull << i;
-  }
+  const int VB = V >> 3;
+  const uint8_t* tm = a.t_mask + (size_t)s * K * VB;
+  const unsigned long long zb = row_bits(tm + zk * VB, a.eff + zk * VB, a.Z, VB);
+  const unsigned long long cb = row_bits(tm + ck * VB, a.eff + ck * VB, a.CT, VB);
   float kr = __int_as_float(0x7f800000);
   for (int r = 0; r < R; ++r) {
     const float al = ro(a.it_alloc + (size_t)t * R + r);
@@ -924,6 +998,84 @@ __device__ __forceinline__ int clamp_k(float k) {
   return (int)fminf(fmaxf(k, 0.0f), 1073741824.0f);
 }
 
+// what the requirement rule of key k reads besides the value rows: slot
+// n's requirement of the key and the step's effective class requirement
+struct KeyRow {
+  bool defines, complement, negative, edef, econc, eneg, well_known;
+  int gt, lt, cgt, clt;
+};
+
+__device__ __forceinline__ KeyRow key_row(const FfdArgs& a, int j, int n,
+                                          int k) {
+  const int K = a.K, VB = a.V >> 3;
+  const uint8_t* effd = a.eff + K * VB;
+  const size_t nk = (size_t)n * K + k;
+  KeyRow r;
+  r.defines = a.defines[nk];
+  r.complement = a.complement[nk];
+  r.negative = a.negative[nk];
+  r.gt = a.gt[nk];
+  r.lt = a.lt[nk];
+  r.edef = effd[k];
+  r.econc = effd[K + k];
+  r.eneg = effd[2 * K + k];
+  r.cgt = ro(a.c_gt + (size_t)j * K + k);
+  r.clt = ro(a.c_lt + (size_t)j * K + k);
+  r.well_known = ro(a.well_known + k);
+  return r;
+}
+
+// the requirement rule of a key (ops/ffd.py _class_slot_compatible): true
+// when it bars the slot; `overlap`: the two value rows share a value
+__device__ __forceinline__ bool key_bars(const KeyRow& r, bool overlap,
+                                         int kind) {
+  const bool both = r.defines && r.edef;
+  const bool either_conc = !r.complement || r.econc;
+  const bool crossed = imax(r.gt, r.cgt) >= imin(r.lt, r.clt);
+  const bool empty = either_conc ? !overlap : crossed;
+  const bool both_neg = r.negative && r.eneg;
+  const bool rule2 = both && empty && !both_neg;
+  const bool allow = r.well_known && kind == 2;
+  const bool rule1 = r.edef && !r.eneg && !r.defines && !allow;
+  return rule1 || rule2;
+}
+
+// one round of the packed requirement rows: units base + lane of slot n's
+// K x VB bytes in ub-byte units (upk a key), each key's overlap ORed over
+// its lanes, the rule applied by its leading lane; `acc` carries a key's
+// overlap across rounds when it spans several (upk > 32). True when a key
+// of the round bars the slot on this lane.
+__device__ __forceinline__ bool req_round(const FfdArgs& a, int j, int n,
+                                          int kind, int base, int lane,
+                                          bool* acc) {
+  const int K = a.K, VB = a.V >> 3;
+  const int ub = VB < 32 ? VB : 32;
+  const int upk = VB / ub;
+  const int units = K * upk;
+  const int u = base + lane;
+  // every load of the round before any is used: the unit pair, and on
+  // every lane with a unit the key row of its key (the leading lane uses
+  // it; loading it on all of them keeps the loads ahead of the shuffles)
+  const int k = imin((upk <= 32 ? u : base) / upk, K - 1);
+  const bool lead = upk <= 32 ? u < units && (lane & (upk - 1)) == 0
+                              : lane == 0 && ((base + 32) & (upk - 1)) == 0;
+  KeyRow row{};
+  if (u < units) row = key_row(a, j, n, k);
+  bool overlap = u < units &&
+                 unit_overlap(a.valmask + (size_t)n * K * VB + (size_t)u * ub,
+                              a.eff + u * ub, ub);
+  if (upk <= 32) {
+    for (int o = 1; o < upk; o <<= 1) {
+      overlap = overlap | (__shfl_xor_sync(FULL, (int)overlap, o) != 0);
+    }
+  } else {  // this round is part of key base / upk's row
+    *acc = *acc || __any_sync(FULL, overlap);
+    overlap = *acc;
+    if (((base + 32) & (upk - 1)) == 0) *acc = false;
+  }
+  return lead && key_bars(row, overlap, kind);
+}
+
 // ---------------------------------------------------------------------------
 // 2. slot feasibility: part 0 of a slot decides requirement compatibility,
 // taints, the hostname caps and (existing slots) the fixed capacity into fc
@@ -933,83 +1085,91 @@ __device__ __forceinline__ int clamp_k(float k) {
 __device__ __forceinline__ void feasible(const FfdArgs& a, int j, int n,
                                          int q, int parts, int lane) {
   const int K = a.K, V = a.V, T = a.T, R = a.R, Gh = a.Gh;
-  // the slot's keys and the ones that depend on them, loaded together
-  const int kind = a.kind[n];
-  const int tm = imax(a.tmpl[n], 0);
-  const int zk = ro(a.zone_key), ck = ro(a.ct_key);
-  if (kind == 0) return;  // pad slots never take (the decisions know)
-  const uint8_t* effm = a.eff;
-  const uint8_t* effd = a.eff + K * V;
+  const int VB = V >> 3;
   const float* creq = a.c_requests + (size_t)j * R;
   const float* req = reqs(a, j) + (size_t)n * R;
+  // the slot's keys, and part 0's loads that do not depend on them
+  const int kind = a.kind[n];
+  const int tm = imax(a.tmpl[n], 0);
 
   if (q == 0) {
-    const bool taint_ok =
-        kind == 1 ? ro(a.c_exist_taint_ok + (size_t)j * a.N + n) != 0
-                  : ro(a.c_tmpl_ok + (size_t)j * a.S + tm) != 0;
-    const uint8_t* effc = effd + K;
-    const uint8_t* effn = effc + K;
-    const int* cgt = a.c_gt + (size_t)j * K;
-    const int* clt = a.c_lt + (size_t)j * K;
-    bool bad = false;
-    for (int k = lane; k < K; k += 32) {
-      const size_t nk = (size_t)n * K + k;
-      const unsigned long long* vm = (const unsigned long long*)(a.valmask + nk * V);
-      const unsigned long long* em = (const unsigned long long*)(effm + k * V);
-      bool overlap = false;
-      for (int w = 0; w < V / 8; ++w) overlap = overlap | ((vm[w] & em[w]) != 0);
-      const bool both = a.defines[nk] && effd[k];
-      const bool either_conc = !a.complement[nk] || effc[k];
-      const bool crossed = imax(a.gt[nk], cgt[k]) >= imin(a.lt[nk], clt[k]);
-      const bool empty = either_conc ? !overlap : crossed;
-      const bool both_neg = a.negative[nk] && effn[k];
-      const bool rule2 = both && empty && !both_neg;
-      const bool allow = a.well_known[k] && kind == 2;
-      const bool rule1 = effd[k] && !effn[k] && !a.defines[nk] && !allow;
-      bad = bad || rule1 || rule2;
+    // part 0 issues the first round of its loads (the packed rows, the key
+    // rows, a hostname group a lane, a resource a lane) before the kind is
+    // known: a pad slot (kind 0) is rare below the open bound and stores
+    // nothing. Then the rounds past the first, when the rows need them.
+    // (lanes past Gh or R load group or resource 0, and use neither)
+    const bool exist_ok = ro(a.c_exist_taint_ok + (size_t)j * a.N + n) != 0;
+    const bool hv = lane < Gh, rv = lane < R;
+    const int g = hv ? lane : 0, r = rv ? lane : 0;
+    const int hc = hv ? a.hcount[(size_t)n * Gh + g] : 0;
+    const bool hsel = hv && ro(a.c_h_sel + (size_t)j * Gh + g) != 0;
+    const bool hown = hv && ro(a.c_h_owner + (size_t)j * Gh + g) != 0;
+    const int hskew = hv ? ro(a.h_skew + g) : 0;
+    const int htype = hv ? ro(a.h_type + g) : 0;
+    const bool hboot = hv && a.hboot[g] != 0;
+    const float cap_r = rv ? a.capacity[(size_t)n * R + r] : 0.f;
+    const float req_r = rv ? req[r] : 0.f;
+    const float creq_r = rv ? ro(creq + r) : 0.f;
+    bool acc = false;
+    bool bad = req_round(a, j, n, kind, 0, lane, &acc);
+    const bool tmpl_ok = kind == 2 && ro(a.c_tmpl_ok + (size_t)j * a.S + tm) != 0;
+    if (kind == 0) return;  // pad slots never take (the decisions know)
+    for (int base = 32; base < K * (VB < 32 ? 1 : VB / 32); base += 32) {
+      bad = bad || req_round(a, j, n, kind, base, lane, &acc);
     }
     const bool req_ok = !__any_sync(FULL, bad);
-    int cap = INT_MAX;
-    for (int g = lane; g < Gh; g += 32) {
-      const int c = a.hcount[(size_t)n * Gh + g];
-      const bool sel = a.c_h_sel[(size_t)j * Gh + g];
-      const int skew = a.h_skew[g];
-      const int type = a.h_type[g];
+    const bool taint_ok = kind == 1 ? exist_ok : tmpl_ok;
+    // the hostname caps: groups lane, lane + 32, ...
+    auto host_cap = [&](int c, bool sel, bool own, int skew, int type,
+                        bool boot) {
       int cg;
       if (type == 0) {
         cg = sel ? wsub(skew, c) : (c <= skew ? BIGI : 0);
       } else if (type == 1) {
         cg = c == 0 ? (sel ? 1 : BIGI) : 0;
       } else {
-        cg = a.hboot[g] ? BIGI : (c > 0 ? BIGI : 0);
+        cg = boot ? BIGI : (c > 0 ? BIGI : 0);
       }
-      if (!a.c_h_owner[(size_t)j * Gh + g]) cg = BIGI;
-      cap = imin(cap, cg);
+      return own ? cg : BIGI;
+    };
+    int cap = hv ? host_cap(hc, hsel, hown, hskew, htype, hboot) : INT_MAX;
+    for (int g2 = lane + 32; g2 < Gh; g2 += 32) {
+      cap = imin(cap, host_cap(a.hcount[(size_t)n * Gh + g2],
+                               ro(a.c_h_sel + (size_t)j * Gh + g2) != 0,
+                               ro(a.c_h_owner + (size_t)j * Gh + g2) != 0,
+                               ro(a.h_skew + g2), ro(a.h_type + g2),
+                               a.hboot[g2] != 0));
     }
     cap = imax(warp_min(cap), 0);
-    if (lane == 0) {
-      if (kind == 1) {  // an existing node's count is its fixed capacity's
-        float ke = __int_as_float(0x7f800000);
-        for (int r = 0; r < R; ++r) {
-          const float h = creq[r] > 0.f
-                              ? __fdiv_rn(__fsub_rn(a.capacity[(size_t)n * R + r],
-                                                    req[r]),
-                                          creq[r])
-                              : BIGF;
-          ke = fminf(ke, h);
-        }
-        a.kv[n] = clamp_k(floorf(ke));
+    // an existing node's count is its fixed capacity's: min over the
+    // resources (a resource a lane) of (capacity - requests) / class
+    // request where that is > 0, else BIG; min is exact in any order
+    if (kind == 1) {
+      float ke = __int_as_float(0x7f800000);
+      if (rv) {
+        ke = creq_r > 0.f ? __fdiv_rn(__fsub_rn(cap_r, req_r), creq_r) : BIGF;
       }
-      a.fc[n] = (req_ok && taint_ok) ? cap : -1;
+      for (int r2 = lane + 32; r2 < R; r2 += 32) {
+        const float c = ro(creq + r2);
+        ke = fminf(ke, c > 0.f ? __fdiv_rn(__fsub_rn(a.capacity[(size_t)n * R + r2],
+                                                     req[r2]), c)
+                               : BIGF);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        ke = fminf(ke, __shfl_xor_sync(FULL, ke, o));
+      }
+      if (lane == 0) a.kv[n] = clamp_k(floorf(ke));
     }
+    if (lane == 0) a.fc[n] = (req_ok && taint_ok) ? cap : -1;
   }
 
   // this part's instance types: viable (itmask, class, offering) and the
   // count that fits; existing slots do not use them here (kind 1's count
   // is its capacity's)
   if (kind != 2) return;
+  const int zk = ro(a.zone_key), ck = ro(a.ct_key);
   unsigned long long zb, cb;
-  joined_zone_ct(a, n, zk, ck, effm, effd, &zb, &cb);
+  joined_zone_ct(a, n, zk, ck, a.eff, a.eff + K * VB, &zb, &cb);
   const uint8_t* cit = a.c_class_it + (size_t)j * T;
   const uint8_t* itm = a.itmask + (size_t)n * T;
   int lo, hi;
@@ -1254,6 +1414,16 @@ __device__ __forceinline__ void decide(const FfdArgs& a, int j, Red& red,
 // part 0 the rest of the slot; the slots that did not join only carry their
 // requests over (merge_requests)
 
+// whether slot n joined at step j: it is fresh, or took pods (a slot that
+// is not fresh took exactly its takes entry, no fresh share)
+__device__ __forceinline__ bool joined(const FfdArgs& a, int j, int n) {
+  const int nf = a.sc[SC_NF_OLD];
+  const int nn = a.sc[SC_NNEW];
+  const bool fresh = n >= nf && (long long)n < (long long)nf + nn;
+  return fresh || a.takes[(size_t)j * a.N + n] > 0;
+}
+
+// merge item (slot n, part q); nothing for a slot that did not join
 __device__ __forceinline__ void merge(const FfdArgs& a, int j, int n, int q,
                                       int parts, int lane) {
   const int K = a.K, V = a.V, T = a.T, R = a.R;
@@ -1267,8 +1437,9 @@ __device__ __forceinline__ void merge(const FfdArgs& a, int j, int n, int q,
   const float tkf = (float)tk;
   const float* creq = a.c_requests + (size_t)j * R;
   const float* req = reqs(a, j) + (size_t)n * R;
+  const int VB = V >> 3;
   const uint8_t* effm = a.eff;
-  const uint8_t* effd = a.eff + K * V;
+  const uint8_t* effd = a.eff + K * VB;
   const uint8_t* cit = a.c_class_it + (size_t)j * T;
   uint8_t* itm = a.itmask + (size_t)n * T;
 
@@ -1298,18 +1469,27 @@ __device__ __forceinline__ void merge(const FfdArgs& a, int j, int n, int q,
   if (q != 0) return;
   __syncwarp();
 
-  // requirement planes: intersect-on-add over the keys the class defines
+  // requirement planes: intersect-on-add over the keys the class defines,
+  // on the packed rows (8-byte words where a row has them)
   const uint8_t* effc = effd + K;
   const uint8_t* effn = effc + K;
-  {
-    unsigned long long* vm = (unsigned long long*)(a.valmask + (size_t)n * K * V);
+  if (VB >= 8) {
+    unsigned long long* vm = (unsigned long long*)(a.valmask + (size_t)n * K * VB);
     const unsigned long long* tm =
-        (const unsigned long long*)(a.t_mask + (size_t)s * K * V);
+        (const unsigned long long*)(a.t_mask + (size_t)s * K * VB);
     const unsigned long long* em = (const unsigned long long*)effm;
-    for (int w = lane; w < K * V / 8; w += 32) {
+    for (int w = lane; w < K * VB / 8; w += 32) {
       unsigned long long base = fresh ? ro(tm + w) : vm[w];
-      if (effd[w * 8 / V]) base &= em[w];
+      if (effd[w * 8 / VB]) base &= em[w];
       vm[w] = base;
+    }
+  } else {
+    uint8_t* vm = a.valmask + (size_t)n * K * VB;
+    const uint8_t* tm = a.t_mask + (size_t)s * K * VB;
+    for (int i = lane; i < K * VB; i += 32) {
+      unsigned base = fresh ? ro(tm + i) : vm[i];
+      if (effd[i / VB]) base &= effm[i];
+      vm[i] = (uint8_t)base;
     }
   }
   const int* cgt = a.c_gt + (size_t)j * K;
@@ -1361,17 +1541,24 @@ __device__ __forceinline__ void merge(const FfdArgs& a, int j, int n, int q,
       const int k = a.z_key[g];
       const size_t nk = (size_t)n * K + k;
       if (!(a.defines[nk] && !a.complement[nk])) continue;
-      const uint8_t* row = a.valmask + nk * V;
-      int rc = 0;  // the row's bytes are 0 or 1
-      for (int w = 0; w < V / 8; ++w) {
-        rc += __popcll(((const unsigned long long*)row)[w]);
-      }
+      const uint8_t* row = a.valmask + nk * VB;
+      int rc = 0;
+      for (int i = 0; i < VB; i += 8) rc += __popcll(word_at(row + i, VB - i));
       if (a.z_type[g] != 1 && rc != 1) continue;
-      for (int v = 0; v < V; ++v) {
-        if (row[v]) atomicAdd(a.zcount + (size_t)g * V + v, tk);
+      for (int i = 0; i < VB; i += 8) {  // the row's set values, in order
+        for (unsigned long long x = word_at(row + i, VB - i); x != 0ull;
+             x &= x - 1ull) {
+          const int v = 8 * i + __ffsll((long long)x) - 1;
+          atomicAdd(a.zcount + (size_t)g * V + v, tk);
+        }
       }
     }
   }
+}
+
+__device__ __noinline__ void merge_out_of_line(const FfdArgs& a, int j, int n,
+                                               int q, int parts, int lane) {
+  merge(a, j, n, q, parts, lane);
 }
 
 // requests = requests + 0 * r for every slot that did not join, as in the
@@ -1425,7 +1612,9 @@ __global__ void __launch_bounds__(THREADS, 1) k_ffd_scan(FfdArgs args) {
   for (long long e = trank; e < ocells; e += threads) {
     const long long bt = e / args.CT;
     const int c = (int)(e % args.CT);
-    const uint8_t* row = args.off_avail + bt * args.Z * args.CT;
+    // problem bt / T's statics (one copy when they are shared), type bt % T
+    const long long st = (bt / T) * args.static_stride * T + bt % T;
+    const uint8_t* row = args.off_avail + st * args.Z * args.CT;
     unsigned long long zones = 0ull;
     for (int z = 0; z < args.Z; ++z) {
       if (row[z * args.CT + c]) zones |= 1ull << z;
@@ -1468,10 +1657,34 @@ __global__ void __launch_bounds__(THREADS, 1) k_ffd_scan(FfdArgs args) {
       const long long slots = (long long)B * *args.open;
       const int parts = parts_of(T, slots, warps);
       const int open = *args.open;
-      for (long long i = rank; i < slots * parts; i += warps) {
-        const long long sl = i / parts;
-        merge(problem(args, (int)(sl / open)), j, (int)(sl % open),
-              (int)(i % parts), parts, lane);
+      if (slots * parts > MERGE_BATCH * warps) {
+        // many items a warp (the sweep's B x open slots): a warp tests 32
+        // of its items at a time, lane l whether the slot of item
+        // i + l * warps joined (a fresh slot, or one that took), and
+        // merges those items only, in item order, through an out-of-line
+        // copy of the merge (few items join: its registers stay out of
+        // the other routes' loop)
+        for (long long i = rank; i < slots * parts; i += 32 * warps) {
+          const long long il = i + lane * warps;
+          bool join = false;
+          if (il < slots * parts) {
+            const long long sl = il / parts;
+            join = joined(problem(args, (int)(sl / open)), j, (int)(sl % open));
+          }
+          for (unsigned m = __ballot_sync(FULL, join); m != 0u; m &= m - 1u) {
+            const long long it = i + (long long)(__ffs(m) - 1) * warps;
+            const long long sl = it / parts;
+            merge_out_of_line(problem(args, (int)(sl / open)), j,
+                              (int)(sl % open), (int)(it % parts), parts,
+                              lane);
+          }
+        }
+      } else {
+        for (long long i = rank; i < slots * parts; i += warps) {
+          const long long sl = i / parts;
+          merge(problem(args, (int)(sl / open)), j, (int)(sl % open),
+                (int)(i % parts), parts, lane);
+        }
       }
       for (long long e = trank; e < (long long)B * N * args.R; e += threads) {
         merge_requests(args, j, e);

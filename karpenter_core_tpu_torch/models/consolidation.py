@@ -18,12 +18,15 @@ new-node count) is the quantity the binary search was probing; the exact
 host pipeline (price filters, spot rules) then runs once at the frontier.
 
 The prefix axis is the FFD kernel's problem axis: ``_prefix_scan`` stacks
-P real copies of the one prepared problem (only ``kind`` and ``count``
-differ per row) and answers them with one ``cuda_ffd_solve_batched``
-launch (B = P), or with the plain ``ffd_solve_batched`` for
-``kernel_backend="reference"``. The verdicts (``next_free``, unplaced
-pods, ``overflow``, the fresh slots' price lower bound) are torch
-reductions over the final stacked state.
+the one prepared problem P times (only ``kind`` and ``count`` differ per
+row) and answers it with one ``cuda_ffd_solve_prefixes`` launch (B = P),
+or with the plain ``ffd_solve_batched`` for ``kernel_backend="reference"``.
+The slot state, which the kernel writes, is P real copies, its
+requirement plane bit-packed for the kernel's route; the class steps and
+statics, which it only reads, are one copy each expanded over the prefix
+axis (stride 0), as the JAX package's vmap shares them. The verdicts
+(``next_free``, unplaced pods, ``overflow``, the fresh slots' price lower
+bound) are torch reductions over the final stacked state.
 
 Pods with topology constraints take the host path (callers fall back to
 binary search when any candidate carries them). Behind the solverd
@@ -70,19 +73,32 @@ def _repeat(tree, P: int):
     ))
 
 
+def _share(tree, P: int):
+    """Each leaf copied once and expanded over a new leading axis of P
+    rows with stride 0: one storage that every row reads (the kernel and
+    the plain scan only read these trees)."""
+    return type(tree)(*(
+        None if x is None else x.clone().unsqueeze(0).expand(P, *x.shape)
+        for x in tree
+    ))
+
+
 def prefix_stack(state: SlotState, classes: ClassStep, statics: FFDStatics,
                  kind_batch, count_batch):
     """The [P]-stacked problem of the sweep: row p is the prepared problem
-    with slot kinds ``kind_batch[p]`` and class counts ``count_batch[p]``;
-    every other leaf is repeated. Fresh tensors throughout, so the
-    prepared ``state`` is never written."""
+    with slot kinds ``kind_batch[p]`` and class counts ``count_batch[p]``.
+    The slot state is P real copies of ``state`` as given (the kernel
+    writes it; the kernel's route hands it with its plane packed,
+    ``cuda_ffd.pack_state``); the class steps (less ``count``) and the
+    statics are one copy each, expanded with stride 0. Fresh tensors
+    throughout, so the prepared problem is never written."""
     P = int(kind_batch.shape[0])
     dev = state.kind.device
     st = _repeat(state, P)._replace(kind=torch.as_tensor(
         kind_batch, dtype=state.kind.dtype, device=dev).clone())
-    cl = _repeat(classes, P)._replace(count=torch.as_tensor(
+    cl = _share(classes, P)._replace(count=torch.as_tensor(
         count_batch, dtype=classes.count.dtype, device=dev).clone())
-    return st, cl, _repeat(statics, P)
+    return st, cl, _share(statics, P)
 
 
 def _prefix_scan(state: SlotState, classes: ClassStep, statics: FFDStatics,
@@ -91,8 +107,9 @@ def _prefix_scan(state: SlotState, classes: ClassStep, statics: FFDStatics,
     """The FFD scan over the prefix axis: only the slot kinds and the class
     counts vary per prefix; masks/capacities/statics are shared. One
     batched scan answers every prefix: ``"cuda"`` is one kernel launch
-    (the plain version for tensors on the CPU), ``"reference"`` the plain
-    batched scan. The prepared ``state`` is left as it is (the stack is a
+    through ``cuda_ffd_solve_prefixes`` over packed state (the plain
+    version for tensors on the CPU), ``"reference"`` the plain batched
+    scan. The prepared ``state`` is left as it is (the stack is a
     copy): it is ``prep.init_state`` from the DeviceScheduler's prepared
     cache.
 
@@ -103,20 +120,30 @@ def _prefix_scan(state: SlotState, classes: ClassStep, statics: FFDStatics,
     claim the host would build, so this never exceeds the true replacement
     price — a sound skip-filter for the host's cheaper-than-candidates
     rule, SURVEY §7.7's device price tensors)."""
-    stacked = prefix_stack(state, classes, statics, kind_batch, count_batch)
     if kernel_backend == "cuda":
-        final, _takes, unplaced = cuda_ffd.cuda_ffd_solve_batched(
-            *stacked, LEVEL_ITERS)
+        # the requirement plane packed once, then copied P times
+        final, _takes, unplaced = cuda_ffd.cuda_ffd_solve_prefixes(
+            *prefix_stack(cuda_ffd.pack_state(state), classes, statics,
+                          kind_batch, count_batch), LEVEL_ITERS)
     else:
-        final, _takes, unplaced = ffd_solve_batched(*stacked, LEVEL_ITERS)
-    N = final.kind.shape[1]
-    idx = torch.arange(N, device=final.kind.device)
-    fresh = (idx >= n_existing) & (idx < final.next_free[:, None])
-    # a fill on the device, not a host copy: no host wait between the
-    # shards' launches
+        final, _takes, unplaced = ffd_solve_batched(
+            *prefix_stack(state, classes, statics, kind_batch, count_batch),
+            LEVEL_ITERS)
+    # (the sweep reads the final state's kinds, next free slot, overflow
+    # and itmask, never its requirement plane, which stays packed)
+    P, N = final.kind.shape
+    E = int(n_existing)
+    idx = torch.arange(E, N, device=final.kind.device)
+    fresh = idx < final.next_free[:, None]
+    # the fresh slots' cheapest viable type, over the slots past the
+    # existing ones only; a fill on the device, not a host copy: no host
+    # wait between the shards' launches
     inf = it_price.new_full((), float("inf"))
-    slot_price = torch.where(final.itmask, it_price, inf).amin(2)
-    price_lb = torch.where(fresh, slot_price, torch.zeros_like(slot_price))
+    tail = torch.where(final.itmask[:, E:], it_price, inf).amin(2)
+    # summed over all N slots (0 outside the fresh range), in the order of
+    # the full-width sum
+    price_lb = torch.zeros((P, N), dtype=tail.dtype, device=tail.device)
+    price_lb[:, E:] = torch.where(fresh, tail, torch.zeros_like(tail))
     return (final.next_free,
             unplaced.sum(1, dtype=torch.int64).to(torch.int32),
             final.overflow, price_lb.sum(1))

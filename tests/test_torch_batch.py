@@ -402,6 +402,10 @@ class _FakeLib:
 
     def ffd_scan(self, args_ref, max_blocks, stream, blocks_ref):
         args = args_ref._obj
+        n = args.B * args.N * args.K * args.V // 8
+        self.packed = torch.frombuffer(
+            (ctypes.c_uint8 * n).from_address(args.valmask),
+            dtype=torch.uint8).clone()
         self.calls.append(dict(B=args.B, J=args.J, valmask=args.valmask,
                                takes=args.takes, stamps=args.stamps,
                                max_blocks=max_blocks))
@@ -432,18 +436,22 @@ def test_batched_card_path_launches_each_kernel_once_per_step(monkeypatch):
     """With the library mocked, one batched scan of B problems and J steps
     is one C call and one launch of the scan kernel, which walks all J
     steps itself (not J launches, nor J x B); it counts B rows and the
-    grid, hands the kernel the stacked tensors, and never runs the plain
-    version."""
+    grid, hands the kernel the stacked tensors (the requirement plane as
+    its packed copy, ``pack_values``), and never runs the plain version."""
     init, steps, statics, li = _wrapper_inputs()
     B, J = steps.count.shape
     lib = _fake_card(monkeypatch)
     _, takes, unplaced = cuda_ffd._launch_batched(init, steps, statics, li)
     assert cuda_ffd.counter.launches == dict.fromkeys(cuda_ffd.KERNELS, 1)
+    assert cuda_ffd.counter.prefix_launches == 0
     assert cuda_ffd.counter.rows == B == 4
     assert cuda_ffd.counter.blocks == _FakeLib.BLOCKS
-    assert lib.calls == [dict(B=B, J=J, valmask=init.valmask.data_ptr(),
-                              takes=takes.data_ptr(), stamps=None,
-                              max_blocks=0)]
+    (call,) = lib.calls
+    assert call["valmask"] != init.valmask.data_ptr()
+    assert torch.equal(lib.packed,
+                       cuda_ffd.pack_values(init.valmask).reshape(-1))
+    assert call == dict(B=B, J=J, valmask=call["valmask"],
+                        takes=takes.data_ptr(), stamps=None, max_blocks=0)
     assert takes.shape == (B, J, init.kind.shape[1])
     assert unplaced.shape == (B, J)
     cuda_ffd.counter.reset()
@@ -547,12 +555,16 @@ def test_args_struct_matches_the_kernel_source():
 def test_problem_axis_is_in_every_grid():
     """One launch serves every problem: the per-problem stages take problem
     b on block b mod gridDim.x, and the slot stages take (problem, slot,
-    part) items in a grid-stride loop, so B x N may exceed the grid."""
+    part) items in a grid-stride loop, so B x N may exceed the grid (with
+    many items a warp, the merge's warps test 32 of their items at a time
+    and merge those whose slot joined)."""
     src = cuda_ffd.SOURCE.read_text()
     assert src.count("for (int b = blockIdx.x; b < B; b += G) {") == 2
     assert "prologue(problem(args, b), j, region);" in src
     assert "decide(problem(args, b), j, red, region);" in src
     assert src.count("for (long long i = rank; i < slots * parts; i += warps)") == 2
+    assert src.count(
+        "for (long long i = rank; i < slots * parts; i += 32 * warps)") == 1
     for stage in ("feasible", "merge"):
         assert (f"{stage}(problem(args, (int)(sl / open)), j, (int)(sl % open),"
                 in src)

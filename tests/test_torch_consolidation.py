@@ -3,9 +3,14 @@
 Both build the same sweep problem; the port runs on the CPU
 (``device="cpu"``), where the CUDA route's wrapper takes the plain batched
 scan. The frontier triples must be equal, the price bound to a relative
-1e-6 (float32 sums in another order). The card path is held with the kernel
-library mocked: a sweep is one batched launch with B = P over a fresh copy
-of the prepared state, and never runs the plain scan.
+1e-6 (float32 sums in another order). The sweep's stack is P real copies
+of the slot state (its requirement plane packed on the kernel's route)
+and one copy of the class steps and statics expanded with stride 0; the
+plain batched scan reads those views and never writes them. The card path
+is held with the kernel library mocked: a sweep is one launch through
+``cuda_ffd_solve_prefixes`` with B = P over a fresh packed copy of the
+prepared state and the shared read-only trees, and never runs the plain
+scan.
 """
 import contextlib
 import itertools
@@ -190,16 +195,22 @@ def test_frontier_core_slot_overflow_is_none():
                                   max_slots=4) is None
 
 
-def test_sweep_leaves_the_prepared_state_unchanged():
+@pytest.mark.parametrize("packed", [False, True])
+def test_sweep_leaves_the_prepared_state_unchanged(packed):
     _inputs, _r, port, _ref = sweep_problems()
     sched, prep, classes, kind, count = port
     before = tffd.SlotState(*(x.clone() for x in prep.init_state))
-    stack = cons.prefix_stack(prep.init_state, classes, prep.statics, kind,
-                              count)
+    state = prep.init_state
+    if packed:
+        state = cuda_ffd.pack_state(state)
+    stack = cons.prefix_stack(state, classes, prep.statics, kind, count)
     for tree, base in zip(stack, (prep.init_state, classes, prep.statics)):
-        for x, y in zip(tree, base):
+        for name, x, y in zip(tree._fields, tree, base):
             if x is not None:
                 assert x.data_ptr() != y.data_ptr()
+                if name == "valmask" and packed:
+                    y = cuda_ffd.pack_values(y)
+                    assert x.dtype == torch.uint8
                 assert x.shape == (kind.shape[0], *y.shape)
     for backend in ("cuda", "reference"):
         cons._prefix_scan(prep.init_state, classes, prep.statics, kind,
@@ -208,6 +219,94 @@ def test_sweep_leaves_the_prepared_state_unchanged():
                           len(sched.existing_nodes), backend)
     for name, a, b in zip(before._fields, before, prep.init_state):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_prefix_stack_shares_the_read_only_trees(packed):
+    """The class steps (less their counts) and the statics are one copy
+    each, expanded over the prefix axis with stride 0: one storage of one
+    row. Every slot-state leaf is P real rows of the prepared state (the
+    kinds per prefix), the requirement plane packed on the kernel's route;
+    the counts are a row a prefix."""
+    _inputs, _r, port, _ref = sweep_problems()
+    sched, prep, classes, kind, count = port
+    P = kind.shape[0]
+    state = prep.init_state
+    if packed:
+        state = cuda_ffd.pack_state(state)
+    st, steps, statics = cons.prefix_stack(state, classes, prep.statics,
+                                           kind, count)
+    for tree, base in ((steps, classes), (statics, prep.statics)):
+        for name, x, y in zip(tree._fields, tree, base):
+            if x is None:
+                continue
+            assert x.shape == (P, *y.shape), name
+            if name == "count":
+                assert x.is_contiguous()
+                np.testing.assert_array_equal(x.numpy(), count)
+                continue
+            assert x.stride(0) == 0, name
+            assert (x.untyped_storage().nbytes()
+                    == y.numel() * y.element_size()), name
+            assert torch.equal(x[P - 1], y), name
+    for name, x, y in zip(st._fields, st, prep.init_state):
+        assert x.is_contiguous() and x.shape[0] == P, name
+        assert (x.untyped_storage().nbytes()
+                == x.numel() * x.element_size()), name
+        if name == "valmask" and packed:
+            assert x.dtype == torch.uint8
+            x = cuda_ffd.unpack_values(x)
+        for p in range(P):
+            if name == "kind":
+                np.testing.assert_array_equal(x[p].numpy(), kind[p])
+            else:
+                assert torch.equal(x[p], y), (name, p)
+
+
+def test_plain_batched_scan_reads_the_shared_stack_only():
+    """The plain batched scan over the sweep's stack (shared steps and
+    statics) gives, plane for plane, what it gives over P real copies of
+    them, and leaves the shared views as they were."""
+    _inputs, _r, port, _ref = sweep_problems()
+    sched, prep, classes, kind, count = port
+    P = kind.shape[0]
+    st, steps, statics = cons.prefix_stack(prep.init_state, classes,
+                                           prep.statics, kind, count)
+    before = [x.clone() for t in (steps, statics) for x in t
+              if x is not None]
+    got = tffd.ffd_solve_batched(st, steps, statics, tffd.LEVEL_ITERS)
+    real = (cons._repeat(classes, P)._replace(count=steps.count),
+            cons._repeat(prep.statics, P))
+    want = tffd.ffd_solve_batched(st, *real, tffd.LEVEL_ITERS)
+    for a, b in zip(list(got[0]) + list(got[1:]),
+                    list(want[0]) + list(want[1:])):
+        assert torch.equal(a, b)
+    after = [x for t in (steps, statics) for x in t if x is not None]
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+
+
+def test_prefix_entry_on_the_cpu_is_the_plain_scan_of_the_packed_stack():
+    """``cuda_ffd_solve_prefixes`` on CPU tensors: the plain batched scan
+    of the unpacked stack, its final plane packed again; no launch."""
+    _inputs, _r, port, _ref = sweep_problems()
+    sched, prep, classes, kind, count = port
+    stack = cons.prefix_stack(cuda_ffd.pack_state(prep.init_state), classes,
+                              prep.statics, kind, count)
+    plain = cons.prefix_stack(prep.init_state, classes, prep.statics, kind,
+                              count)
+    launches = dict(cuda_ffd.counter.launches)
+    prefix_launches = cuda_ffd.counter.prefix_launches
+    got = cuda_ffd.cuda_ffd_solve_prefixes(*stack, tffd.LEVEL_ITERS)
+    want = tffd.ffd_solve_batched(*plain, tffd.LEVEL_ITERS)
+    assert got[0].valmask.dtype == torch.uint8
+    assert torch.equal(cuda_ffd.unpack_values(got[0].valmask),
+                       want[0].valmask)
+    for name, a, b in zip(got[0]._fields, got[0], want[0]):
+        if name != "valmask":
+            assert torch.equal(a, b), name
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert cuda_ffd.counter.launches == launches
+    assert cuda_ffd.counter.prefix_launches == prefix_launches
 
 
 def test_frontier_rejects_other_kernels_and_devices(monkeypatch):
@@ -248,7 +347,10 @@ class _FakeLib:
     def ffd_scan(self, args_ref, max_blocks, stream, blocks_ref):
         args = args_ref._obj
         self.calls.append(dict(B=args.B, J=args.J, valmask=args.valmask,
-                               kind=args.kind))
+                               kind=args.kind, c_mask=args.c_mask,
+                               t_mask=args.t_mask,
+                               step_stride=args.step_stride,
+                               static_stride=args.static_stride))
         blocks_ref._obj.value = 132
         return 0
 
@@ -276,6 +378,9 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(cuda_ffd, "cuda_ffd_solve_batched",
                         lambda s, c, st, li: cuda_ffd._launch_batched(
                             s, c, st, li))
+    monkeypatch.setattr(cuda_ffd, "cuda_ffd_solve_prefixes",
+                        lambda s, c, st, li: cuda_ffd._launch_prefixes(
+                            s, c, st, li))
     for name in ("ffd_solve", "ffd_solve_batched", "ffd_step"):
         monkeypatch.setattr(cuda_ffd.ffd_ops, name, _no_plain)
     monkeypatch.setattr(cons, "ffd_solve_batched", _no_plain)
@@ -290,7 +395,15 @@ def test_cuda_sweep_is_one_batched_launch(monkeypatch):
     _inputs, _r, port, _ref = sweep_problems()
     sched, prep, classes, kind, count = port
     P = kind.shape[0]
+    stacks = []
+    launch = cuda_ffd._launch_batched
+
+    def spy(state, steps, statics, li, *args, **kwargs):
+        stacks.append((state, steps, statics))
+        return launch(state, steps, statics, li, *args, **kwargs)
+
     with fake_card(monkeypatch) as lib:
+        monkeypatch.setattr(cuda_ffd, "_launch_batched", spy)
         out = cons._prefix_scan(
             prep.init_state, classes, prep.statics, kind, count,
             torch.as_tensor(cons._it_price_vector(prep)),
@@ -299,11 +412,75 @@ def test_cuda_sweep_is_one_batched_launch(monkeypatch):
             (P, int(classes.count.shape[0]))]
         assert cuda_ffd.counter.launches == dict.fromkeys(cuda_ffd.KERNELS,
                                                           1)
+        assert cuda_ffd.counter.prefix_launches == 1
         assert cuda_ffd.counter.rows == P
-        # the kernel got a fresh stack, not the prepared state
-        assert lib.calls[0]["valmask"] != prep.init_state.valmask.data_ptr()
-        assert lib.calls[0]["kind"] != prep.init_state.kind.data_ptr()
+        # the kernel got a fresh stack, not the prepared state: the packed
+        # state's own buffer (no copy of it), one row of the class steps
+        # and of the statics shared by every prefix (problem stride 0)
+        (state, steps, statics), call = stacks[0], lib.calls[0]
+        assert call["valmask"] == state.valmask.data_ptr()
+        assert state.valmask.dtype == torch.uint8
+        assert call["valmask"] != prep.init_state.valmask.data_ptr()
+        assert call["kind"] != prep.init_state.kind.data_ptr()
+        assert call["step_stride"] == 0 and call["static_stride"] == 0
+        assert call["c_mask"] == steps.mask.data_ptr()
+        assert steps.mask.stride(0) == 0
     assert [x.shape for x in out] == [(P,)] * 4
+
+
+@pytest.mark.parametrize("leaf", ["valmask", "kind", "requests"])
+def test_card_path_refuses_a_shared_state_leaf(monkeypatch, leaf):
+    """The kernel writes the slot state in place, so a state leaf must be a
+    real row a problem: a stride-0 expand is refused before any launch
+    (``_check``), where the class steps and statics may be one."""
+    _inputs, _r, port, _ref = sweep_problems()
+    sched, prep, classes, kind, count = port
+    st, steps, statics = cons.prefix_stack(
+        cuda_ffd.pack_state(prep.init_state), classes, prep.statics, kind,
+        count)
+    x = getattr(st, leaf)
+    shared = x[:1].expand_as(x)
+    with pytest.raises(ValueError, match=f"{leaf}: not contiguous"):
+        cuda_ffd._check(leaf, shared, x.dtype, x.shape, x.device)
+    assert cuda_ffd._check(leaf, shared, x.dtype, x.shape, x.device,
+                           shared=True) == x.data_ptr()
+    with fake_card(monkeypatch) as lib:
+        with pytest.raises(ValueError, match=leaf):
+            cuda_ffd._launch_batched(st._replace(**{leaf: shared}), steps,
+                                     statics, tffd.LEVEL_ITERS)
+        assert lib.calls == []
+        assert cuda_ffd.counter.total() == 0
+
+
+@pytest.mark.parametrize("shared_steps,shared_statics", [
+    (True, True), (True, False), (False, True), (False, False)])
+def test_card_path_strides_follow_the_read_only_trees(
+        monkeypatch, shared_steps, shared_statics):
+    """Each read-only tree reaches the kernel with problem stride 0 when it
+    is one row expanded over the prefixes, 1 when it is a real stack; a
+    tree that mixes the two is refused."""
+    _inputs, _r, port, _ref = sweep_problems()
+    sched, prep, classes, kind, count = port
+    P = kind.shape[0]
+    st, steps, statics = cons.prefix_stack(
+        cuda_ffd.pack_state(prep.init_state), classes, prep.statics, kind,
+        count)
+    if not shared_steps:
+        steps = cons._repeat(classes, P)._replace(count=steps.count)
+    if not shared_statics:
+        statics = cons._repeat(prep.statics, P)
+    with fake_card(monkeypatch) as lib:
+        cuda_ffd._launch_batched(st, steps, statics, tffd.LEVEL_ITERS)
+        (call,) = lib.calls
+        assert call["step_stride"] == (0 if shared_steps else 1)
+        assert call["static_stride"] == (0 if shared_statics else 1)
+        mixed = statics._replace(it_alloc=statics.it_alloc.contiguous()
+                                 if shared_statics else
+                                 statics.it_alloc[:1].expand_as(
+                                     statics.it_alloc))
+        with pytest.raises(ValueError, match="statics"):
+            cuda_ffd._launch_batched(st, steps, mixed, tffd.LEVEL_ITERS)
+        assert len(lib.calls) == 1
 
 
 def test_reference_sweep_launches_nothing(monkeypatch):

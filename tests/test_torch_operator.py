@@ -34,6 +34,7 @@ from karpenter_core_tpu.utils.clock import FakeClock as RefFakeClock
 from karpenter_core_tpu_torch import interop
 from karpenter_core_tpu_torch.metrics import wiring as m
 from karpenter_core_tpu_torch.operator import Operator, Options
+from karpenter_core_tpu_torch.ops import cuda_ffd
 
 CATALOG = build_catalog(cpu_grid=[1, 2, 4, 8, 16], mem_factors=[2, 4])
 REF = SimpleNamespace(Operator=RefOperator, KubeStore=RefKubeStore,
@@ -139,9 +140,15 @@ def test_sweep_checks_hold_on_cpu(monkeypatch):
     of the same scenario through ``reference``."""
     from karpenter_core_tpu_torch.ops import ffd
 
-    def plain_only(state, steps, statics, li, names, grids=(0,)):
+    def plain_only(state, steps, statics, li, names, grids=(0,),
+                   scan=None):
+        # the sweep's captured stack has its plane packed, as the kernel
+        # takes it, and is held through the sweep's entry; the hold
+        # compares the planes unpacked
         assert grids == (0, 2) and len(names) == int(state.kind.shape[0])
-        return ffd.ffd_solve_batched(state, steps, statics, li), 0.0, 0.0
+        assert scan is cuda_ffd.cuda_ffd_solve_prefixes
+        return (ffd.ffd_solve_batched(cuda_ffd.unpack_state(state), steps,
+                                      statics, li), 0.0, 0.0)
 
     monkeypatch.setattr(chip_smoke, "hold_batched_bit_equal", plain_only)
     logs = {}
