@@ -43,7 +43,8 @@ on failure:
    two warm and a warm one with the garbage collector off, with the
    plain step made to raise. Every tenant's node count must be the JAX
    package's (``FLEET_EXPECTED_NODES``) and its result the same as the
-   tenant solved alone through the kernel and through the plain version;
+   tenant solved alone through the kernel (and, for the first tenant of
+   each shape group, through the plain version);
    the cold round must batch at least 8 problems in one dispatch; no
    batched dispatch may fail (so none is retried solo); the kernel's
    launches must grow by one a scan and the problem rows counted by the
@@ -97,13 +98,13 @@ on failure:
    rolls a gang back. One cold and two warm solves through
    ``DeviceScheduler(device="cuda")`` with the plain step made to raise:
    each must give the JAX package's node count, evicted-uid set, gangs
-   placed, unschedulable count and result digest (``GANGS_EXPECTED``,
-   the same as through the plain version), no partially placed gang, no
-   verifier rejection, and exactly two kernel launches (the gang
-   dispatch's two scans). A further warm solve times the gang dispatch's
-   first scan, failure check (its one host read), second scan and guard,
-   and the preemption pass apart. Both scans' inputs are held bit-equal
-   to the plain scan on the full grid and on 2 blocks. Then four
+   placed, unschedulable count and result digest (``GANGS_EXPECTED``),
+   no partially placed gang, no verifier rejection, and exactly two
+   kernel launches (the gang dispatch's two scans). A further warm solve
+   times the gang dispatch's first scan, failure check (its one host
+   read), second scan and guard, and the preemption pass apart. Both
+   scans' inputs are held bit-equal to the plain scan on the full grid
+   and on 2 blocks. Then four
    same-shaped tenants (the recipe at 5,000 pods, their own pool names)
    through ``solve_batch``: one batched gang dispatch of 4 rows (two
    launches) and one batched preemption pass, each tenant equal to its
@@ -216,6 +217,21 @@ on failure:
    kernel-driven config must count kernel launches, and the exit code
    must be 0 (1 only with ``budget_ok`` false: the primary's p50 over
    bench.py's 1-s budget, a speed verdict, not an answer).
+16. a real device fault, in child processes (``fault_phase``): (a) the
+   binary (``python -m karpenter_core_tpu_torch.main --solver tpu``, in
+   process, on cuda) over the HTTP apiserver with plain_5k_400's first
+   ``FAULT_PODS`` pods pending; its entry point (``chip_smoke.py
+   --fault-child``) makes the first provisioning solve raise a real
+   device-side assert at the kernel seam. The child must log the sticky
+   error, answer /healthz 503 and exit ``DEVICE_FAULT_EXIT_CODE`` within
+   ``FAULT_EXIT_BOUND_S``, having bound nothing; the same command
+   respawned must bind every pod with the JAX operator's node count and
+   cpu (``FAULT_EXPECTED``) and exit 0 on SIGINT. (b) The same fault in a
+   spawned solverd member: the solve fails, the member exits
+   ``WATCHDOG_EXIT_CODE``, the supervisor respawns it, and the respawn's
+   wire equals the in-process solve's. Prints one ``device_fault`` line
+   (exit codes, seconds to exit, seconds to a ready respawn, pods bound,
+   node count).
 
 It prints a sha256 digest of the sources it runs (``source_digest``), a
 ``{"kernels": [...]}`` line, the card's name and power limit from
@@ -225,7 +241,8 @@ built from fixed recipes (no randomness), the bench's shared with
 computes ``FLEET_EXPECTED_NODES``, ``SWEEP_EXPECTED``,
 ``OPERATOR_EXPECTED``, ``GANGS_EXPECTED``, ``GANG_TENANTS_EXPECTED``,
 ``TOPO_EXPECTED``, ``RELAX_EXPECTED``, ``HTTP_EXPECTED`` and
-``TWIN_EXPECTED`` with the JAX package on the CPU.
+``TWIN_EXPECTED`` with the JAX package on the CPU;
+tests/test_torch_device_fault.py holds ``FAULT_EXPECTED`` to it.
 """
 from __future__ import annotations
 
@@ -1082,7 +1099,8 @@ def batched_main_path_phase():
     """``solve_batch`` over the fleet's 11 tenants on the card: one cold,
     two warm rounds and a warm round with the garbage collector off, held
     to the JAX package's node counts and to each tenant solved alone
-    through the kernel and through the plain version, with every launch and
+    through the kernel (the first of each shape group also through the
+    plain version), with every launch and
     problem row accounted for and no solo retry; then the last round's
     batched scans held bit-equal to the plain batched scan at the warm
     slot widths."""
@@ -1123,9 +1141,11 @@ def batched_main_path_phase():
                         gc_s=split["gc_s"], gc_passes=split["gc_passes"])
 
         seq = [one_by_one() for _ in range(2)]
-        # and through the plain version
-        for n, (make, _k) in tenants.items():
-            ref = fleet_scheduler(n, "reference").solve(make())
+        # and through the plain version, the first tenant of each shape
+        # group (phase 5 holds every group's batched scan to the plain
+        # batched scan, each row to its solo kernel scan)
+        for n in (group[0] for group in FLEET_GROUPS):
+            ref = fleet_scheduler(n, "reference").solve(tenants[n][0]())
             if _canonical(ref) != expected[n]:
                 raise AssertionError(f"{n}: cuda result != reference result")
 
@@ -2306,12 +2326,6 @@ def gangs_phase():
     pods = problem[3]
     sched = gang_scheduler(problem)
     rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
-    t0 = time.perf_counter()
-    ref = gang_summary(gang_scheduler(problem, "reference").solve(pods), pods)
-    ref_s = time.perf_counter() - t0
-    if ref != GANGS_EXPECTED:
-        raise AssertionError(f"gangs (reference backend): {ref} !="
-                             f" {GANGS_EXPECTED}")
     times, stats, launches, rows = [], [], 0, 0
     for rep in range(3):  # one cold solve, two warm
         cuda_ffd.counter.reset()
@@ -2375,7 +2389,7 @@ def gangs_phase():
     N = int(wreq.init_state.kind.shape[0])
     print(f"gangs [cfg11, {len(pods)} pods, {len(problem[2])} existing"
           f" nodes]: {json.dumps(GANGS_EXPECTED)} on every solve (the JAX"
-          " package's), as through the plain version; two launches a"
+          " package's); two launches a"
           f" gang dispatch (a rollback), {st['rounds']} dispatches a solve"
           f" (slots {st['slots']}); cold"
           f" {times[0]:.3f} s, warm p50 {statistics.median(times[1:]):.3f} s;"
@@ -2393,7 +2407,7 @@ def gangs_phase():
         summary=GANGS_EXPECTED, rounds=st["rounds"], slots=st["slots"],
         cold_s=times[0],
         warm_p50_s=statistics.median(times[1:]), warm_s=times[1:],
-        reference_solve_s=ref_s, phases_cold=_phase_keys(stats[0]),
+        phases_cold=_phase_keys(stats[0]),
         phases_warm=_phase_keys(stats[-1]), timed_apart=split,
         device_idle_share=idle, launches=launches, rows=rows, unequal=0,
         max_abs_err=max(err1, err2), ms=ms, ms_per_step=ms / J,
@@ -3223,13 +3237,13 @@ TWIN_EXPECTED = {
     "bound": 1890, "peak_nodes": {"0": 44, "1": 12},
     "cost_dollar_hours": {"0": 50.030418, "1": 21.65484},
 }
-# phase 13b: plain_5k_400's pod mix over HTTP, cut to its first 1,000 pods:
+# phase 13b: plain_5k_400's pod mix over HTTP, cut to its first 500 pods:
 # the operator's host work over HTTP grows with pods x claims (PodEvents
 # lists every NodeClaim on every pod event, one HTTP round trip and a
 # decode of every claim each), too long at 5,000 for the smoke's budget
 # (PERF.md)
-HTTP_PODS, HTTP_TYPES = 1000, 400
-HTTP_EXPECTED = [35, 851.0]
+HTTP_PODS, HTTP_TYPES = 500, 400
+HTTP_EXPECTED = [17, 425.0]
 
 
 def binary_run(solver="tpu"):
@@ -4501,6 +4515,498 @@ def hold_bench_line(line, rc, card_name, wall, stderr=""):
     return out
 
 
+# the preemption pass timed for an A/B of two trees (PERF.md):
+#   python3 chip_smoke.py --preempt-times capture PATH
+#   python3 chip_smoke.py --preempt-times time TREE PATH [REPS]
+# ``capture`` builds the kernel, runs phase 9's two preemption routes and
+# saves each pass's inputs to PATH (torch.save, on the CPU); ``time``
+# imports TREE's package (a checkout of another commit, e.g. ``git
+# archive`` of the parent under ``local/``) and prints one JSON line of
+# ``preempt_times`` with the card's nvidia-smi line. Run each tree in its
+# own process, in turns (parent, change, change, parent), in one call.
+
+PREEMPT_ARGS = ("state", "steps", "statics", "step_tier", "step_gang",
+                "unplaced", "ev")
+
+
+def _cpu(x):
+    """A pass argument as (leaf tensors on the CPU, or one tensor)."""
+    if isinstance(x, tuple):
+        return [None if t is None else t.detach().cpu() for t in x]
+    return x.detach().cpu()
+
+
+def preempt_capture(path):
+    """Phase 9's two preemption routes, their inputs saved: the four gang
+    tenants through ``solve_batch`` (one batched pass, B = 4) and the
+    cfg11 solve (the solo pass)."""
+    import torch
+
+    from karpenter_core_tpu_torch.models.provisioner import solve_batch
+    from karpenter_core_tpu_torch.ops import cuda_ffd, gangsched
+
+    cuda_ffd.build()
+    saved = {}
+
+    def spy(name, fn):
+        def run(*args, **kwargs):
+            saved[name] = dict(args=[_cpu(a) for a in args],
+                               node_rounds=kwargs["node_rounds"])
+            return fn(*args, **kwargs)
+        return run
+
+    real = gangsched.preempt_pass_batched, gangsched.preempt_pass
+    gangsched.preempt_pass_batched = spy("batched", real[0])
+    gangsched.preempt_pass = spy("solo", real[1])
+    try:
+        tenants = [gangs_problem(GANG_TENANT_PODS, pool=n)
+                   for n in GANG_TENANTS]
+        outcomes, _ = solve_batch([(gang_scheduler(p), p[3])
+                                   for p in tenants])
+        if any(status != "ok" for status, _ in outcomes):
+            raise AssertionError(f"gang tenants: {outcomes}")
+        problem = gangs_problem()
+        gang_scheduler(problem).solve(problem[3])
+    finally:
+        gangsched.preempt_pass_batched, gangsched.preempt_pass = real
+    if set(saved) != {"batched", "solo"}:
+        raise AssertionError(f"captured {sorted(saved)}")
+    torch.save(saved, path)
+    return {k: dict(B=int(v["args"][3].shape[0]) if k == "batched" else 1,
+                    J=int(v["args"][3].shape[-1]),
+                    N=int(v["args"][6][1].shape[-2]),
+                    P=int(v["args"][6][1].shape[-1]))
+            for k, v in saved.items()}
+
+
+def _preempt_trees(args, dev):
+    """The saved arguments as the imported tree's types on ``dev``."""
+    from karpenter_core_tpu_torch.ops.ffd import (
+        ClassStep,
+        FFDStatics,
+        SlotState,
+    )
+    from karpenter_core_tpu_torch.ops.gangsched import EvPlanes
+
+    types = dict(state=SlotState, steps=ClassStep, statics=FFDStatics,
+                 ev=EvPlanes)
+    out = []
+    for name, a in zip(PREEMPT_ARGS, args):
+        if name in types:
+            out.append(types[name](*(None if t is None else t.to(dev)
+                                     for t in a)))
+        else:
+            out.append(a.to(dev))
+    return out
+
+
+def _out_digest(outs):
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def preempt_times(root, inputs, reps):
+    """The ``preempt_pass_batched`` and ``preempt_pass`` of the package
+    under ``root`` on the saved inputs: the host wall of a call,
+    synchronised (the pass reads its step tiers back, so the host sets its
+    pace), over ``reps`` calls after a warm-up; the device kernels of one
+    call and the device's idle share over one; a sha256 of the outputs,
+    equal across trees whose answers are."""
+    from pathlib import Path
+
+    sys.path.insert(0, root)
+    import torch
+
+    from karpenter_core_tpu_torch.ops import gangsched
+
+    if not Path(gangsched.__file__).resolve().is_relative_to(
+            Path(root).resolve()):
+        raise AssertionError(f"imported {gangsched.__file__}, not {root}'s")
+    saved = torch.load(inputs)
+    dev = torch.device("cuda")
+    out = dict(root=root, gangsched=gangsched.__file__, reps=reps)
+    for name, fn in (("batched", gangsched.preempt_pass_batched),
+                     ("solo", gangsched.preempt_pass)):
+        args = _preempt_trees(saved[name]["args"], dev)
+        rounds = saved[name]["node_rounds"]
+
+        def call():
+            return fn(*args, node_rounds=rounds)
+
+        res = call()  # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        walls.sort()
+        out[name] = dict(rows=int(args[3].shape[0]) if name == "batched"
+                         else 1, ms=walls, p50_ms=walls[len(walls) // 2],
+                         device_kernels=_device_kernels(call),
+                         device_idle_share=_idle_share(call),
+                         digest=_out_digest(res))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# a real device fault in a child process (phase 16)
+
+# 16a: plain_5k_400's first FAULT_PODS pods over HTTP_TYPES types, through
+# the binary over the HTTP apiserver; the JAX operator's node count and
+# summed node cpu on them, over its own apiserver
+# (fleet_expected.ref_http_run; tests/test_torch_device_fault.py holds the
+# pinned value to it on the CPU)
+FAULT_PODS = 200
+FAULT_EXPECTED = [7, 174.0]
+# 16b: the same pods as one solve request at this slot width
+FAULT_SLOTS = 256
+# the most a faulted child may take from its fault to its exit: the
+# binary's /healthz grace and teardown bound (main.FAULT_EXIT_GRACE_S,
+# TEARDOWN_TIMEOUT_S) and the interpreter's exit
+FAULT_EXIT_BOUND_S = 10.0
+# the binary as phase 16a's children run it
+FAULT_BINARY_FLAGS = ["--solver", "tpu", "--health-port", "-1",
+                      "--poll-interval", "0.1", "--batch-max-duration", "2",
+                      "--batch-idle-duration", "0.1"]
+
+
+def device_assert():
+    """A real device-side assert on the card: a gather far out of the
+    bounds of a CUDA tensor, synchronised. The CUDA runtime raises its
+    sticky ``device-side assert triggered``, and the process's context is
+    poisoned from here on."""
+    import torch
+
+    x = torch.zeros(4, device="cuda")
+    x[torch.full((1,), 1 << 20, dtype=torch.long, device="cuda")]
+    torch.cuda.synchronize()
+    raise AssertionError("the out-of-bounds gather did not fault")
+
+
+def _poison_seam(mark):
+    """Wrap the kernel seam of this process (the solo and batched scan
+    wrappers of ``ops/cuda_ffd``): while the file ``mark`` does not exist,
+    the next call creates it and raises a real device-side assert before
+    its launch. The first child to reach the seam faults; its respawned
+    successor, the same command, does not."""
+    import os
+
+    from karpenter_core_tpu_torch.ops import cuda_ffd
+
+    def wrap(fn):
+        def poisoned(*args, **kwargs):
+            if not os.path.exists(mark):
+                open(mark, "w").close()
+                device_assert()
+            return fn(*args, **kwargs)
+        return poisoned
+
+    cuda_ffd.cuda_ffd_solve = wrap(cuda_ffd.cuda_ffd_solve)
+    cuda_ffd.cuda_ffd_solve_batched = wrap(cuda_ffd.cuda_ffd_solve_batched)
+
+
+def fault_child(argv):
+    """The entry point of phase 16's children, ``python3 chip_smoke.py
+    --fault-child ...``, with the kernel seam poisoned by the mark file:
+    ``operator <apiserver port> <mark>`` runs the binary (``python -m
+    karpenter_core_tpu_torch.main`` with ``FAULT_BINARY_FLAGS``: in
+    process, on cuda) with its Operator over the apiserver; ``solverd
+    <mark> [solverd flags]`` runs solverd (``python -m
+    karpenter_core_tpu_torch.solver.service``)."""
+    import runpy
+
+    kind, args = argv[0], argv[1:]
+    if kind == "solverd":
+        _poison_seam(args[0])
+        from karpenter_core_tpu_torch.solver import service
+
+        sys.argv = ["solverd"] + args[1:]
+        return service.main()
+    port, mark = int(args[0]), args[1]
+    _poison_seam(mark)
+    from karpenter_core_tpu_torch import operator as opmod
+    from karpenter_core_tpu_torch.cloudprovider.kwok import (
+        KwokCloudProvider,
+        bench_catalog,
+    )
+    from karpenter_core_tpu_torch.kube.httpclient import HttpKubeClient
+
+    real = opmod.Operator
+
+    def over_http(options=None):
+        client = HttpKubeClient("127.0.0.1", port)
+        return real(kube=client, options=options,
+                    cloud_provider=KwokCloudProvider(
+                        client, list(bench_catalog(HTTP_TYPES))))
+
+    # the binary imports Operator from the operator module when it runs
+    opmod.Operator = over_http
+    sys.argv = ["karpenter"] + FAULT_BINARY_FLAGS
+    runpy.run_module("karpenter_core_tpu_torch.main", run_name="__main__",
+                     alter_sys=True)
+    return 0
+
+
+class _Child:
+    """A child process from the root of the checkout, its stderr read on
+    a thread into (monotonic time, line) pairs."""
+
+    def __init__(self, cmd):
+        import threading
+        from pathlib import Path
+
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            cmd, cwd=Path(__file__).resolve().parent,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        self.lines = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stderr:
+            self.lines.append((time.monotonic(), line))
+
+    def first(self, text):
+        """The time of the first stderr line holding ``text``, or None."""
+        return next((t for t, ln in list(self.lines) if text in ln), None)
+
+    def health_addr(self):
+        import re
+
+        for _, ln in list(self.lines):
+            found = re.search(r"health/metrics on [^:\s]+:(\d+)", ln)
+            if found:
+                return f"127.0.0.1:{found.group(1)}"
+        return None
+
+    def stderr(self):
+        return "".join(ln for _, ln in self.lines)
+
+    def finish(self, timeout):
+        """Wait for the exit (killing the child past ``timeout``) and for
+        the last stderr line; returns the exit code."""
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self._reader.join(10)
+        return self.proc.returncode
+
+
+def _http_status(url):
+    """A GET's status, or None when nothing answers."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=2) as r:
+            r.read()
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+    except OSError:
+        return None
+
+
+def _readback(port):
+    """(pods bound, nodes, the nodes' summed cpu) read from the
+    apiserver."""
+    from karpenter_core_tpu_torch.kube.httpclient import HttpKubeClient
+
+    probe = HttpKubeClient("127.0.0.1", port)
+    nodes = probe.list_nodes()
+    return (sum(1 for p in probe.list_pods() if p.node_name), len(nodes),
+            sum(n.status.capacity.get("cpu", 0) for n in nodes))
+
+
+def fault_operator():
+    """16a: the binary in a child over the apiserver; the child's first
+    provisioning solve raises a real device-side assert at the kernel
+    seam. It must log the sticky error, answer /healthz 503 and exit
+    ``DEVICE_FAULT_EXIT_CODE`` within ``FAULT_EXIT_BOUND_S`` of the fault;
+    the same command respawned (the pod's restart) must bind every pod
+    with the JAX operator's node count and exit 0 on SIGINT."""
+    import os
+    import signal
+    import tempfile
+
+    from karpenter_core_tpu_torch.kube.httpclient import HttpKubeClient
+    from karpenter_core_tpu_torch.main import DEVICE_FAULT_EXIT_CODE
+
+    mark = os.path.join(tempfile.mkdtemp(prefix="chip-smoke-fault-"),
+                        "faulted")
+    cmd = [sys.executable, "chip_smoke.py", "--fault-child", "operator"]
+    with http_apiserver() as port:
+        client = HttpKubeClient("127.0.0.1", port)
+        client.create(_pool())
+        reset_name_counters()
+        for pod in _plain_pods(FAULT_PODS):
+            client.create(pod)
+        cmd += [str(port), mark]
+
+        # the faulted child: poll /healthz until it exits
+        child = _Child(cmd)
+        health = []
+        while child.proc.poll() is None:
+            if time.monotonic() - child.t0 > 180:
+                child.finish(0)
+                raise AssertionError("faulted operator: no exit in 180 s:"
+                                     f" {child.stderr()[-2000:]}")
+            addr = child.health_addr()
+            if addr:
+                health.append((time.monotonic(),
+                               _http_status(f"http://{addr}/healthz")))
+            time.sleep(0.05)
+        exit_at = time.monotonic()
+        rc = child.finish(10)
+        err = child.stderr()
+        fault_at = child.first("sticky CUDA error")
+        if (rc != DEVICE_FAULT_EXIT_CODE or fault_at is None
+                or "device-side assert triggered" not in err):
+            raise AssertionError(f"faulted operator: exit {rc}, expected"
+                                 f" {DEVICE_FAULT_EXIT_CODE} after a"
+                                 f" device-side assert: {err[-3000:]}")
+        exit_s = exit_at - fault_at
+        fault_s = fault_at - child.t0
+        unhealthy = [t for t, st in health if st == 503 and t >= fault_at]
+        if exit_s > FAULT_EXIT_BOUND_S or not unhealthy:
+            raise AssertionError(
+                f"faulted operator: exit {exit_s:.3f} s after the fault"
+                f" (bound {FAULT_EXIT_BOUND_S} s), /healthz after it"
+                f" {[st for t, st in health if t >= fault_at]}")
+        after_fault = _readback(port)
+        if after_fault[0] or after_fault[1]:
+            raise AssertionError(f"faulted operator: bound or created"
+                                 f" {after_fault} before its exit")
+
+        # the respawn: the same command, the mark now present
+        child = _Child(cmd)
+        ready_s = None
+        while True:
+            now = time.monotonic()
+            if child.proc.poll() is not None or now - child.t0 > 180:
+                child.finish(0)
+                raise AssertionError(f"respawned operator: exited or timed"
+                                     f" out: {child.stderr()[-3000:]}")
+            addr = child.health_addr()
+            if ready_s is None and addr and _http_status(
+                    f"http://{addr}/readyz") == 200:
+                ready_s = now - child.t0
+            if ready_s is not None and _readback(port)[0] == FAULT_PODS:
+                bound_s = time.monotonic() - child.t0
+                break
+            time.sleep(0.1)
+        child.proc.send_signal(signal.SIGINT)
+        rc2 = child.finish(60)
+        err2 = child.stderr()
+        got = _readback(port)
+    if rc2 != 0 or "sticky" in err2 or "Traceback" in err2:
+        raise AssertionError(f"respawned operator: exit {rc2}:"
+                             f" {err2[-3000:]}")
+    if [got[1], got[2]] != FAULT_EXPECTED or got[0] != FAULT_PODS:
+        raise AssertionError(f"respawned operator: {got[0]} pods bound,"
+                             f" {got[1]} nodes, {got[2]} cpu; the JAX"
+                             f" operator's [nodes, cpu] {FAULT_EXPECTED}")
+    return dict(exit_code=rc, exit_s=exit_s, fault_s=fault_s,
+                healthz_after_fault=sorted({st for t, st in health
+                                            if t >= fault_at}, key=str),
+                respawn_exit_code=rc2, respawn_ready_s=ready_s,
+                respawn_bound_s=bound_s, pods_bound=got[0], nodes=got[1],
+                cpu=got[2])
+
+
+def fault_solverd():
+    """16b: a spawned solverd member (solverd's crash-only path) whose first
+    solve raises a real device-side assert at the kernel seam: the solve
+    fails, the member exits ``WATCHDOG_EXIT_CODE``, the supervisor
+    respawns it, and the respawned member's wire for the same request
+    equals the in-process solve's."""
+    import os
+    import tempfile
+
+    from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
+    from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
+    from karpenter_core_tpu_torch.solver import codec, remote
+    from karpenter_core_tpu_torch.solver.supervisor import (
+        WATCHDOG_EXIT_CODE,
+        SolverSupervisor,
+    )
+
+    pool = _pool()
+    its = {pool.name: list(bench_catalog(HTTP_TYPES))}
+    reset_name_counters()
+    pods = _plain_pods(FAULT_PODS)
+    body = codec.encode_solve_request([pool], its, [], [], pods,
+                                      max_slots=FAULT_SLOTS)
+    reset_name_counters()
+    with plain_forbidden():
+        local = DeviceScheduler([pool], its, max_slots=FAULT_SLOTS).solve(
+            pods)
+    local_wire = _wire_view(codec.encode_solve_results(local, 0.0))
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-solverd-")
+    sup = SolverSupervisor(command=[
+        sys.executable, "chip_smoke.py", "--fault-child", "solverd",
+        os.path.join(tmp, "faulted"), "--port", "0",
+        "--quarantine-journal", os.path.join(tmp, "poison.json"),
+        "--quarantine-strikes", "2"], backoff_initial=0.05)
+    t0 = time.monotonic()
+    addr = sup.start()
+    try:
+        _member_health(addr)
+        up_s = time.monotonic() - t0
+        client = remote.SolverClient(addr, timeout=120, max_retries=0,
+                                     sleep=lambda s: None)
+        t1 = time.monotonic()
+        try:
+            client.call("/solve", body)
+        except remote.RemoteSolverError as e:
+            failed = f"{type(e).__name__}: {e}"
+        else:
+            raise AssertionError("solverd: the poisoned member answered")
+        rc = sup.proc.wait(timeout=FAULT_EXIT_BOUND_S)
+        request_to_exit_s = time.monotonic() - t1
+        if rc != WATCHDOG_EXIT_CODE:
+            raise AssertionError(f"solverd: the member exited {rc},"
+                                 f" expected {WATCHDOG_EXIT_CODE}")
+        t2 = time.monotonic()
+        while not sup.poll():
+            if time.monotonic() - t2 > 120:
+                raise AssertionError("solverd: no respawn in 120 s")
+            time.sleep(0.05)
+        client.set_addr(sup.addr)
+        _member_health(sup.addr)
+        respawn_s = time.monotonic() - t2
+        data, _ = client.call("/solve", body)
+        if _wire_view(data) != local_wire:
+            raise AssertionError("solverd: the respawned member's wire !="
+                                 " the in-process solve's")
+    finally:
+        sup.stop()
+    return dict(exit_code=rc, request_to_exit_s=request_to_exit_s,
+                failed_solve=failed[:200],
+                spawn_ready_s=up_s, respawn_ready_s=respawn_s,
+                restarts=sup.restarts, nodes=local.node_count(),
+                wire_equal=True)
+
+
+def fault_phase():
+    """Phase 16: a real device-side assert in child processes, the
+    in-process operator's binary (16a) and a spawned solverd member
+    (16b); prints the ``device_fault`` line."""
+    t0 = time.perf_counter()
+    out = dict(operator=fault_operator(), solverd=fault_solverd())
+    out["wall_s"] = time.perf_counter() - t0
+    print("device_fault " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4585,6 +5091,10 @@ def main() -> int:
     # 15. the port's bench under BENCH_FAST=1, in a child
     bench = bench_phase(smi.rsplit(",", 1)[0].strip())
     done(15)
+    # 16. a real device fault in children: the binary's crash-only exit
+    # and its respawn, and a solverd member's
+    fault = fault_phase()
+    done(16)
     held = mesh["sweep"]["held"]
 
     k50 = krows[0]
@@ -4619,6 +5129,8 @@ def main() -> int:
         "main_path": mrows,
         # phase 15's child process: its own launches, not in this count
         "bench": bench,
+        # phase 16's children: their own contexts, not in this count
+        "device_fault": fault,
     }, {
         "name": "ffd_step_batched",
         "route": "cuda",
@@ -4780,5 +5292,25 @@ def main() -> int:
     return 0
 
 
+def preempt_main(argv):
+    """``--preempt-times capture PATH`` / ``time TREE PATH [REPS]``."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    if argv[0] == "capture":
+        line = dict(captured=preempt_capture(argv[1]))
+    else:
+        line = preempt_times(argv[1], argv[2],
+                             int(argv[3]) if len(argv) > 3 else 5)
+    line["device"] = smi.strip()
+    print(json.dumps(line), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fault-child"]:
+        sys.exit(fault_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--preempt-times"]:
+        sys.exit(preempt_main(sys.argv[2:]))
     sys.exit(main())

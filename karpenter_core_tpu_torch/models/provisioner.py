@@ -123,7 +123,10 @@ from karpenter_core_tpu_torch.solver.vocab import (
 )
 from karpenter_core_tpu_torch.utils import resources as resutil
 from karpenter_core_tpu_torch.parallel import mesh as pmesh
-from karpenter_core_tpu_torch.utils.device import resolve_device
+from karpenter_core_tpu_torch.utils.device import (
+    is_sticky_cuda_error,
+    resolve_device,
+)
 
 KERNEL_BACKENDS = ("cuda", "reference")
 _NARROW = {
@@ -595,9 +598,11 @@ def solve_batch(entries):
     Failure is per-problem: a member whose dispatch or decode raises gets
     an ("error", exc) outcome while its batch-mates complete ("ok",
     Results). A failing batched dispatch (which cannot attribute blame) is
-    retried solo per member, so the poisoned problem fails alone. A fault
-    on the card inside a kernel poisons the CUDA context, so there the solo
-    retries fail as well.
+    retried solo per member, so the poisoned problem fails alone. A sticky
+    CUDA error (``utils/device.is_sticky_cuda_error``) poisons the process's
+    context instead: it goes to every member of the failed dispatch with no
+    solo re-run, and every problem still pending in the call gets it in
+    place of a launch.
 
     Returns (outcomes, stats): outcomes aligned with entries; stats counts
     dispatches, batched problems, and batch-axis padding.
@@ -641,12 +646,17 @@ def solve_batch(entries):
         "padded_rows": 0,
         "padded_total_rows": 0,
     }
+    sticky = None  # the call's first sticky CUDA error: no launch after it
     while pending:
         groups: Dict[tuple, List[int]] = {}
         for i in sorted(pending):
             groups.setdefault(pending[i].shape_key(), []).append(i)
         answers: Dict[int, tuple] = {}
         for idxs in groups.values():
+            if sticky is not None:
+                for i in idxs:
+                    answers[i] = ("error", sticky)
+                continue
             if len(idxs) == 1:
                 i = idxs[0]
                 stats["dispatches"] += 1
@@ -654,22 +664,35 @@ def solve_batch(entries):
                     answers[i] = ("ok", _run_kernel_solo(pending[i]))
                 except Exception as e:
                     answers[i] = ("error", e)
+                    if is_sticky_cuda_error(e):
+                        sticky = e
                 continue
             stats["dispatches"] += 1
             try:
                 outs, padded = _run_kernel_batched(
                     [pending[i] for i in idxs]
                 )
-            except Exception:
+            except Exception as e:
+                if is_sticky_cuda_error(e):
+                    # the context is poisoned: a solo re-run can only fail
+                    sticky = e
+                    for i in idxs:
+                        answers[i] = ("error", e)
+                    continue
                 # the batched dispatch failed as a unit — blame is
                 # unattributable, so re-run each member solo inside the
                 # same call: the poison fails alone, the rest still solve
                 for i in idxs:
+                    if sticky is not None:
+                        answers[i] = ("error", sticky)
+                        continue
                     stats["dispatches"] += 1
                     try:
                         answers[i] = ("ok", _run_kernel_solo(pending[i]))
-                    except Exception as e:
-                        answers[i] = ("error", e)
+                    except Exception as e2:
+                        answers[i] = ("error", e2)
+                        if is_sticky_cuda_error(e2):
+                            sticky = e2
             else:
                 stats["batched_dispatches"] += 1
                 stats["batched_problems"] += len(idxs)

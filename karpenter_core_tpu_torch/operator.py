@@ -31,6 +31,14 @@ A spawned fleet (``solver_fleet > 1``) and the tier autoscaler
 (``solver_autoscale``) run as in the JAX package: supervised children on
 distinct ports, each its own process with its own CUDA context, routed by
 the ``FleetRouter``.
+
+A sticky CUDA error (``utils/device.is_sticky_cuda_error``) poisons the
+process's CUDA context, so every later device call in the process fails.
+The first one a reconciler raises is recorded once (a Warning event and
+``RECONCILE_ERRORS``), the operator stops calling controllers, and
+``healthz()`` and ``readyz()`` turn False: the binary exits crash-only
+(``main.py``) and the pod's restart gives it a fresh context. An error
+that is not sticky keeps the per-controller backoff.
 """
 from __future__ import annotations
 
@@ -72,7 +80,12 @@ from karpenter_core_tpu_torch.solver.fleet import (
 from karpenter_core_tpu_torch.state.cluster import Cluster
 from karpenter_core_tpu_torch.utils import pod as podutil
 from karpenter_core_tpu_torch.utils.clock import Clock
-from karpenter_core_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from karpenter_core_tpu_torch.utils.device import (
+    DEFAULT_DEVICE,
+    describe_device_fault,
+    is_sticky_cuda_error,
+    resolve_device,
+)
 
 # -- reconcile fault isolation -----------------------------------------------
 # One controller's exception must not kill the pass (the reference runs ~28
@@ -773,6 +786,9 @@ class Operator:
         # object was deleted and no workload remains — must drop its fault,
         # or readyz would report a crash-loop forever with nothing failing
         self._pass_seen: set = set()
+        # the first sticky CUDA error a reconciler raised: the context is
+        # poisoned, no controller runs again in this process
+        self.device_fault: Optional[BaseException] = None
 
     def _nominated_pod_keys(self) -> Dict[str, str]:
         """{pod key -> target} for LIVE nominations (binder ledger): the
@@ -847,8 +863,10 @@ class Operator:
     # -- health surface (operator.go:181-198 healthz/readyz) ---------------
 
     def healthz(self) -> bool:
-        """Liveness: the process can serve (always true in-process)."""
-        return True
+        """Liveness: the process can serve — false once a sticky CUDA
+        error poisoned its context (``device_fault``), so a liveness
+        probe restarts it."""
+        return self.device_fault is None
 
     def readyz(self) -> bool:
         """Readiness: cluster state has caught up with the store — the
@@ -856,6 +874,8 @@ class Operator:
         AND no controller is crash-looping (a controller past the
         consecutive-error threshold means the control plane is degraded;
         the probe surface must say so)."""
+        if self.device_fault is not None:
+            return False
         if any(
             fault[2] >= CRASHLOOP_THRESHOLD
             for fault in self._controller_faults.values()
@@ -882,7 +902,12 @@ class Operator:
         reconcile after a sibling's error, and a mixed controller (one
         broken object among healthy ones) clears its fault state on the
         next success instead of starving siblings or flipping readyz —
-        crash-loop detection targets whole-controller failure."""
+        crash-loop detection targets whole-controller failure.
+
+        A sticky CUDA error is not retried: it is recorded once
+        (``_record_device_fault``) and no controller runs after it."""
+        if self.device_fault is not None:
+            return
         self._pass_seen.add(controller)
         fault = self._controller_faults.get(controller)
         now = self.clock.now()
@@ -895,7 +920,10 @@ class Operator:
         try:
             fn(*args)
         except Exception as e:  # noqa: BLE001 — isolation is the point
-            self._record_reconcile_error(controller, e)
+            if is_sticky_cuda_error(e):
+                self._record_device_fault(controller, e)
+            else:
+                self._record_reconcile_error(controller, e)
         else:
             if self._controller_faults.pop(controller, None) is not None:
                 self._export_crashloop()
@@ -936,6 +964,26 @@ class Operator:
         )
         self._export_crashloop()
 
+    def _record_device_fault(self, controller: str, e: Exception) -> None:
+        """The first sticky CUDA error: a Warning event, one
+        reconcile_errors count, and ``device_fault`` set — every later
+        device call on this context can only fail, so nothing retries in
+        this process."""
+        from karpenter_core_tpu_torch.events import Event
+        from karpenter_core_tpu_torch.metrics import wiring as m
+
+        self.device_fault = e
+        m.RECONCILE_ERRORS.inc(
+            {"controller": controller, "error": type(e).__name__}
+        )
+        self.recorder.publish(Event(
+            involved_object=f"Controller/{controller}",
+            type="Warning",
+            reason="DeviceFault",
+            message=f"{describe_device_fault(e)}; the CUDA context is"
+            " poisoned, reconciling stops until the process restarts",
+        ))
+
     def _export_crashloop(self) -> None:
         from karpenter_core_tpu_torch.metrics import wiring as m
 
@@ -958,6 +1006,8 @@ class Operator:
     # -- one pass ----------------------------------------------------------
 
     def reconcile_once(self, disrupt: bool = True) -> None:
+        if self.device_fault is not None:
+            return  # a poisoned context: nothing runs (healthz is false)
         self._pass_id += 1
         self._pass_seen = set()
         if self.solver_supervisor is not None:

@@ -153,21 +153,24 @@ def _full(like: torch.Tensor, value, dtype) -> torch.Tensor:
 
 def _class_slot_compatible(state: SlotState, c, statics: FFDStatics):
     """Requirements.Compatible(class -> slot) vectorized over slots; the
-    custom-label rule exempts well-known keys on new slots only."""
-    overlap = torch.any(state.valmask & c.mask[None, :, :], dim=-1)  # [N, K]
-    both = state.defines & c.defines[None, :]
-    either_concrete = ~state.complement | c.concrete[None, :]
-    crossed = torch.maximum(state.gt, c.gt[None, :]) >= torch.minimum(
-        state.lt, c.lt[None, :]
+    custom-label rule exempts well-known keys on new slots only. Any
+    leading problem axes broadcast (``ops/gangsched.preempt_pass_batched``
+    passes [B, ...] leaves)."""
+    overlap = torch.any(state.valmask & c.mask[..., None, :, :], dim=-1)
+    both = state.defines & c.defines[..., None, :]  # [..., N, K]
+    either_concrete = ~state.complement | c.concrete[..., None, :]
+    crossed = torch.maximum(state.gt, c.gt[..., None, :]) >= torch.minimum(
+        state.lt, c.lt[..., None, :]
     )
     empty = torch.where(either_concrete, ~overlap, crossed)
-    both_negative = state.negative & c.negative[None, :]
+    both_negative = state.negative & c.negative[..., None, :]
     rule2 = both & empty & ~both_negative
 
-    is_new = (state.kind == 2)[:, None]
-    allow = statics.well_known[None, :] & is_new
-    rule1 = c.defines[None, :] & ~c.negative[None, :] & ~state.defines & ~allow
-    return ~torch.any(rule1 | rule2, dim=-1)  # [N]
+    is_new = (state.kind == 2)[..., None]
+    allow = statics.well_known[..., None, :] & is_new
+    rule1 = (c.defines[..., None, :] & ~c.negative[..., None, :]
+             & ~state.defines & ~allow)
+    return ~torch.any(rule1 | rule2, dim=-1)  # [..., N]
 
 
 def _offering_ok(statics: FFDStatics, joined_valmask):

@@ -32,7 +32,9 @@ order of XLA's ``reduce_window`` cumsum), never by a parallel scan, and
 ``argmin`` ties take the first index as ``jnp.argmin`` does. Steps that
 the host knows are disabled (tier <= 0, or in a gang) take nothing and
 change no carry, so the class loop skips them; no host read sits inside
-the loops.
+the loops. ``preempt_pass_batched`` walks every row in one pass, as the
+JAX package's ``vmap`` does (its op count does not grow with B), and the
+solo pass is its one-row case.
 """
 from __future__ import annotations
 
@@ -49,10 +51,8 @@ from karpenter_core_tpu_torch.ops.ffd import (
     SlotState,
     _class_slot_compatible,
     _isum,
-    _row,
     ffd_solve,
     ffd_solve_batched,
-    step_at,
 )
 from karpenter_core_tpu_torch.solver.gangs import GANG_FREE
 
@@ -211,29 +211,36 @@ def gang_solve_sharded(shards, level_iters: int = LEVEL_ITERS):
 
 def _node_prefix_fit(avail, elig, req, cost, r):
     """Every node's eviction price curve: cumulative freed capacity over
-    the cost-ordered eligible prefix -> (kfit [N, P+1] pods admitted after
-    evicting the first j, cost0 [N, P+1] cumulative cost of that prefix);
-    j = 0 is the eviction-free residual fit. The P axis is summed left to
-    right, one element at a time."""
-    P = elig.shape[1]
-    run_f = torch.zeros_like(avail)  # [N, R]
-    run_c = torch.zeros_like(cost[:, 0])  # [N]
+    the cost-ordered eligible prefix -> (kfit [..., N, P+1] pods admitted
+    after evicting the first j, cost0 [..., N, P+1] cumulative cost of
+    that prefix); j = 0 is the eviction-free residual fit. Leading problem
+    axes broadcast (r: [..., R]). The P axis is summed left to right, one
+    element at a time."""
+    P = elig.shape[-1]
+    req_e = torch.where(elig[..., None], req, 0.0)  # [..., N, P, R]
+    cost_e = torch.where(elig, cost, 0.0)  # [..., N, P]
+    run_f = torch.zeros_like(avail)  # [..., N, R]
+    run_c = torch.zeros_like(cost[..., 0])  # [..., N]
     freed, costs = [run_f], [run_c]
     for p in range(P):
-        e = elig[:, p]
-        run_f = run_f + torch.where(e[:, None], req[:, p],
-                                    torch.zeros_like(run_f))
-        run_c = run_c + torch.where(e, cost[:, p], torch.zeros_like(run_c))
+        run_f = run_f + req_e[..., p, :]
+        run_c = run_c + cost_e[..., p]
         freed.append(run_f)
         costs.append(run_c)
-    freed0 = torch.stack(freed, dim=1)  # [N, P+1, R]
-    cost0 = torch.stack(costs, dim=1)  # [N, P+1]
+    freed0 = torch.stack(freed, dim=-2)  # [..., N, P+1, R]
+    cost0 = torch.stack(costs, dim=-1)  # [..., N, P+1]
+    r = r[..., None, None, :]
     pos = r > 0
-    safe_r = torch.where(pos, r, torch.ones_like(r))
-    head = (avail[:, None, :] + freed0) / safe_r
-    head = torch.where(pos, head, torch.full_like(head, float(BIG)))
+    safe_r = torch.where(pos, r, 1.0)
+    head = (avail[..., None, :] + freed0) / safe_r
+    head = torch.where(pos, head, float(BIG))
     kfit = torch.floor(torch.amin(head, dim=-1))
     return torch.clamp(kfit, 0.0, float(2**30)).to(_I32), cost0
+
+
+def _lead(tree):
+    """``tree`` with a leading problem axis of one row."""
+    return type(tree)(*(None if x is None else x[None] for x in tree))
 
 
 def preempt_pass(state: SlotState, classes: ClassStep, statics: FFDStatics,
@@ -242,19 +249,42 @@ def preempt_pass(state: SlotState, classes: ClassStep, statics: FFDStatics,
     """Serve still-unplaced positive-tier gang-free classes from evictable
     capacity, class by class with an (evicted, capacity bonus) carry.
     Returns (extra takes [J, N] int32, unplaced' [J] int32, evicted [N, P]
-    bool) exactly as the JAX package's ``preempt_pass``."""
-    N, P = ev.tier.shape
-    J = classes.count.shape[0]
+    bool) exactly as the JAX package's ``preempt_pass``: the one-row case
+    of ``preempt_pass_batched``."""
+    out = _preempt_rows(
+        _lead(state), _lead(classes), _lead(statics), step_tier[None],
+        step_gang[None], unplaced[None], _lead(ev), node_rounds)
+    return tuple(x[0] for x in out)
+
+
+def preempt_pass_batched(state: SlotState, classes: ClassStep,
+                         statics: FFDStatics, step_tier, step_gang, unplaced,
+                         ev: EvPlanes, node_rounds: int = NODE_ROUNDS):
+    """``preempt_pass`` over stacked problems (every leaf with a leading
+    [B]), all rows in one walk of the class axis, as JAX's vmap: (extra
+    takes [B, J, N], unplaced' [B, J], evicted [B, N, P])."""
+    return _preempt_rows(state, classes, statics, step_tier, step_gang,
+                         unplaced, ev, node_rounds)
+
+
+def _preempt_rows(state, classes, statics, step_tier, step_gang, unplaced,
+                  ev, node_rounds):
+    """The pass over [B] rows. The walk covers the union of the rows'
+    enabled steps (tier > 0 and gang-free; the one host read of the
+    call). At a step that is not its own a row takes nothing, and
+    ``torch.where`` on ``act`` leaves its carry as it was (its scores may
+    be finite or inf; neither reaches the carry)."""
+    B, N, P = ev.tier.shape
     dev = state.kind.device
-    evicted = torch.zeros((N, P), dtype=torch.bool, device=dev)
-    bonus = torch.zeros_like(state.requests)  # [N, R]
-    extra = torch.zeros((J, N), dtype=_I32, device=dev)
+    evicted = torch.zeros((B, N, P), dtype=torch.bool, device=dev)
+    bonus = torch.zeros_like(state.requests)  # [B, N, R]
+    extra = torch.zeros((B, classes.count.shape[1], N), dtype=_I32,
+                        device=dev)
     m_left = unplaced.to(_I32).clone()
     # gang-free is exactly GANG_FREE: GANG_FALLBACK_STRADDLING marks a gang
     # member whose atomicity is host-enforced (solver/gangs.py)
-    on = (np.asarray(step_tier.cpu()) > 0) & (
-        np.asarray(step_gang.cpu()) == GANG_FREE)
-    steps = np.nonzero(on)[0]
+    on = (step_tier > 0) & (step_gang == GANG_FREE)  # [B, J]
+    steps = np.nonzero(np.asarray(on.cpu()).any(axis=0))[0]
     if not len(steps):
         return extra, m_left, evicted
     exist = state.kind == 1
@@ -263,61 +293,52 @@ def preempt_pass(state: SlotState, classes: ClassStep, statics: FFDStatics,
     pod = torch.arange(P, device=dev)
     zero_i = torch.zeros((), dtype=_I32, device=dev)
     inf = torch.full((), float("inf"), dtype=_F32, device=dev)
+    R = state.requests.shape[-1]
     for j in steps.tolist():
-        c = step_at(classes, j)
-        m = unplaced[j].to(_I32)
+        c = ClassStep(*(None if x is None else x[:, j] for x in classes))
+        on_j = on[:, j]  # [B]
+        m = unplaced[:, j].to(_I32)  # [B]
         ok_node = exist & c.exist_taint_ok & _class_slot_compatible(
-            state, c, statics)
-        elig = ev.valid & ~evicted & (ev.tier < step_tier[j])  # [N, P]
+            state, c, statics)  # [B, N]
+        elig = ev.valid & ~evicted & (ev.tier < step_tier[:, j, None, None])
         kfit, cost0 = _node_prefix_fit(free + bonus, elig, ev.req, ev.cost,
                                        c.requests)
-        kfit = torch.where(ok_node[:, None] & (m > 0), kfit,
-                           torch.zeros_like(kfit))
-        take = torch.zeros((N,), dtype=_I32, device=dev)
-        used = torch.zeros((N,), dtype=torch.bool, device=dev)
+        kfit = torch.where((ok_node & (on_j & (m > 0))[:, None])[..., None],
+                           kfit, 0)
+        take = torch.zeros((B, N), dtype=_I32, device=dev)
+        used = torch.zeros((B, N), dtype=torch.bool, device=dev)
         for _ in range(node_rounds):
-            t_full = torch.where(used, zero_i, torch.minimum(kfit[:, P], m))
+            t_full = torch.where(used, zero_i,
+                                 torch.minimum(kfit[..., P], m[:, None]))
             # minimal prefix reaching the node's target take (kfit grows
             # with j, so the count of prefixes below target IS the index)
-            jneed = torch.clamp(_isum(kfit < t_full[:, None], dim=1), 0, P)
-            costn = cost0.gather(1, jneed.long()[:, None])[:, 0]
+            jneed = torch.clamp(_isum(kfit < t_full[..., None], dim=-1),
+                                0, P)
+            costn = cost0.gather(-1, jneed.long()[..., None])[..., 0]
             score = torch.where(t_full > 0, costn / t_full.to(_F32), inf)
-            n_star = torch.argmin(score).reshape(1)  # first of ties
-            t = t_full.index_select(0, n_star)[0]
-            act = t > 0
-            jn = jneed.index_select(0, n_star)[0]
+            n_star = torch.argmin(score, dim=-1, keepdim=True)  # [B, 1]
+            t = t_full.gather(1, n_star)[:, 0]
+            act = (t > 0) & on_j
+            jn = jneed.gather(1, n_star)[:, 0]
             # jneed indexes the physical prefix (ineligible rows add zero),
             # so the evicted set is the eligible pods inside that prefix
-            newly = elig.index_select(0, n_star)[0] & (pod < jn) & act
-            hit = slot == n_star
-            evicted = evicted | (hit[:, None] & newly[None, :])
-            req_n = ev.req.index_select(0, n_star)[0]  # [P, R]
-            freed_n = torch.zeros_like(c.requests)
+            newly = (elig.gather(1, n_star[..., None].expand(B, 1, P))[:, 0]
+                     & (pod < jn[:, None]) & act[:, None])  # [B, P]
+            hit = slot == n_star  # [B, N]
+            evicted = evicted | (hit[..., None] & newly[:, None, :])
+            req_n = ev.req.gather(
+                1, n_star[..., None, None].expand(B, 1, P, R))[:, 0]
+            req_new = torch.where(newly[..., None], req_n, 0.0)  # [B, P, R]
+            freed_n = torch.zeros_like(c.requests)  # [B, R]
             for p in range(P):
-                freed_n = freed_n + torch.where(newly[p], req_n[p],
-                                                torch.zeros_like(freed_n))
-            delta = torch.where(act, freed_n - t.to(_F32) * c.requests,
-                                torch.zeros_like(freed_n))
-            bonus = bonus + torch.where(hit[:, None], delta[None, :],
-                                        torch.zeros_like(bonus))
-            took = hit & act
-            take = take + torch.where(took, t, zero_i)
-            used = used | took
-            m = m - torch.where(act, t, zero_i)
-        extra[j] = take
-        m_left[j] = m
+                freed_n = freed_n + req_new[:, p]
+            delta = torch.where(
+                act[:, None], freed_n - t.to(_F32)[:, None] * c.requests, 0.0)
+            bonus = bonus + torch.where(hit[..., None], delta[:, None, :], 0.0)
+            t_act = torch.where(act, t, zero_i)  # [B]
+            take = take + torch.where(hit, t_act[:, None], zero_i)
+            used = used | (hit & act[:, None])
+            m = m - t_act
+        extra[:, j] = take
+        m_left[:, j] = m
     return extra, m_left, evicted
-
-
-def preempt_pass_batched(state: SlotState, classes: ClassStep,
-                         statics: FFDStatics, step_tier, step_gang, unplaced,
-                         ev: EvPlanes, node_rounds: int = NODE_ROUNDS):
-    """``preempt_pass`` over stacked problems, row by row: (extra takes
-    [B, J, N], unplaced' [B, J], evicted [B, N, P])."""
-    rows = [
-        preempt_pass(_row(state, b), _row(classes, b), _row(statics, b),
-                     step_tier[b], step_gang[b], unplaced[b], _row(ev, b),
-                     node_rounds)
-        for b in range(step_tier.shape[0])
-    ]
-    return tuple(torch.stack(xs) for xs in zip(*rows))

@@ -44,15 +44,32 @@ STICKY_CUDA_ERRORS = (
 )
 
 
-def is_sticky_cuda_error(exc: BaseException) -> bool:
-    """Whether ``exc``, or an exception it was raised from, is a sticky
-    CUDA error (``STICKY_CUDA_ERRORS``)."""
+def sticky_cuda_error(exc: BaseException):
+    """The sticky CUDA error (``STICKY_CUDA_ERRORS``) that ``exc`` is or
+    was raised from, else None: a sticky error may surface at a later
+    synchronising call, chained under another raise."""
     seen = set()
     while exc is not None and id(exc) not in seen:
         seen.add(id(exc))
         if isinstance(exc, RuntimeError) and any(
             m in str(exc) for m in STICKY_CUDA_ERRORS
         ):
-            return True
+            return exc
         exc = exc.__cause__ or exc.__context__
-    return False
+    return None
+
+
+def is_sticky_cuda_error(exc: BaseException) -> bool:
+    """Whether ``exc``, or an exception it was raised from, is a sticky
+    CUDA error (``STICKY_CUDA_ERRORS``)."""
+    return sticky_cuda_error(exc) is not None
+
+
+def describe_device_fault(exc: BaseException) -> str:
+    """``exc`` as "Type: message", with the sticky CUDA error it was raised
+    from when that is another exception."""
+    text = f"{type(exc).__name__}: {exc}"
+    cause = sticky_cuda_error(exc)
+    if cause is not None and cause is not exc:
+        text += f" (from {type(cause).__name__}: {cause})"
+    return text

@@ -10,7 +10,10 @@
   (mixed, topology member and shape split, batch of one, a poisoned
   member): every member's result wire (``codec.encode_solve_results`` with
   solve_seconds pinned to 0.0) is byte-identical to the JAX
-  ``solve_batch`` member's, and the batch stats are equal.
+  ``solve_batch`` member's, and the batch stats are equal. A batched
+  dispatch that fails re-runs its members solo, unless the error is a
+  sticky CUDA error: that one reaches every member still pending in the
+  call with no further launch (spies count the dispatches).
 * "cuda" and "reference" problems never share a batched dispatch; the
   shape key splits on backend and on device.
 * ``ops/cuda_ffd.cuda_ffd_solve_batched`` takes the plain version for CPU
@@ -266,6 +269,85 @@ def test_failed_batched_dispatch_retries_each_member_solo(monkeypatch):
     _assert_same_outcomes(j_out, p_out)
     assert p_stats["batched_dispatches"] == 0
     assert p_stats["dispatches"] == 1 + len(members)
+
+
+STICKY = "CUDA error: an illegal memory access was encountered"
+
+
+class _Spy:
+    """Counts the calls of a kernel runner, and raises ``error`` from
+    each when one is given."""
+
+    def __init__(self, fn, error=None):
+        self.fn, self.error, self.calls = fn, error, 0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        if self.error is not None:
+            raise self.error
+        return self.fn(*args, **kwargs)
+
+
+def _wide(name="pw"):
+    """A member whose slot axis (128) no ``_members`` problem shares, so
+    it dispatches in a group of its own."""
+    pool, pods = _problem(name, 18)
+    pools, its = interop.from_reference(([pool], {name: list(_catalog())}))
+    return (tprov.DeviceScheduler(pools, its, max_slots=128, device="cpu",
+                                  kernel_backend="cuda"),
+            interop.from_reference(pods))
+
+
+def _port_entries(members, backend="cuda"):
+    return [(_port_sched(n, pool, backend), interop.from_reference(pods))
+            for n, pool, pods in members]
+
+
+@pytest.mark.parametrize("error", ["sticky", "plain"])
+def test_failed_batched_dispatch_reruns_solo_unless_sticky(monkeypatch,
+                                                           error):
+    """A batched dispatch that raises: a plain error re-runs each member
+    solo, with the JAX package's outcomes; a sticky CUDA error poisoned
+    the context, so it reaches every member of the group with no solo
+    re-run. A spy counts the solo dispatches."""
+    exc = RuntimeError(STICKY if error == "sticky" else "batched failed")
+    monkeypatch.setattr(cuda_ffd, "cuda_ffd_solve_batched",
+                        _Spy(None, exc))
+    solo = _Spy(tprov._run_kernel_solo)
+    monkeypatch.setattr(tprov, "_run_kernel_solo", solo)
+    members = _members("mixed")
+    (j_out, _), (p_out, p_stats) = _both(
+        members, backends=["cuda"] * len(members))
+    if error == "plain":
+        _assert_same_outcomes(j_out, p_out)
+        assert solo.calls == len(members)
+        assert all(s == "ok" for s, _ in p_out)
+        return
+    assert solo.calls == 0
+    assert p_stats["dispatches"] == 1 and p_stats["batched_dispatches"] == 0
+    assert [s for s, _ in p_out] == ["error"] * len(members)
+    assert all(str(e) == STICKY for _, e in p_out)
+
+
+@pytest.mark.parametrize("first", ["batched", "solo"])
+def test_sticky_error_stops_every_later_launch(monkeypatch, first):
+    """Once a call has seen a sticky CUDA error, the problems still
+    pending in it get that error in place of a launch: the group of
+    another shape that would dispatch after it launches nothing."""
+    exc = RuntimeError(STICKY)
+    solo = _Spy(tprov._run_kernel_solo, exc if first == "solo" else None)
+    batched = _Spy(tprov._run_kernel_batched,
+                   exc if first == "batched" else None)
+    monkeypatch.setattr(tprov, "_run_kernel_solo", solo)
+    monkeypatch.setattr(tprov, "_run_kernel_batched", batched)
+    group = _port_entries(_members("mixed"))
+    entries = group + [_wide()] if first == "batched" else [_wide()] + group
+    outcomes, stats = tprov.solve_batch(entries)
+    assert (solo.calls, batched.calls) == (
+        (0, 1) if first == "batched" else (1, 0))
+    assert stats["dispatches"] == 1
+    assert [s for s, _ in outcomes] == ["error"] * len(entries)
+    assert all(e is exc for _, e in outcomes)
 
 
 def test_cuda_and_reference_members_never_coalesce():

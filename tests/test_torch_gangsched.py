@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tests.helpers import GIB, make_nodepool, make_pod
 from tests.test_e2e import new_operator as ref_new_operator
@@ -59,6 +60,7 @@ from karpenter_core_tpu.ops import ffd as jffd
 from karpenter_core_tpu.ops import gangsched as jgs
 from karpenter_core_tpu.ops import masks as jmasks
 from karpenter_core_tpu.solver import codec
+from karpenter_core_tpu.solver.gangs import GANG_FREE
 from karpenter_core_tpu.solver import verify as jverify
 from karpenter_core_tpu_torch import interop
 from karpenter_core_tpu_torch.metrics import wiring as port_metrics
@@ -504,6 +506,81 @@ def test_preempt_pass_batched_equal():
     port = tgs.preempt_pass_batched(*_t(tuple(args)))
     for name, p, r in zip(("extra", "m_left", "evicted"), port, ref):
         assert_equal(p, r, name)
+
+
+def _preempt_rows(B, seed, same_steps=False):
+    """B stacked preempt requests over one fleet: row 0 as solved, each
+    later row with other victims' costs and validity and, unless
+    ``same_steps``, its own subset of enabled steps (the last of two or
+    more rows with none)."""
+    row = _preempt_args(_preempt_request(preempt_fleet(seed=0)))
+    rng = np.random.default_rng(seed)
+    rows = [row]
+    for b in range(1, B):
+        ev = row[6]
+        ev_b = jgs.EvPlanes(
+            req=ev.req, tier=ev.tier,
+            cost=(ev.cost + rng.random(ev.cost.shape) / 3.0).astype(
+                np.float32),
+            valid=ev.valid & (rng.random(ev.valid.shape) < 0.8))
+        tier = np.asarray(row[3]).copy()
+        if not same_steps:
+            if b == B - 1:
+                tier[:] = 0
+            else:
+                tier[rng.random(tier.shape) < 0.4] = 0
+        rows.append(row[:3] + (tier,) + row[4:6] + (ev_b,))
+    args = [(_stack if i in (0, 1, 2, 6) else np.stack)([r[i] for r in rows])
+            for i in range(7)]
+    args[6] = jgs.EvPlanes(*args[6])
+    return rows, tuple(args)
+
+
+@pytest.mark.parametrize("node_rounds", [1, jgs.NODE_ROUNDS])
+@pytest.mark.parametrize("B", [1, 2, 3, 5])
+def test_preempt_pass_batched_rows_equal(B, node_rounds):
+    """Rows whose enabled steps differ, one with none: the one-walk
+    batched pass is bit-equal to the JAX package's vmapped pass, and each
+    of its rows to the port's solo pass on that row."""
+    rows, args = _preempt_rows(B, seed=B)
+    on = [tuple(np.nonzero((np.asarray(r[3]) > 0)
+                           & (np.asarray(r[4]) == GANG_FREE))[0])
+          for r in rows]
+    if B > 1:
+        assert len(set(on)) == B and on[-1] == ()
+    ref = jgs.preempt_pass_batched(*args, node_rounds=node_rounds)
+    port = tgs.preempt_pass_batched(*_t(args), node_rounds=node_rounds)
+    for name, p, r in zip(("extra", "m_left", "evicted"), port, ref):
+        assert_equal(p, r, name)
+    assert np.asarray(ref[2])[0].any()  # row 0 evicts
+    for b, row in enumerate(rows):
+        solo = tgs.preempt_pass(*_t(row), node_rounds=node_rounds)
+        for name, s, p in zip(("extra", "m_left", "evicted"), solo, port):
+            assert_equal(s, p[b].numpy(), f"row {b} {name}")
+
+
+class _OpCount(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_preempt_pass_batched_op_count_flat_in_b():
+    """One walk of the class axis for every row: the aten ops of a
+    batched call are as many at B = 4 as at B = 1 (rows with the same
+    enabled steps)."""
+    counts = []
+    for B in (1, 4):
+        _, args = _preempt_rows(B, seed=3, same_steps=True)
+        targs = _t(args)
+        with _OpCount() as ops:
+            tgs.preempt_pass_batched(*targs)
+        counts.append(ops.n)
+    assert counts[0] == counts[1] > 0
 
 
 # ---------------------------------------------------------------------------
