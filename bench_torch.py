@@ -45,9 +45,9 @@ config measures. What differs:
   backends to one result wire and one fetch-window byte count and records
   both p50s. The plain scan is the kernel's oracle, not a speed baseline,
   so no speed verdict is drawn from it.
-* A sidecar solve that is not answered raises (the port's client has no
-  greedy fallback), so cfg7 counts refused solves where bench.py counts
-  greedy fallbacks.
+* A sidecar solve that is not answered degrades to the host greedy
+  ``Scheduler`` as in bench.py: cfg7 counts ``greedy_fallbacks`` and its
+  forced-shed probe checks ``shed_parity_ok``.
 * ``--lint`` is bench.py's alone (it lints the JAX package).
 
 Exit codes: 1 when the primary p50 is over 1 s (bench.py's budget), 4 when
@@ -753,21 +753,23 @@ def _fleet_bench(n_tenants=8, n_pods=1000, n_types=200, repeats=3):
     Phases: (1) solo — each tenant alone, for its baseline queue-wait and
     e2e percentiles; (2) concurrent — all tenants hammer at once through
     their own RemoteSchedulers with a queue bound low enough that bursts
-    shed. The port's client has no greedy path: a solve still shed after
-    its retries raises, and is counted in ``refused_solves`` (bench.py
-    counts the reference's greedy fallbacks there; ``greedy_fallbacks``
-    stays 0 here); (3) a forced-shed probe — one solve against a saturated
-    gateway must be refused (``shed_refused``: RemoteSolverError with cause
-    "shed", nothing placed), where bench.py checks the reference's greedy
-    answer (``shed_parity_ok``).
+    shed; a solve still shed after its retries degrades to the host greedy
+    Scheduler and is counted in ``greedy_fallbacks``; (3) a forced-shed
+    parity probe — one solve against a saturated gateway takes the
+    client's greedy path, and ``shed_parity_ok`` checks that its answer is
+    the host ``Scheduler``'s (every pod placed, the same node count).
 
     ``fairness_ok`` is the no-starvation bound: no tenant's concurrent
     p99 queue wait exceeds 3x its fair-share round latency (n_tenants x
     the observed p50 device time) — a starved tenant blows that by an
     order of magnitude, a fair queue sits under it."""
+    import copy
     import threading
 
     from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
+    from karpenter_core_tpu_torch.controllers.provisioning.scheduling.scheduler import (
+        Scheduler,
+    )
     from karpenter_core_tpu_torch.metrics import wiring as m
     from karpenter_core_tpu_torch.solver import fleet, remote, service
 
@@ -818,7 +820,6 @@ def _fleet_bench(n_tenants=8, n_pods=1000, n_types=200, repeats=3):
             {"endpoint": "solve"}
         )
         conc_times = {tenant: [] for tenant in tenants}
-        refused = {tenant: 0 for tenant in tenants}
         errors = []
 
         def hammer(tenant):
@@ -826,13 +827,7 @@ def _fleet_bench(n_tenants=8, n_pods=1000, n_types=200, repeats=3):
                 rs = scheduler_for(tenant)
                 for _ in range(repeats):
                     t0 = time.perf_counter()
-                    try:
-                        res = rs.solve(problems[tenant]["pods"])
-                    except remote.RemoteSolverError as e:
-                        if e.cause != "shed":
-                            raise
-                        refused[tenant] += 1
-                        continue
+                    res = rs.solve(problems[tenant]["pods"])
                     conc_times[tenant].append(time.perf_counter() - t0)
                     assert res.all_pods_scheduled()
             except Exception as e:  # surfaced after join
@@ -864,21 +859,24 @@ def _fleet_bench(n_tenants=8, n_pods=1000, n_types=200, repeats=3):
                 problems[tenants[0]]["pods"]),
         )
 
-        # -- forced-shed probe --------------------------------------------
+        # -- forced-shed parity probe -------------------------------------
         parked = [
             gateway.submit("parked", fleet.LANE_SOLVE)
             for _ in range(gateway.max_depth - gateway.depth())
         ]
         probe = problems[tenants[0]]
         rs = scheduler_for(tenants[0])
-        try:
-            rs.solve(probe["pods"])  # 429 -> raises: no greedy path
-            shed_refused = False
-        except remote.RemoteSolverError as e:
-            shed_refused = e.cause == "shed"
-        finally:
-            for ticket in parked:
-                gateway.abandon(ticket)
+        shed_res = rs.solve(probe["pods"])  # 429 -> client greedy path
+        for ticket in parked:
+            gateway.abandon(ticket)
+        greedy = Scheduler(
+            copy.deepcopy(probe["pools"]),
+            {tenants[0]: list(catalog)},
+        ).solve(copy.deepcopy(probe["pods"]))
+        parity_ok = (
+            shed_res.all_pods_scheduled()
+            and shed_res.node_count() == greedy.node_count()
+        )
 
         fair_bound = 3.0 * n_tenants * snap["device_p50_s"]
         per_tenant = {}
@@ -907,11 +905,10 @@ def _fleet_bench(n_tenants=8, n_pods=1000, n_types=200, repeats=3):
             "shed_total": shed_total,
             "sheds_by_reason": snap["sheds"],
             "greedy_fallbacks": fallbacks,
-            "refused_solves": sum(refused.values()),
             "cache_evictions": dict(cache.evictions),
             "cache_entries": len(cache),
             "cache_entry_bound": cache.max_entries,
-            "shed_refused": shed_refused,
+            "shed_parity_ok": parity_ok,
             "fair_bound_s": round(fair_bound, 3),
             "fairness_ok": all(
                 pt["wait_p99_s"] <= fair_bound for pt in per_tenant.values()
@@ -2561,17 +2558,6 @@ def _elastic_bench(
         return sum(counter.values.values())
 
     def run_tier(autoscale):
-        # the port's client has no greedy path: a solve without a verified
-        # answer raises, and is counted here where the reference counts a
-        # greedy fallback
-        failed = []
-
-        def solve_or_count(sched, tpods):
-            try:
-                sched.solve(copy.deepcopy(tpods))
-            except remote.RemoteSolverError as e:
-                failed.append(e.cause)
-
         fall0 = counter_total(m.SOLVER_RPC_FALLBACKS)
         miss0 = m.SOLVER_RPC_FAILURES.value({"cause": "segment_miss"})
         tier = BenchTier(1 if autoscale else max_members)
@@ -2617,7 +2603,8 @@ def _elastic_bench(
                     autoscaler.step()
                 threads = [
                     threading.Thread(
-                        target=solve_or_count, args=(scheds[tenant], tpods),
+                        target=lambda te=tenant, tp=tpods: scheds[te]
+                        .solve(copy.deepcopy(tp)),
                         daemon=True,
                     )
                     for tenant, _tp_, _ti, tpods in active
@@ -2658,7 +2645,6 @@ def _elastic_bench(
                 "fallbacks": int(
                     counter_total(m.SOLVER_RPC_FALLBACKS) - fall0
                 ),
-                "failed_solves": len(failed),
                 "open_breakers": open_breakers,
                 "decisions": (
                     [list(d) for d in autoscaler.decisions]
@@ -2769,10 +2755,8 @@ def _elastic_bench(
     resize_cost_ok = bool(
         auto["miss_rounds"] == 0
         and auto["fallbacks"] == 0
-        and auto["failed_solves"] == 0
         and auto["open_breakers"] == 0
         and fixed["fallbacks"] == 0
-        and fixed["failed_solves"] == 0
     )
     # the profiled unit: the autoscaled tier's trace once more (device
     # only: the run is host-bound)
@@ -2865,20 +2849,16 @@ def _run_restart_probe() -> dict:
     return {"error": proc.stderr.strip()[-300:] or "no output"}
 
 
-def _twin_bench(scale: str = "full"):
-    """cfg14_twin: closed-loop macro outcomes over virtual time. The twin
-    IS the judge here — per scenario it reports the ledger
-    ($-cost integral, SLO percentiles per workload class, preemption
-    burn, tier utilization) plus the wall<->virtual compression, and the
-    gates are outcome gates: no invariant violations anywhere, no greedy
-    fallbacks on the clean run."""
+def _twin_scenarios(scale: str = "full"):
+    """cfg14_twin's scenarios by name: ``clean`` and ``fault_storm``
+    (greedy solver) and, at the full scale, ``fleet`` (the solve tier
+    under fleet faults)."""
     from karpenter_core_tpu_torch.twin import (
         FleetFault,
         Scenario,
         Storm,
         WorkloadWave,
     )
-    from karpenter_core_tpu_torch.twin.harness import run_scenario
 
     if scale == "fast":
         counts = dict(serving=40, training=32, batch=60)
@@ -2936,7 +2916,39 @@ def _twin_bench(scale: str = "full"):
                            duration=120.0),
             ),
         )
+    return scenarios
 
+
+def _twin_outcome(result):
+    """A twin run's ledger numbers and verdict counters, as cfg14 reports
+    them (either package's result)."""
+    ledger = result.ledger.encode()
+    return {
+        "pods_bound": sum(c["n"] for c in ledger["slo"].values()),
+        "cost_dollar_hours": round(
+            sum(ledger["cost_dollar_hours"].values()), 6
+        ),
+        "peak_nodes": ledger["peak_nodes"],
+        "slo": ledger["slo"],
+        "slo_misses": ledger["slo_misses"],
+        "preemption_evictions": ledger["preemption_evictions"],
+        "utilization": ledger["utilization"],
+        "invariant_violations": len(result.violations),
+        "rpc_fallbacks": result.counters["rpc_fallbacks"],
+        "verifier_rejections": result.counters["result_rejected"],
+    }
+
+
+def _twin_bench(scale: str = "full"):
+    """cfg14_twin: closed-loop macro outcomes over virtual time. The twin
+    IS the judge here — per scenario it reports the ledger
+    ($-cost integral, SLO percentiles per workload class, preemption
+    burn, tier utilization) plus the wall<->virtual compression, and the
+    gates are outcome gates: no invariant violations anywhere, no greedy
+    fallbacks on the clean run."""
+    from karpenter_core_tpu_torch.twin.harness import run_scenario
+
+    scenarios = _twin_scenarios(scale)
     out = {}
     _reset_peak()
     n0 = _launches()
@@ -2950,21 +2962,9 @@ def _twin_bench(scale: str = "full"):
             "wall_s": round(wall, 3),
             "virtual_s": ledger["virtual_seconds"],
             "compression_x": round(ledger["virtual_seconds"] / wall, 1),
-            "pods_bound": sum(c["n"] for c in ledger["slo"].values()),
-            "cost_dollar_hours": round(
-                sum(ledger["cost_dollar_hours"].values()), 6
-            ),
-            "peak_nodes": ledger["peak_nodes"],
-            "slo": ledger["slo"],
-            "slo_misses": ledger["slo_misses"],
-            "preemption_evictions": ledger["preemption_evictions"],
-            "utilization": ledger["utilization"],
-            "invariant_violations": len(result.violations),
-            "rpc_fallbacks": result.counters["rpc_fallbacks"],
-            # the port's client fails a solve where the reference falls
-            # back to greedy: its failed RPCs
+            **_twin_outcome(result),
+            # failed RPCs, which the ledger does not carry
             "rpc_failures": result.counters["rpc_failures"],
-            "verifier_rejections": result.counters["result_rejected"],
         }
     # launches over every scenario (only the tpu-solver fleet scenario
     # runs the kernel); the profiled unit is that scenario once more
@@ -3010,10 +3010,7 @@ _TWIN_LEDGER = ("pods_bound", "cost_dollar_hours", "peak_nodes", "slo",
 
 # What each config is held to: its answers (node counts and, where the
 # config has them, evictions, gangs, $-cost, relax outcome, frontier,
-# wire parity, the twin's ledger and violations), never a timing. The
-# tier-fault fleet twin is held to its violations only: the port fails a
-# solve where the reference falls back to greedy, so its ledger differs by
-# design.
+# wire parity, the twin's ledger and violations), never a timing.
 ANSWERS = {
     "primary": lambda o: _pick(o, "nodes", "greedy_nodes"),
     "cfg1_5k400": lambda o: _pick(o, "nodes", "greedy_nodes"),
@@ -3045,8 +3042,7 @@ ANSWERS = {
     "cfg13_delta": lambda o: _pick(o["wire"], "parity_ok",
                                    "result_nodes_delta"),
     "cfg14_twin": lambda o: {
-        s: _pick(v, *(_TWIN_LEDGER if s != "fleet" else
-                      ("invariant_violations", "verifier_rejections")))
+        s: _pick(v, *_TWIN_LEDGER)
         for s, v in o.items() if s in ("clean", "fault_storm", "fleet")
     },
     "cfg15_incremental": lambda o: _pick(
@@ -3080,7 +3076,7 @@ ANSWERS = {
 # (never a timing verdict).
 GATES = {
     "cfg6_ice_storm": lambda o: all(v["all_scheduled"] for v in o.values()),
-    "cfg7_fleet": lambda o: o["shed_refused"],
+    "cfg7_fleet": lambda o: o["shed_parity_ok"],
     "cfg8_multidev": lambda o: (
         o.get("parity_ok", False) if o.get("throughput_skipped")
         else o["parity_nodes_delta_multi_vs_single"] == 0),
@@ -3271,7 +3267,29 @@ EXPECTED = {
             "invariant_violations": 0,
             "verifier_rejections": 0,
         },
-        "fleet": {"invariant_violations": 0, "verifier_rejections": 0},
+        "fleet": {
+            "pods_bound": 44,
+            "cost_dollar_hours": 0.217261,
+            "peak_nodes": {"0": 2, "1": 1},
+            "slo": {
+                "batch": {
+                    "n": 28,
+                    "p50_s": 1.0,
+                    "p95_s": 1.3,
+                    "max_s": 1.3,
+                },
+                "serving": {
+                    "n": 16,
+                    "p50_s": 1.0,
+                    "p95_s": 1.0,
+                    "max_s": 1.0,
+                },
+            },
+            "slo_misses": 0,
+            "preemption_evictions": 0,
+            "invariant_violations": 0,
+            "verifier_rejections": 0,
+        },
     },
     "cfg15_incremental": {
         "node_delta_pct_max": 0.0,

@@ -3032,6 +3032,16 @@ def _rpc_failures():
     return sum(m.SOLVER_RPC_FAILURES.values.values())
 
 
+def _rpc_fallbacks():
+    """Every solve or sweep the port's sidecar clients degraded to the
+    host (the greedy Scheduler, the binary search). A member whose kernel
+    fails to build or launch is answered so, so a sidecar phase holds this
+    count still."""
+    from karpenter_core_tpu_torch.metrics import wiring as m
+
+    return sum(m.SOLVER_RPC_FALLBACKS.values.values())
+
+
 def solverd_phase():
     """Phase 12: the port's solverd on the card: an in-process daemon on a
     loopback port against in-process solves, then the operator with a
@@ -3065,7 +3075,7 @@ def solverd_phase():
     srv = service.serve(0, daemon=daemon)
     addr = f"127.0.0.1:{srv.server_address[1]}"
     rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
-    failures0 = _rpc_failures()
+    failures0, fallbacks0 = _rpc_failures(), _rpc_fallbacks()
     rows, launches = {}, 0
     try:
         for name, (pools, its, make, max_slots, mode) in (
@@ -3106,6 +3116,9 @@ def solverd_phase():
                                      " result differs")
             if grew < 1:
                 raise AssertionError(f"solverd [{name}]: no kernel launch")
+            if _rpc_fallbacks() != fallbacks0:
+                raise AssertionError(f"solverd [{name}]: the solve degraded"
+                                     " to the host greedy Scheduler")
             rows[name] = dict(nodes=res.node_count(), rpc_s=rpc_s,
                               inproc_s=local_s, launches=grew,
                               cuda_ffd_rows=cuda_ffd.counter.rows)
@@ -3159,9 +3172,14 @@ def solverd_phase():
                                  f" {coalesced} problems ({stats})")
         fleet_launches = cuda_ffd.counter.total()
         launches += fleet_launches
+        if fleet_launches < 1:
+            raise AssertionError("solverd fleet: no kernel launch")
         if _rpc_failures() != failures0:
             raise AssertionError(f"solverd: an RPC failed"
                                  f" ({dict(m.SOLVER_RPC_FAILURES.values)})")
+        if _rpc_fallbacks() != fallbacks0:
+            raise AssertionError(f"solverd: a solve degraded to greedy"
+                                 f" ({dict(m.SOLVER_RPC_FALLBACKS.values)})")
         if dict(m.SOLVER_RESULT_REJECTED.values) != rejected0:
             raise AssertionError("solverd: the client's verifier rejected a"
                                  " result")
@@ -3169,8 +3187,8 @@ def solverd_phase():
               f" the JAX package's; the gateway coalesced {coalesced}"
               f" problems onto leaders' grants ({json.dumps(stats)});"
               f" {fleet_launches} launches over {cuda_ffd.counter.rows} rows;"
-              f" {fleet_s:.3f} s; no failed RPC, no verifier rejection",
-              flush=True)
+              f" {fleet_s:.3f} s; no failed RPC, no fallback, no verifier"
+              " rejection", flush=True)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -3179,7 +3197,7 @@ def solverd_phase():
     ns = port_classes()
     errors0 = dict(m.RECONCILE_ERRORS.values)
     rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
-    failures0 = _rpc_failures()
+    failures0, fallbacks0 = _rpc_failures(), _rpc_fallbacks()
     reset_name_counters()
     t0 = time.perf_counter()
     op, run = provisioning_scenario(
@@ -3206,6 +3224,14 @@ def solverd_phase():
         if _rpc_failures() != failures0:
             raise AssertionError(f"solverd operator: an RPC failed"
                                  f" ({dict(m.SOLVER_RPC_FAILURES.values)})")
+        if _rpc_fallbacks() != fallbacks0:
+            raise AssertionError(f"solverd operator: a solve degraded to"
+                                 f" greedy"
+                                 f" ({dict(m.SOLVER_RPC_FALLBACKS.values)})")
+        member_launches = _member_health(sup.addr)["kernel_launches"]
+        if member_launches < 1:
+            raise AssertionError("solverd operator: the sidecar launched"
+                                 " no kernel")
         child = sup.command
     finally:
         op.shutdown()
@@ -3215,14 +3241,16 @@ def solverd_phase():
     print(f"solverd operator [provisioning, spawned sidecar {child[2]}]:"
           f" {outcome[0]} nodes, {outcome[1]} cpu, every pod bound (the JAX"
           f" operator's); {passes} passes in {wall:.3f} s (spawn and"
-          f" operator build {spawn_s:.3f} s); no reconcile error, no"
-          " verifier rejection, no failed RPC, readyz true; the"
-          " sidecar stopped with the operator", flush=True)
+          f" operator build {spawn_s:.3f} s); {member_launches} launches"
+          " in the sidecar; no reconcile error, no verifier rejection, no"
+          " failed RPC, no fallback, readyz true; the sidecar stopped with"
+          " the operator", flush=True)
     return dict(problems=rows, launches=launches,
                 fleet=dict(wall_s=fleet_s, coalesced=coalesced, stats=stats,
                            launches=fleet_launches),
                 operator=dict(nodes=outcome[0], cpu=outcome[1],
-                              passes=passes, wall_s=wall, spawn_s=spawn_s))
+                              passes=passes, wall_s=wall, spawn_s=spawn_s,
+                              member_launches=member_launches))
 
 
 # ---------------------------------------------------------------------------
@@ -3236,6 +3264,16 @@ TWIN_EXPECTED = {
         "40a097428b8f8632df811f722c60cf80874dd4a97049c1d4b9ced377b824ff37",
     "bound": 1890, "peak_nodes": {"0": 44, "1": 12},
     "cost_dollar_hours": {"0": 50.030418, "1": 21.65484},
+}
+# phase 13d: the reference's storm fleet scenario (tests/test_twin.py
+# _storm_fleet_scenario): the JAX twin's ledger and its greedy fallbacks
+# (JAX_PLATFORMS=cpu python3 fleet_expected.py storm)
+STORM_EXPECTED = {
+    "ledger_sha256":
+        "97c57116a32d0dbf678b1649c5e89a4bb28c0f87b328215020ebac8c392d1047",
+    "bound": 40, "peak_nodes": {"0": 2, "1": 1},
+    "cost_dollar_hours": {"0": 0.014719, "1": 0.027342},
+    "rpc_fallbacks": 3,
 }
 # phase 13b: plain_5k_400's pod mix over HTTP, cut to its first 500 pods:
 # the operator's host work over HTTP grows with pods x claims (PodEvents
@@ -3463,6 +3501,13 @@ def twin_summary(result):
     )
 
 
+def storm_summary(result):
+    """The numbers ``STORM_EXPECTED`` pins: ``twin_summary`` and the
+    solves the sidecar clients degraded to the host greedy Scheduler."""
+    return dict(twin_summary(result),
+                rpc_fallbacks=result.counters["rpc_fallbacks"])
+
+
 @contextlib.contextmanager
 def fresh_counters(wiring):
     """Run with the two counters a twin's ledger carries as deltas
@@ -3593,14 +3638,20 @@ def twin_phase():
     check_launches(log, "twin macro")
     if launches < 1 or launches != len(thr) or not all(thr):
         raise AssertionError(f"twin macro: {launches} launches")
+    # the twin through the plain scan, held to the kernel's run on the
+    # clean scenario with the tpu solver: the macro's 8 hours through the
+    # plain scan took 77-105 s on one H100, of the smoke's time limit
+    small = scn["clean"](solver="tpu")
+    with plain_forbidden(), fresh_counters(m):
+        kern = run_scenario(small)
     t1 = time.perf_counter()
     with fresh_counters(m):
-        ref = run_scenario(macro, kernel="reference")
+        ref = run_scenario(small, kernel="reference")
     ref_s = time.perf_counter() - t1
-    if (ref.ledger_json(), ref.trace_json()) != (res.ledger_json(),
-                                                 res.trace_json()):
-        raise AssertionError("twin macro: the kernel's run != the plain"
-                             " version's")
+    if (ref.ledger_json(), ref.trace_json()) != (kern.ledger_json(),
+                                                 kern.trace_json()):
+        raise AssertionError("twin clean [tpu]: the kernel's run != the"
+                             " plain version's")
     profiled = []
     with fresh_counters(m):
         idle = _idle_share(lambda: profiled.append(run_scenario(macro)),
@@ -3610,7 +3661,8 @@ def twin_phase():
     solve_s = sum(s["s"] for s in log["solves"])
     sweep_s = sum(s["s"] for s in log["sweeps"])
     out["macro"] = dict(
-        wall_s=wall, reference_wall_s=ref_s, solves=len(log["solves"]),
+        wall_s=wall, clean_reference_wall_s=ref_s,
+        solves=len(log["solves"]),
         scans=sum(s["scans"] for s in log["solves"]),
         sweeps=len(log["sweeps"]), solve_s=solve_s, sweep_s=sweep_s,
         other_s=wall - solve_s - sweep_s, launches=launches,
@@ -3619,8 +3671,9 @@ def twin_phase():
           f" {macro.duration / 3600:g} virtual"
           f" hours]: 0 violations, rpc_fallbacks 0; ledger sha256"
           f" {got['ledger_sha256']} (the JAX twin's), peak nodes"
-          f" {got['peak_nodes']}; trace and ledger equal to the plain"
-          f" version's run ({ref_s:.3f} s); wall {wall:.3f} s: solves"
+          f" {got['peak_nodes']}; the clean scenario's run through the"
+          f" kernel and the plain version's ({ref_s:.3f} s) give one trace"
+          f" and ledger; wall {wall:.3f} s: solves"
           f" {solve_s:.3f} s ({len(log['solves'])} solves), sweeps"
           f" {sweep_s:.3f} s ({len(log['sweeps'])}), other"
           f" {wall - solve_s - sweep_s:.3f} s; {launches} launches;"
@@ -3638,24 +3691,31 @@ def twin_phase():
             res = run_scenario(storm, kernel=kernel)
             wall = time.perf_counter() - t0
         c, util = res.counters, res.ledger.utilization
-        bound = twin_summary(res)["bound"]
-        if (res.violations or c["rpc_fallbacks"] or c["host_fallback_pods"]
+        got = storm_summary(res)
+        if (res.violations or c["host_fallback_pods"]
                 or c["rpc_failures"] <= 0 or c["result_rejected"]
                 or sum(util["member_solves"].values()) <= 0
-                or bound != sum(w.count for w in storm.waves)):
+                or got["bound"] != sum(w.count for w in storm.waves)):
             raise AssertionError(f"twin storm [{kernel}]: violations"
                                  f" {res.violations[:3]}, counters {c},"
-                                 f" bound {bound}")
+                                 f" bound {got['bound']}")
+        if got != STORM_EXPECTED:
+            raise AssertionError(f"twin storm [{kernel}]: {got} != the JAX"
+                                 f" twin's {STORM_EXPECTED}")
         n = cuda_ffd.counter.total()
+        # the greedy solves of the degraded RPCs run on the operators'
+        # thread and launch nothing
         if kernel == "cuda" and (n < 1 or n != len(thr) or any(thr)):
             raise AssertionError(f"twin storm: {n} launches, on the main"
                                  f" thread {sum(thr)}")
         runs.append((res, wall, n))
         print(f"twin storm [fleet 2, kernel {kernel}]: 0 violations,"
-              f" rpc_fallbacks 0, host_fallback_pods 0, rpc_failures"
-              f" {c['rpc_failures']}, member solves {util['member_solves']},"
-              f" {bound} pods bound; {n} launches, all in the daemons'"
-              f" threads; {wall:.3f} s", flush=True)
+              f" rpc_fallbacks {c['rpc_fallbacks']} and ledger sha256"
+              f" {got['ledger_sha256']} (the JAX twin's),"
+              f" host_fallback_pods 0, rpc_failures {c['rpc_failures']},"
+              f" member solves {util['member_solves']}, {got['bound']} pods"
+              f" bound; {n} launches, all in the daemons' threads;"
+              f" {wall:.3f} s", flush=True)
     first = (runs[0][0].trace_json(), runs[0][0].ledger_json())
     for k, (res, _, _) in enumerate(runs[1:], 1):
         if (res.trace_json(), res.ledger_json()) != first:
@@ -3683,6 +3743,7 @@ def twin_phase():
     out["storm"] = dict(
         walls_s=[w for _, w, _ in runs], launches=[n for _, _, n in runs],
         rpc_failures=runs[0][0].counters["rpc_failures"],
+        rpc_fallbacks=runs[0][0].counters["rpc_fallbacks"],
         member_solves=runs[0][0].ledger.utilization["member_solves"],
         slo=runs[0][0].ledger.encode()["slo"])
     out["elastic"] = dict(wall_s=el_s, launches=el_launches,
@@ -4263,7 +4324,7 @@ def mesh_fleet():
     ns = port_classes()
     errors0 = dict(m.RECONCILE_ERRORS.values)
     rejected0 = dict(m.SOLVER_RESULT_REJECTED.values)
-    failures0 = _rpc_failures()
+    failures0, fallbacks0 = _rpc_failures(), _rpc_fallbacks()
     card = {"before": _member_memory([])[1]}
     reset_name_counters()
     t0 = time.perf_counter()
@@ -4364,6 +4425,9 @@ def mesh_fleet():
         if _rpc_failures() != failures0:
             raise AssertionError(f"fleet: an RPC failed"
                                  f" ({dict(m.SOLVER_RPC_FAILURES.values)})")
+        if _rpc_fallbacks() != fallbacks0:
+            raise AssertionError(f"fleet: a solve degraded to greedy"
+                                 f" ({dict(m.SOLVER_RPC_FALLBACKS.values)})")
         pids = [mem.proc.pid for mem in sup.members] + [proc.pid]
     finally:
         op.shutdown()
@@ -4388,8 +4452,8 @@ def mesh_fleet():
           f" result, retired by drain (exit {DRAIN_EXIT_CODE}); device"
           f" memory MiB by pid {json.dumps(row['memory_mib'])}, the card's"
           f" in use {json.dumps(card)}; no"
-          f" reconcile error, no failed RPC, readyz true; every member"
-          " stopped", flush=True)
+          f" reconcile error, no failed RPC, no fallback, readyz true;"
+          " every member stopped", flush=True)
     return row
 
 
@@ -4452,13 +4516,46 @@ def bench_child():
 def bench_phase(card_name):
     """Phase 15: the port's bench (``bench_torch.py``) under BENCH_FAST=1
     in a child process on the card, its last JSON line held to the card,
-    the JAX package's answers and the kernel."""
+    the JAX package's answers and the kernel; then cfg7 (``bench_fleet``),
+    which BENCH_FAST's set leaves out."""
     proc, line, wall = bench_child()
     if line is None:
         raise AssertionError(f"bench_torch.py printed no JSON line (rc"
                              f" {proc.returncode}): {proc.stderr[-2000:]}")
-    return hold_bench_line(line, proc.returncode, card_name, wall,
-                           proc.stderr)
+    out = hold_bench_line(line, proc.returncode, card_name, wall,
+                          proc.stderr)
+    out["cfg7_fleet"] = bench_fleet()
+    return out
+
+
+def bench_fleet():
+    """15b: ``bench_torch.py``'s cfg7_fleet judged in this process on the
+    card, at bench.py's sizes (8 tenants of 1,000 pods over 200 types on
+    one in-process sidecar) with one timed round: each tenant's node count
+    the JAX package's, the shed solves degraded to greedy and counted
+    (``greedy_fallbacks``), the forced shed's greedy answer the host
+    Scheduler's (``shed_parity_ok``), no verifier rejection."""
+    import bench_torch
+
+    out = bench_torch._judged(
+        "cfg7_fleet", lambda: bench_torch._fleet_bench(repeats=1))
+    if not out["correct"] or not out["shed_parity_ok"]:
+        raise AssertionError(f"bench cfg7_fleet: correct {out['correct']},"
+                             f" shed_parity_ok {out['shed_parity_ok']},"
+                             f" answers {out['answers']}, expected"
+                             f" {out['expected']}")
+    row = {k: out[k] for k in ("correct", "shed_parity_ok",
+                               "greedy_fallbacks", "shed_total",
+                               "aggregate_pods_per_sec", "device_p50_s",
+                               "config_wall_s")}
+    row["readings"] = out.get("readings")
+    print(f"bench cfg7_fleet [8 tenants x 1000 pods, one timed round]:"
+          f" correct, each tenant's node count the JAX package's;"
+          f" {out['shed_total']} sheds, greedy_fallbacks"
+          f" {out['greedy_fallbacks']}, shed_parity_ok true;"
+          f" {out['aggregate_pods_per_sec']} pods/s;"
+          f" {out['config_wall_s']} s", flush=True)
+    return row
 
 
 def hold_bench_line(line, rc, card_name, wall, stderr=""):
@@ -4662,8 +4759,10 @@ def preempt_times(root, inputs, reps):
 # pinned value to it on the CPU)
 FAULT_PODS = 200
 FAULT_EXPECTED = [7, 174.0]
-# 16b: the same pods as one solve request at this slot width
+# 16b: the operator's solves at this slot width, and the pods of its
+# second wave (after the respawn)
 FAULT_SLOTS = 256
+FAULT_WAVE_PODS = 50
 # the most a faulted child may take from its fault to its exit: the
 # binary's /healthz grace and teardown bound (main.FAULT_EXIT_GRACE_S,
 # TEARDOWN_TIMEOUT_S) and the interpreter's exit
@@ -4922,78 +5021,166 @@ def fault_operator():
 
 
 def fault_solverd():
-    """16b: a spawned solverd member (solverd's crash-only path) whose first
-    solve raises a real device-side assert at the kernel seam: the solve
-    fails, the member exits ``WATCHDOG_EXIT_CODE``, the supervisor
-    respawns it, and the respawned member's wire for the same request
-    equals the in-process solve's."""
+    """16b: an operator in sidecar mode (``Options(solver="tpu",
+    solver_mode="sidecar")``) whose spawned solverd member meets a real
+    device-side assert at the kernel seam on its first solve. The
+    operator's solve that met it degrades to the host greedy Scheduler:
+    one fallback, its placements the host Scheduler's over the same pods.
+    The member exits ``WATCHDOG_EXIT_CODE``, the supervisor respawns it in
+    the operator's next pass, and the next wave's solve goes through the
+    respawned member's kernel (launches on its /healthz), its wire that of
+    an in-process daemon on the same request bytes. Every pod ends bound,
+    with no reconcile error and ``readyz()`` true. Prints the ``degraded``
+    line. The operator sends the full wire (``solver_wire="full"``), so
+    each request stands alone."""
+    import copy
     import os
     import tempfile
 
     from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
-    from karpenter_core_tpu_torch.models.provisioner import DeviceScheduler
-    from karpenter_core_tpu_torch.solver import codec, remote
-    from karpenter_core_tpu_torch.solver.supervisor import (
-        WATCHDOG_EXIT_CODE,
-        SolverSupervisor,
+    from karpenter_core_tpu_torch.controllers.provisioning.scheduling.scheduler import (
+        Scheduler,
     )
+    from karpenter_core_tpu_torch.metrics import wiring as m
+    from karpenter_core_tpu_torch.operator import Options
+    from karpenter_core_tpu_torch.solver import remote, service
+    from karpenter_core_tpu_torch.solver import supervisor as supmod
+    from karpenter_core_tpu_torch.solver.supervisor import WATCHDOG_EXIT_CODE
 
-    pool = _pool()
-    its = {pool.name: list(bench_catalog(HTTP_TYPES))}
-    reset_name_counters()
-    pods = _plain_pods(FAULT_PODS)
-    body = codec.encode_solve_request([pool], its, [], [], pods,
-                                      max_slots=FAULT_SLOTS)
-    reset_name_counters()
-    with plain_forbidden():
-        local = DeviceScheduler([pool], its, max_slots=FAULT_SLOTS).solve(
-            pods)
-    local_wire = _wire_view(codec.encode_solve_results(local, 0.0))
-
+    pool, catalog = _pool(), list(bench_catalog(HTTP_TYPES))
     tmp = tempfile.mkdtemp(prefix="chip-smoke-solverd-")
-    sup = SolverSupervisor(command=[
-        sys.executable, "chip_smoke.py", "--fault-child", "solverd",
-        os.path.join(tmp, "faulted"), "--port", "0",
-        "--quarantine-journal", os.path.join(tmp, "poison.json"),
-        "--quarantine-strikes", "2"], backoff_initial=0.05)
+    mark = os.path.join(tmp, "faulted")
+    default_command = supmod.default_command
+
+    def fault_command(*args, **kwargs):
+        # the operator's own argv, run by the poisoned child entry
+        argv = default_command(*args, **kwargs)
+        return [sys.executable, "chip_smoke.py", "--fault-child", "solverd",
+                mark] + argv[3:]
+
+    solves = []
+    real_solve = remote.RemoteScheduler.solve
+
+    def spy_solve(self, pods, *args, **kwargs):
+        before = m.SOLVER_RPC_FALLBACKS.value({"endpoint": "solve"})
+        asked = copy.deepcopy(pods)
+        res = real_solve(self, pods, *args, **kwargs)
+        solves.append(dict(pods=asked, res=res, at=time.time(),
+                           fell=m.SOLVER_RPC_FALLBACKS.value(
+                               {"endpoint": "solve"}) - before))
+        return res
+
+    ns = port_classes()
+    errors0 = dict(m.RECONCILE_ERRORS.values)
+    crashes0 = m.SOLVERD_RESTARTS.value({"cause": "crash"})
+    supmod.default_command = fault_command
     t0 = time.monotonic()
-    addr = sup.start()
     try:
-        _member_health(addr)
+        op = _new_operator(ns, catalog, Options(
+            solver="tpu", solver_mode="sidecar", solver_wire="full",
+            solver_quarantine_journal=os.path.join(tmp, "poison.json"),
+            batch_max_duration=0.0, batch_idle_duration=0.0,
+            device_scheduler_opts={"max_slots": FAULT_SLOTS}))
+    finally:
+        supmod.default_command = default_command
+    sup = op.solver_supervisor
+    remote.RemoteScheduler.solve = spy_solve
+    try:
+        faulted = sup.proc
+        _member_health(sup.addr)
         up_s = time.monotonic() - t0
-        client = remote.SolverClient(addr, timeout=120, max_retries=0,
-                                     sleep=lambda s: None)
-        t1 = time.monotonic()
-        try:
-            client.call("/solve", body)
-        except remote.RemoteSolverError as e:
-            failed = f"{type(e).__name__}: {e}"
-        else:
-            raise AssertionError("solverd: the poisoned member answered")
-        rc = sup.proc.wait(timeout=FAULT_EXIT_BOUND_S)
-        request_to_exit_s = time.monotonic() - t1
+        op.kube.create(pool)
+        reset_name_counters()
+        for pod in _plain_pods(FAULT_PODS):
+            op.kube.create(pod)
+        op.run_until_idle(disrupt=False)
+        if not os.path.exists(mark) or not solves:
+            raise AssertionError("solverd: the member's seam never faulted")
+        fault_at = os.path.getmtime(mark)
+        first = solves[0]
+        if first["fell"] != 1 or sum(s["fell"] for s in solves) != 1:
+            raise AssertionError(f"solverd: fallbacks"
+                                 f" {[s['fell'] for s in solves]}, expected"
+                                 " one, on the faulted solve")
+        host = Scheduler([copy.deepcopy(pool)], {pool.name: catalog}).solve(
+            copy.deepcopy(first["pods"]))
+        if _canonical(first["res"]) != _canonical(host):
+            raise AssertionError("solverd: the degraded solve's placements"
+                                 " != the host Scheduler's")
+        rc = faulted.wait(timeout=FAULT_EXIT_BOUND_S)
         if rc != WATCHDOG_EXIT_CODE:
             raise AssertionError(f"solverd: the member exited {rc},"
                                  f" expected {WATCHDOG_EXIT_CODE}")
+        # the operator's passes poll the supervisor and follow the respawn
         t2 = time.monotonic()
-        while not sup.poll():
+        while sup.proc is faulted or not sup.alive():
             if time.monotonic() - t2 > 120:
                 raise AssertionError("solverd: no respawn in 120 s")
+            op.reconcile_once(disrupt=False)
             time.sleep(0.05)
-        client.set_addr(sup.addr)
-        _member_health(sup.addr)
-        respawn_s = time.monotonic() - t2
-        data, _ = client.call("/solve", body)
-        if _wire_view(data) != local_wire:
+        launches0 = _member_health(sup.addr)["kernel_launches"]
+        respawn_s = time.time() - fault_at
+        if sup.restarts != 1 or m.SOLVERD_RESTARTS.value(
+                {"cause": "crash"}) != crashes0 + 1:
+            raise AssertionError(f"solverd: {sup.restarts} restarts")
+
+        # the next wave through the respawned member, its request kept
+        calls = []
+        client_call = op.solver_client.call
+
+        def spy_call(path, body, headers=None, **kwargs):
+            out = client_call(path, body, headers, **kwargs)
+            calls.append((path, body, dict(headers or {}), out[0]))
+            return out
+
+        op.solver_client.call = spy_call
+        n_first = len(solves)
+        for pod in _plain_pods(FAULT_WAVE_PODS):
+            pod.metadata.name = "q" + pod.metadata.name[1:]
+            op.kube.create(pod)
+        op.run_until_idle(disrupt=False)
+        op.solver_client.call = client_call
+        later = solves[n_first:]
+        launches = _member_health(sup.addr)["kernel_launches"] - launches0
+        if not later or any(s["fell"] for s in later) or launches < 1:
+            raise AssertionError(f"solverd: after the respawn"
+                                 f" {len(later)} solves, fallbacks"
+                                 f" {[s['fell'] for s in later]}, {launches}"
+                                 " member launches")
+        kernel_at = later[0]["at"]
+        path, body, headers, data = next(c for c in calls
+                                         if c[0] == "/solve")
+        reset_name_counters()
+        local, _ = service.SolverDaemon().solve(
+            body, tenant=headers.get("X-Solver-Tenant"),
+            solver_mode=headers.get("X-Solver-Mode"))
+        if _wire_view(data) != _wire_view(local):
             raise AssertionError("solverd: the respawned member's wire !="
-                                 " the in-process solve's")
+                                 " the in-process daemon's")
+        outcome = operator_outcome(op)
+        bound = sum(1 for p in op.kube.list_pods() if p.node_name)
+        if (not outcome[2] or bound != FAULT_PODS + FAULT_WAVE_PODS
+                or dict(m.RECONCILE_ERRORS.values) != errors0
+                or op._controller_faults or not op.readyz()):
+            raise AssertionError(f"solverd operator: {bound} pods bound,"
+                                 f" reconcile errors"
+                                 f" {dict(m.RECONCILE_ERRORS.values)},"
+                                 f" faults {op._controller_faults}, readyz"
+                                 f" {op.readyz()}")
     finally:
-        sup.stop()
-    return dict(exit_code=rc, request_to_exit_s=request_to_exit_s,
-                failed_solve=failed[:200],
-                spawn_ready_s=up_s, respawn_ready_s=respawn_s,
-                restarts=sup.restarts, nodes=local.node_count(),
-                wire_equal=True)
+        remote.RemoteScheduler.solve = real_solve
+        op.shutdown()
+    if sup.alive():
+        raise AssertionError("solverd: the member outlived shutdown")
+    degraded = dict(fallbacks=1, fault_to_greedy_s=first["at"] - fault_at,
+                    fault_to_kernel_solve_s=kernel_at - fault_at)
+    print("degraded " + json.dumps(degraded), flush=True)
+    return dict(exit_code=rc, spawn_ready_s=up_s,
+                fault_to_respawn_ready_s=respawn_s,
+                restarts=sup.restarts, greedy_nodes=host.node_count(),
+                respawn_launches=launches, nodes=outcome[0],
+                cpu=outcome[1], pods_bound=bound, wire_equal=True,
+                **degraded)
 
 
 def fault_phase():

@@ -3,12 +3,12 @@
 same problems: ``FLEET_EXPECTED_NODES`` (phase 6), ``SWEEP_EXPECTED``
 (phase 7), ``OPERATOR_EXPECTED`` (phase 8), ``GANGS_EXPECTED``,
 ``GANG_TENANTS_EXPECTED`` and ``TOPO_EXPECTED`` (phases 9-10),
-``RELAX_EXPECTED`` (phase 11), ``HTTP_EXPECTED`` and ``TWIN_EXPECTED``
-(phase 13).
+``RELAX_EXPECTED`` (phase 11), ``HTTP_EXPECTED``, ``TWIN_EXPECTED`` and
+``STORM_EXPECTED`` (phase 13).
 
 Run from the root of a checkout, on the CPU:
 
-    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator] [gangs] [relax] [http] [twin] [bench]
+    JAX_PLATFORMS=cpu python3 fleet_expected.py [fleet] [sweep] [operator] [gangs] [relax] [http] [twin] [storm] [bench]
 
 (all but bench when none is named). Every problem comes from chip_smoke.py's
 own recipe (the bench's shared with bench_torch.py) (built with the port's classes and carried into the JAX
@@ -42,12 +42,21 @@ package's by pickling, the inverse of
   macro scenario (``chip_smoke.twin_scenarios()["macro"]``, carried over
   as the scenario's JSON): ``chip_smoke.twin_summary`` (the ledger JSON's
   sha256, pods bound, peak nodes and $-hours by cluster).
+* storm: the same on phase 13d's storm fleet scenario
+  (``chip_smoke.twin_scenarios()["storm"]``: an ICE storm, kube and cloud
+  chaos, amnesia, a murdered member and a partition over a tier of two
+  in-thread solverd members), as ``chip_smoke.storm_summary``: the twin
+  summary and the solves its sidecar clients degraded to greedy
+  (``rpc_fallbacks``).
 * bench: the answers ``bench_torch.py`` holds its configs to that bench.py
   does not print, through its ``DeviceScheduler`` (xla backend) on the
   bench's recipes (bench.py's own where they are functions, else
   bench_torch.py's carried over): shape_churn's node count a round, the
-  cfg10 tenant problem's node count (default and BENCH_FAST sizes) and
-  cfg11's final warm solve's node count (default and BENCH_FAST sizes).
+  cfg10 tenant problem's node count (default and BENCH_FAST sizes),
+  cfg11's final warm solve's node count (default and BENCH_FAST sizes)
+  and the ledger numbers of cfg14's fleet scenario (its twin on the solve
+  tier under fleet faults, ``bench_torch._twin_scenarios()["fleet"]``,
+  carried over as the scenario's JSON).
   Pinned in ``bench_torch.EXPECTED`` / ``EXPECTED_FAST`` (run only when
   named: ``fleet_expected.py bench``, ~2 min).
 
@@ -257,19 +266,31 @@ def http():
     return list(readback[:2]), chip_smoke.HTTP_EXPECTED
 
 
-def twin():
+def ref_twin_run(name):
+    """The JAX twin's run of ``chip_smoke.twin_scenarios()[name]``,
+    carried over as the scenario's JSON; it must raise no violation."""
     from karpenter_core_tpu.metrics import wiring
     from karpenter_core_tpu.twin import scenario_from_json
     from karpenter_core_tpu.twin.harness import run_scenario
     from karpenter_core_tpu_torch.twin import scenario_to_json
 
     scenario = scenario_from_json(scenario_to_json(
-        chip_smoke.twin_scenarios()["macro"]()))
+        chip_smoke.twin_scenarios()[name]()))
     with chip_smoke.fresh_counters(wiring):
         result = run_scenario(scenario)
     if result.violations:
-        raise AssertionError(f"twin: {result.violations[:3]}")
-    return chip_smoke.twin_summary(result), chip_smoke.TWIN_EXPECTED
+        raise AssertionError(f"twin {name}: {result.violations[:3]}")
+    return result
+
+
+def twin():
+    return (chip_smoke.twin_summary(ref_twin_run("macro")),
+            chip_smoke.TWIN_EXPECTED)
+
+
+def storm():
+    return (chip_smoke.storm_summary(ref_twin_run("storm")),
+            chip_smoke.STORM_EXPECTED)
 
 
 def bench_churn_nodes(n=20000, types=800, rounds=6):
@@ -323,6 +344,23 @@ def bench_gangs_nodes(n_pods=20000, n_existing=None, repeats=3):
     return res.node_count()
 
 
+def bench_twin_fleet():
+    """cfg14's fleet scenario through the JAX twin: the ledger numbers
+    ``bench_torch.ANSWERS`` holds."""
+    import bench_torch
+    from karpenter_core_tpu.metrics import wiring
+    from karpenter_core_tpu.twin import scenario_from_json
+    from karpenter_core_tpu.twin.harness import run_scenario
+    from karpenter_core_tpu_torch.twin import scenario_to_json
+
+    scenario = scenario_from_json(scenario_to_json(
+        bench_torch._twin_scenarios()["fleet"]))
+    with chip_smoke.fresh_counters(wiring):
+        result = run_scenario(scenario)
+    return bench_torch._pick(bench_torch._twin_outcome(result),
+                             *bench_torch._TWIN_LEDGER)
+
+
 def bench():
     import bench_torch
 
@@ -331,6 +369,7 @@ def bench():
             "shape_churn": {"nodes_by_round": bench_churn_nodes()},
             "cfg10_batch": {"nodes": [bench_batch_nodes()]},
             "cfg11_gangs": {"nodes": bench_gangs_nodes()},
+            "cfg14_twin": {"fleet": bench_twin_fleet()},
         },
         "fast": {
             "cfg10_batch": {"nodes": [bench_batch_nodes(24, 12)]},
@@ -350,7 +389,7 @@ def bench():
 
 PARTS = {"fleet": fleet, "sweep": sweep, "operator": operator,
          "gangs": gangs, "relax": relax, "http": http, "twin": twin,
-         "bench": bench}
+         "storm": storm, "bench": bench}
 
 
 def main(argv) -> int:

@@ -231,8 +231,8 @@ def schedulability_frontier(
     daemonset_pods = provisioner.daemonset_pods()
 
     # sidecar mode: the sweep crosses the same RPC seam as the solve; a
-    # dead/slow sidecar fails the sweep (RemoteSolverError) and the next
-    # disruption pass asks again
+    # dead/slow sidecar degrades to the host binary search (None), exactly
+    # like an unrepresentable problem
     client = getattr(provisioner, "solver_client", None)
     if client is not None:
         from karpenter_core_tpu_torch.solver.remote import remote_frontier

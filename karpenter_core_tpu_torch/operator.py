@@ -119,9 +119,8 @@ class Options:
 
     solver: str = "greedy"  # greedy | tpu
     # where the tpu solver runs: in this process, or behind the solverd
-    # sidecar (solver/service.py) with RPC fault tolerance
-    # (solver/remote.py; a solve the sidecar does not answer fails, its
-    # pods wait for the next pass). solver_addr="" spawns a supervised
+    # sidecar (solver/service.py) with RPC fault tolerance + greedy
+    # degradation (solver/remote.py). solver_addr="" spawns a supervised
     # local sidecar (solver/supervisor.py); set it to reach an external one.
     solver_mode: str = "inproc"  # inproc | sidecar
     # which solve BACKEND runs behind the Solver seam (relaxsolve):
@@ -148,9 +147,8 @@ class Options:
     # host-side verification of every device/sidecar solve result
     # (solver/verify.py) before the reconcilers act on it: the trust
     # anchor that lets optimizing backends swap in behind the Solver seam.
-    # A rejected result counts solver_result_rejected_total{reason} and
-    # publishes a Warning event; in-proc the solve is then redone on the
-    # host greedy path, over the sidecar it fails.
+    # A rejected result degrades that solve to greedy with
+    # solver_result_rejected_total{reason} + a Warning event.
     solver_verify: bool = True
     # crash-only survivability knobs for a SPAWNED sidecar (an external
     # --solver-addr sidecar configures its own): the hard wall-clock bound
@@ -849,7 +847,7 @@ class Operator:
             else "SolverCircuitHalfOpen",
             message=f"solver circuit breaker is {state}; "
             + (
-                "sidecar solves fail until it closes"
+                "solves degrade to the host greedy path"
                 if state == "open"
                 else "device solves resume"
             ),
@@ -883,7 +881,7 @@ class Operator:
             return False
         # a solverd member respawning past the storm threshold means the
         # device tier is melting (supervisor.RESPAWN_STORM_*): solves
-        # fail while no child answers, and the probe surface must say so
+        # still degrade to greedy, but the probe surface must say degraded
         if (
             self.solver_supervisor is not None
             and self.solver_supervisor.respawn_storm()

@@ -18,12 +18,10 @@ tolerance is the point of the seam:
   for the next attempt; a Retry-After past the solve budget degrades
   immediately, and a shed never charges the breaker (the sidecar answered
   — it is regulating, not dead);
-* no host fallback — a solve the sidecar does not answer with a verified
-  result raises ``RemoteSolverError``: the reconcile that asked fails, its
-  pods stay pending, and the next pass re-solves them on the sidecar (the
-  supervisor's respawned child when the last one died). The port's
-  ``solver="tpu"`` never re-solves on the host greedy Scheduler; that
-  path is ``solver="greedy"`` alone.
+* graceful degradation — any RPC failure falls back to the host greedy
+  Scheduler over the SAME inputs, so the cluster degrades to greedy parity
+  instead of stalling provisioning (the in-solver twin of the device
+  solver's own ``_host_fallback_add`` repair path).
 
 Every request ships the client's tenant id (``X-Solver-Tenant`` + the wire
 field) and its remaining deadline (``X-Solver-Deadline``), which is what
@@ -31,7 +29,7 @@ lets the gateway shed hopeless work instead of timing it out.
 
 ``FaultInjector`` scripts deterministic timeout/error/slow schedules into
 the client (the cloudprovider/fake.py error-injection pattern) so every
-failure path is testable without real process failures.
+degradation path is testable without real process failures.
 """
 from __future__ import annotations
 
@@ -130,7 +128,7 @@ class CircuitBreaker:
         from karpenter_core_tpu_torch.metrics import wiring as m
 
         # tenant-labeled: each operator in the fleet owns its own breaker
-        # series, so "tenant-b's solves are failing" is one dashboard cell; in
+        # series, so "tenant-b is on greedy" is one dashboard cell; in
         # fleet mode the member index joins the labels so "member 2 of
         # tenant-b's fleet is dark" is one cell too
         labels = {"tenant": self.tenant}
@@ -242,7 +240,7 @@ class SolverClient:
         # lives HERE (not on the per-solve RemoteScheduler) because the
         # strike streak must survive across solves, like the breaker. A
         # problem that times out, errors, corrupts, or fails verification
-        # N times inside the TTL fails its solve at once, without an RPC.
+        # N times inside the TTL routes straight to greedy without an RPC.
         if quarantine is None:
             from karpenter_core_tpu_torch.solver.fleet import PoisonQuarantine
 
@@ -345,7 +343,7 @@ class SolverClient:
                 )
             if resp.status == 503:
                 # drain: the gateway is flushing its queue ahead of a
-                # clean restart — fail this solve, never the breaker
+                # clean restart — degrade this solve, never the breaker
                 raise RemoteSolverError(
                     "drain",
                     f"sidecar {path} draining: {data[:200]!r}",
@@ -413,7 +411,7 @@ class SolverClient:
                     # the sidecar ANSWERED — alive and regulating: reset
                     # the breaker's failure streak, and if waiting out the
                     # Retry-After would blow this solve's budget anyway,
-                    # stop burning attempts and fail this solve now
+                    # stop burning attempts and degrade to greedy now
                     self.breaker.record_success()
                     if retry_after is not None and retry_after >= self.timeout:
                         break
@@ -436,8 +434,8 @@ class SolverClient:
         if cause not in _ANSWERED_CAUSES:
             # a shed/drain/poison refusal is an ANSWER, not a fault — it
             # must never push the breaker toward open (that would turn a
-            # load spike or a clean restart into failed solves past its
-            # end)
+            # load spike or a clean restart into a blanket greedy
+            # degradation past its end)
             self.breaker.record_failure()
         m.SOLVER_RPC_FAILURES.inc({"cause": cause})
         err = RemoteSolverError(cause, detail, retry_after=retry_after)
@@ -451,8 +449,8 @@ class SolverClient:
         the sent-cache says the far instance holds; on the typed miss,
         re-upload exactly the named digests and retry ONCE. Raises
         RemoteSolverError("segment_miss") only when the repair round
-        ALSO missed — the caller falls back to the full wire (more
-        bytes, never a wrong solve and never a failed one: the
+        ALSO missed — the caller falls back to the full wire (degraded
+        bytes, never a wrong solve and never a greedy fallback: the
         sidecar is alive and answering, so the breaker stays untouched).
 
         ``plan`` is solver/segments.split_solve_header's SegmentPlan; a
@@ -514,10 +512,8 @@ class SolverClient:
 class RemoteScheduler:
     """Per-solve scheduler facade over a SolverClient.
 
-    Holds the same constructor inputs as Scheduler/DeviceScheduler: the
-    wire carries them to the sidecar, and the verifier re-checks the answer
-    against them. A solve without a verified answer raises
-    RemoteSolverError; nothing is re-solved on the host."""
+    Holds the same constructor inputs as Scheduler/DeviceScheduler so the
+    greedy fallback is built from the identical world the sidecar saw."""
 
     def __init__(
         self,
@@ -541,7 +537,8 @@ class RemoteScheduler:
         self.max_slots = (device_scheduler_opts or {}).get("max_slots", 256)
         # the solver backend this client requests per solve (relaxsolve,
         # ISSUE 13): rides the wire (codec solver_mode field) AND the
-        # X-Solver-Mode header
+        # X-Solver-Mode header; the greedy degradation below is the
+        # anytime answer either way
         self.solver_mode = (device_scheduler_opts or {}).get(
             "solver_mode", "ffd"
         )
@@ -550,20 +547,20 @@ class RemoteScheduler:
         # solve so the sidecar may replay the unchanged half of that
         # packing from its ledger. The memory lives on the CLIENT (the
         # durable object — this facade is rebuilt per solve, the SentCache
-        # lesson) and is cleared on every failed solve below: the next
-        # request advertises a predecessor only when the one before it was
-        # verified. Off by default — the wire is byte-identical to a
+        # lesson) and is cleared on every degradation below: a fallback
+        # round must never advertise a predecessor the operator did not
+        # actually bind. Off by default — the wire is byte-identical to a
         # pre-incsolve client's unless the operator opts in.
         self.incremental = bool(
             (device_scheduler_opts or {}).get("incremental", False)
         )
         # the ICE-cache snapshot ships on the wire so the sidecar masks the
-        # same offerings; the verifier applies it locally too
+        # same offerings; the greedy fallback applies it locally too
         self.unavailable_offerings = frozenset(unavailable_offerings)
         # host-side result verification (solver/verify.py): the trust
         # anchor between a sidecar result and NodeClaim creation — a
-        # result that fails the independent constraint re-check fails the
-        # solve exactly like an unreachable sidecar
+        # result that fails the independent constraint re-check degrades
+        # to greedy exactly like an unreachable sidecar
         self.verify = verify
         self.recorder = recorder
 
@@ -573,12 +570,11 @@ class RemoteScheduler:
         from karpenter_core_tpu_torch.metrics import wiring as m
         from karpenter_core_tpu_torch.solver import gangs as gangmod
 
-        # one O(pods) annotation/priority scan per solve, for the decode
-        # backstop below
+        # one O(pods) annotation/priority scan per solve, shared by the
+        # decode backstop and every degradation exit below
         gangsched = gangmod.has_gangsched(pods)
         digest = None
         quarantine = self.client.quarantine
-        refused = None  # the client's own quarantine refusal
         try:
             plan = None
             wire_mode = getattr(self.client, "wire_mode", "full")
@@ -618,10 +614,8 @@ class RemoteScheduler:
             # costs zero RPCs, device grants, or sidecar respawns
             if quarantine is not None and quarantine.quarantined(digest):
                 m.SOLVER_QUARANTINE_ROUTED.inc({"site": "client"})
-                refused = RemoteSolverError(
-                    "poisoned", f"problem {digest[:12]} is quarantined"
-                )
-                raise refused
+                m.SOLVER_RPC_FALLBACKS.inc({"endpoint": "solve"})
+                return self._fallback_solve(pods, gangsched)
             t0 = time.perf_counter()
             rpc_headers = {"X-Solver-Mode": self.solver_mode}
             if plan is not None:
@@ -633,8 +627,8 @@ class RemoteScheduler:
                     if e.cause != "segment_miss":
                         raise
                     # the manifest could not be resolved even after the
-                    # re-upload round: ship the WHOLE problem — more
-                    # bytes, never a wrong solve and never a failed one (the
+                    # re-upload round: ship the WHOLE problem — degraded
+                    # bytes, never a wrong solve and never greedy (the
                     # sidecar is alive; full-wire v5 is first-class)
                     body = codec._json_payload(header)
                     m.SOLVER_SEGMENT_WIRE_BYTES.inc(
@@ -677,18 +671,18 @@ class RemoteScheduler:
                 gangmod.prune_evictions(results)
                 gangmod.rank_order_pods(results, pods, node_labels)
         except RemoteSolverError as e:
-            if e is not refused:  # a refusal is no new strike
-                self._note_rpc_failure(e, digest)
-            self._fail(e)
-        except (ValueError, KeyError) as e:
+            self._note_rpc_failure(e, digest)
+            m.SOLVER_RPC_FALLBACKS.inc({"endpoint": "solve"})
+            return self._fallback_solve(pods, gangsched)
+        except (ValueError, KeyError):
             # malformed response (wire-version skew, truncated body):
-            # fail like an unreachable sidecar, but count the cause so
+            # degrade like an unreachable sidecar, but count the cause so
             # persistent skew is distinguishable from a dead process
             m.SOLVER_RPC_FAILURES.inc({"cause": "decode"})
             if quarantine is not None and digest is not None:
                 quarantine.strike(digest, "decode")
-            self._fail(RemoteSolverError(
-                "decode", f"undecodable solve result: {e!r}"))
+            m.SOLVER_RPC_FALLBACKS.inc({"endpoint": "solve"})
+            return self._fallback_solve(pods, gangsched)
         if self.verify:
             from karpenter_core_tpu_torch.solver import verify as verifymod
 
@@ -705,10 +699,8 @@ class RemoteScheduler:
                 verifymod.reject(violations, "sidecar", self.recorder)
                 if quarantine is not None and digest is not None:
                     quarantine.strike(digest, "verify")
-                self._fail(RemoteSolverError(
-                    "rejected",
-                    f"sidecar result failed verification: {violations[0]}",
-                ))
+                m.SOLVER_RPC_FALLBACKS.inc({"endpoint": "solve"})
+                return self._fallback_solve(pods, gangsched)
         if quarantine is not None and digest is not None:
             quarantine.clear(digest)
         if self.incremental:
@@ -745,19 +737,38 @@ class RemoteScheduler:
         elif e.cause in ("timeout", "error", "corrupt", "injected"):
             quarantine.strike(digest, e.cause)
 
-    def _fail(self, e: RemoteSolverError) -> None:
-        """End a solve that has no verified sidecar answer: raise ``e``.
-        The caller's reconcile fails and its pods stay pending until a
-        later pass, when the sidecar (or its respawned child) answers. No
-        host solver runs instead: on the port a solve on the host is the
-        ``solver="greedy"`` operator's, never a hidden second path of
-        ``solver="tpu"``."""
-        # incsolve contract: nothing was bound this round, and
-        # the sidecar that remembered the predecessor may be the one that
-        # just died — the next request goes down the full path
-        if self.incremental:
+    def _fallback_solve(self, pods: List, gangsched: Optional[bool] = None):
+        """Greedy degradation: the host Scheduler over the same inputs —
+        the cluster keeps provisioning at greedy parity, with gangsched
+        problems routed through solver/gangs.degraded_solve's tiered
+        wrapper. ``gangsched`` carries solve()'s already-computed
+        has_gangsched verdict; None rescans."""
+        from karpenter_core_tpu_torch.controllers.provisioning.scheduling.scheduler import (
+            Scheduler,
+        )
+        from karpenter_core_tpu_torch.solver import gangs as gangmod
+
+        # incsolve fallback contract (ISSUE 16): a greedy round's packing
+        # was never remembered by any sidecar ledger, so the next request
+        # must not name it as a predecessor — clearing routes that solve
+        # down the full path (a stale reference would only miss anyway;
+        # this keeps the reference honest and the miss accounting clean)
+        if getattr(self, "incremental", False):
             self.client.prev_fingerprint = ""
-        raise e
+
+        def make_scheduler():
+            return Scheduler(
+                self.nodepools,
+                self.instance_types,
+                existing_nodes=self.existing_nodes,
+                daemonset_pods=self.daemonset_pods,
+                topology=self.topology,
+                unavailable_offerings=self.unavailable_offerings,
+            )
+
+        return gangmod.degraded_solve(
+            make_scheduler, pods, self.existing_nodes, gangsched
+        )
 
     # -- response materialization -----------------------------------------
 
@@ -769,8 +780,8 @@ class RemoteScheduler:
 
         Hardened against truncated/corrupt result wire: every field is
         type-checked before use and any malformation raises
-        ``RemoteSolverError("corrupt")`` — the NORMAL failure path
-        (the solve fails, breaker charged) — instead of a TypeError
+        ``RemoteSolverError("corrupt")`` — the NORMAL degradation path
+        (greedy fallback, breaker charged) — instead of a TypeError
         escaping into the reconciler. The subtle shapes matter: a
         ``pod_uids`` field that decodes as a *string* iterates as
         characters and would silently materialize an empty claim."""
@@ -924,7 +935,7 @@ class FleetRouter:
     * **per-member breakers** — each member client owns its breaker
       (member-labeled on the gauge), and a member whose breaker is open
       is skipped at placement (``reason=degraded``) so one dark member
-      costs routing, not a failed solve;
+      costs routing, not greedy degradation;
     * **aggregate health** — ``health()`` polls every member's /healthz
       into one fleet view (ready = any member ready).
 
@@ -1280,15 +1291,13 @@ def remote_frontier(
     candidate_pods,
     max_slots: int = 1024,
 ):
-    """Consolidation prefix sweep over the sidecar seam. A sweep without a
-    verified sidecar answer raises RemoteSolverError, as a solve does: the
-    disruption pass fails and the next pass asks again. The sweep is never
-    replaced by a host search."""
+    """Consolidation prefix sweep over the sidecar seam. Any RPC failure
+    returns None — the caller's host binary search, i.e. greedy-parity
+    degradation for disruption too."""
     from karpenter_core_tpu_torch.metrics import wiring as m
 
     digest = None
     quarantine = client.quarantine
-    refused = None  # the client's own quarantine refusal
     try:
         with m.SOLVER_RPC_PHASE_DURATION.time({"phase": "encode"}):
             body = codec.encode_frontier_request(
@@ -1303,14 +1312,12 @@ def remote_frontier(
                 tenant=client.tenant,
             )
         # same poison contract as the solve path: a quarantined frontier
-        # problem fails at once, zero RPCs
+        # problem goes straight to the host binary search, zero RPCs
         digest = hashlib.sha256(body).hexdigest()
         if quarantine is not None and quarantine.quarantined(digest):
             m.SOLVER_QUARANTINE_ROUTED.inc({"site": "client"})
-            refused = RemoteSolverError(
-                "poisoned", f"problem {digest[:12]} is quarantined"
-            )
-            raise refused
+            m.SOLVER_RPC_FALLBACKS.inc({"endpoint": "consolidate"})
+            return None
         t0 = time.perf_counter()
         data, kernel = client.call("/consolidate", body)
         total = time.perf_counter() - t0
@@ -1321,23 +1328,23 @@ def remote_frontier(
         with m.SOLVER_RPC_PHASE_DURATION.time({"phase": "decode"}):
             frontier = codec.decode_frontier_response(data)
     except RemoteSolverError as e:
-        if e is not refused and quarantine is not None and digest is not None:
+        if quarantine is not None and digest is not None:
             if e.cause == "poisoned":
                 quarantine.poison(digest)
             elif e.cause in ("timeout", "error", "injected"):
                 quarantine.strike(digest, e.cause)
-        raise
-    except (ValueError, KeyError) as e:
+        m.SOLVER_RPC_FALLBACKS.inc({"endpoint": "consolidate"})
+        return None
+    except (ValueError, KeyError):
         m.SOLVER_RPC_FAILURES.inc({"cause": "decode"})
         if quarantine is not None and digest is not None:
             quarantine.strike(digest, "decode")
-        raise RemoteSolverError(
-            "decode", f"undecodable frontier: {e!r}"
-        ) from e
+        m.SOLVER_RPC_FALLBACKS.inc({"endpoint": "consolidate"})
+        return None
     # structural verification: the (ok, n_new, price_lb) triples feed
     # binary disruption decisions directly — garbage here silently
-    # mis-sizes a consolidation command, so a defective frontier fails
-    # the sweep like any RPC failure
+    # mis-sizes a consolidation command, so a defective frontier degrades
+    # to the caller's host binary search like any RPC failure
     from karpenter_core_tpu_torch.solver.verify import verify_frontier
 
     defect = verify_frontier(frontier)
@@ -1345,7 +1352,8 @@ def remote_frontier(
         m.SOLVER_RESULT_REJECTED.inc(
             {"reason": "structure", "path": "frontier"}
         )
-        raise RemoteSolverError("rejected", f"defective frontier: {defect}")
+        m.SOLVER_RPC_FALLBACKS.inc({"endpoint": "consolidate"})
+        return None
     if quarantine is not None and digest is not None:
         # success forgives the streak, exactly like the solve path —
         # transient faults spread across a healthy week must never

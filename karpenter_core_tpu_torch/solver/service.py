@@ -58,8 +58,8 @@ causes).
 Since the fleet gateway (solver/fleet.py) landed, one sidecar serves N
 operators: every request carries a tenant (wire field + ``X-Solver-Tenant``
 header) and a remaining deadline (``X-Solver-Deadline``), admission sheds
-hopeless requests with ``429 + Retry-After`` (the client fails that
-solve and the operator's next pass asks again), tenants share the device under weighted
+hopeless requests with ``429 + Retry-After`` (the client degrades that
+solve to its host greedy path), tenants share the device under weighted
 fair queueing with provisioning prioritized over consolidation sweeps, and
 only the device phase of a request is exclusive — request B's codec
 decode/encode overlaps request A's device time.
@@ -128,8 +128,8 @@ class DeviceWatchdog:
 
     A wedged device solve (driver hang, pathological compile, poisoned
     input) holds the single device grant forever: every tenant's solves
-    queue behind it until their deadlines shed, and every solve of the
-    fleet fails. Python cannot kill the wedged thread, so
+    queue behind it until their deadlines shed, and the whole fleet
+    silently degrades to greedy. Python cannot kill the wedged thread, so
     the recovery is crash-only: on trip the daemon drains the gateway
     (queued requests answer 503 instead of vanishing), the process exits
     with WATCHDOG_EXIT_CODE, and the supervisor respawns it — the
@@ -454,7 +454,7 @@ class SolverDaemon:
               solver_mode: str = None):
         """bytes -> (response bytes, solve seconds). Raises fleet.ShedError
         when admission rejects the request (the HTTP layer answers 429 +
-        Retry-After; solver/remote.py fails that solve),
+        Retry-After; solver/remote.py degrades that solve to greedy),
         fleet.DrainError while draining (503), and fleet.QuarantinedError
         for a poison-pill digest (422) — all BEFORE any decode or device
         work, so refusals cost the sidecar nothing.
@@ -844,7 +844,7 @@ class SolverDaemon:
             # no member handler may wait forever: whatever path got here
             # (watchdog drain, an unexpected raise above), any member not
             # yet answered gets the drain contract (503 — the client
-            # fails that solve WITHOUT charging its breaker; the member
+            # degrades to greedy WITHOUT charging its breaker; the member
             # request did not fail on its own problem)
             for t in batch[1:]:
                 if not t.done.is_set():
@@ -1214,7 +1214,7 @@ class _Handler(BaseHTTPRequestHandler):
                 return send_body(self, 404, b'{"error": "not found"}')
         except fleet.ShedError as e:
             # overload is a CONTRACT, not an error: 429 + the gateway's
-            # retry estimate; the client fails this solve
+            # retry estimate; the client degrades this solve to greedy
             return send_body(
                 self, 429,
                 json.dumps(
@@ -1224,14 +1224,14 @@ class _Handler(BaseHTTPRequestHandler):
             )
         except fleet.DrainError:
             # draining is a CONTRACT too: 503 says "restarting, answer
-            # came from a live process" — the client fails this solve
-            # without charging its breaker
+            # came from a live process" — the client degrades this solve
+            # to greedy without charging its breaker
             return send_body(
                 self, 503, b'{"error": "draining"}',
             )
         except fleet.QuarantinedError as e:
             # poison pill: refused pre-decode; 422 tells the client to
-            # quarantine locally and fail the solve without an RPC
+            # quarantine locally and route straight to greedy
             return send_body(
                 self, 422,
                 json.dumps({

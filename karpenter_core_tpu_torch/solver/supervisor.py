@@ -235,8 +235,7 @@ class SolverSupervisor:
         # compile time). The read runs under a deadline — a child that
         # wedges pre-handshake (stuck import, held compile-cache lock)
         # raises here instead of hanging reconcile; poll() turns that into
-        # backoff + an event, and provisioning solves fail until a child
-        # answers.
+        # backoff + an event, and provisioning keeps degrading to greedy.
         got: List[str] = []
         reader = threading.Thread(
             target=lambda: got.append(self.proc.stdout.readline()),

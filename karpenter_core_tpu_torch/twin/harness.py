@@ -15,9 +15,8 @@ injection seam. Fleet-level faults compose on top of the chaos harness:
   segment store, cold caches, new instance id — the client must pay one
   miss/re-upload round and nothing else;
 * ``partition`` — an operator's view of the whole tier fails as
-  transport faults for a window (the solve fails and its pods wait —
-  the port has no greedy degradation; quarantine strikes, never a lost
-  pod);
+  transport faults for a window (degrade-to-greedy, quarantine strikes,
+  never a lost pod);
 * ``amnesia``   — a member's segment store is swapped empty in place.
 
 Determinism contract: identical (seed, scenario) → byte-identical event
@@ -40,16 +39,15 @@ Port of ``karpenter_core_tpu/twin/harness.py``. The edits:
   (``_TwinTierAdapter``) stay in-thread: every daemon shares this
   process's one CUDA context. The operators get their router through the
   ``solver_client`` seam, not a spawned fleet.
-* **No fallback.** The port's sidecar client has no greedy degradation:
-  a partition window or a murdered member fails the solve, its reconcile
-  fails and the pods wait for a member that answers (the reference
-  re-solves them on the host greedy Scheduler). ``rpc_fallbacks`` keeps
-  its key and stays 0; the counters add ``rpc_failures``
-  (``SOLVER_RPC_FAILURES``), which the ledger does not carry.
-* **A murdered member refuses in process** (``_install_murder_gate``):
-  the port's client keeps retrying a dead member, so a connect to its
-  freed port must not depend on the host; the client raises the socket's
-  own refusal instead, and the run's trace and ledger are unchanged.
+* **Failed RPCs are counted.** The sidecar client is the reference's: a
+  partition window or a murdered member degrades the solve to the host
+  greedy Scheduler, counted in ``rpc_fallbacks`` as in the reference. The
+  counters add ``rpc_failures`` (``SOLVER_RPC_FAILURES``), which the
+  ledger does not carry.
+* **A murdered member refuses in process** (``_install_murder_gate``): a
+  connect to its freed port must not depend on the host; the client
+  raises the socket's own refusal instead, and the run's trace and ledger
+  are unchanged.
 """
 from __future__ import annotations
 
@@ -109,8 +107,8 @@ def _metric_snapshot() -> Dict[str, float]:
 
     return {
         "rpc_fallbacks": _counter_total(m.SOLVER_RPC_FALLBACKS),
-        # the port's client fails a solve where the reference degrades:
-        # the failed RPCs are the faults that bit
+        # the failed RPCs, the faults that bit (the ledger does not carry
+        # them)
         "rpc_failures": _counter_total(m.SOLVER_RPC_FAILURES),
         "result_rejected": _counter_total(m.SOLVER_RESULT_REJECTED),
         "host_fallback_pods": _counter_total(m.SOLVER_HOST_FALLBACK_PODS),
@@ -444,12 +442,10 @@ class DigitalTwin:
         """A murdered member's address refuses every connection in process:
         the client meets the socket's own ``ConnectionRefusedError`` and
         takes the same retry, breaker and quarantine path, with no connect
-        to the dead port. The port's client retries a dead member until the
-        run ends (a failed solve waits for a member that answers), and a
-        real connect to the freed port can wait out the client's 30-s
-        real-time deadline instead of being refused (seen once on a GPU
-        host), which would make the run's trace turn on the host's network
-        stack."""
+        to the dead port. A real connect to the freed port can wait out the
+        client's 30-s real-time deadline instead of being refused (seen once
+        on a GPU host), which would make the run's trace turn on the host's
+        network stack."""
         orig = client._once
 
         def gated(path, body, headers=None, _orig=orig):

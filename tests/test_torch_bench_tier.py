@@ -32,14 +32,14 @@ def test_sidecar_matches_bench():
 
 
 def test_fleet_matches_bench():
-    """Solo node counts equal; the forced shed is refused (the port's
-    client has no greedy path) where the reference answers greedily."""
+    """Solo node counts equal; the forced shed degrades to the host greedy
+    Scheduler's answer on both."""
     args = dict(n_tenants=3, n_pods=48, n_types=40, repeats=1)
     ref = bench._fleet_bench(**args)
     port = judged("cfg7_fleet", lambda: bench_torch._fleet_bench(**args))
     hold("cfg7_fleet", ref, port)
     assert ref["shed_parity_ok"] is True
-    assert port["shed_refused"] is True and port["greedy_fallbacks"] == 0
+    assert port["shed_parity_ok"] is True
 
 
 def test_batch_matches_bench():
@@ -80,7 +80,7 @@ def test_elastic_matches_bench():
     ref = bench._elastic_bench(**args)
     port = judged("cfg16_elastic", lambda: bench_torch._elastic_bench(**args))
     hold("cfg16_elastic", ref, port)
-    assert port["autoscaled"]["failed_solves"] == 0
+    assert port["autoscaled"]["fallbacks"] == 0
 
 
 def test_multidev_probe_matches_bench(monkeypatch):

@@ -570,14 +570,22 @@ def test_sidecar_frontier_goes_over_rpc():
 
 
 def test_sidecar_frontier_fails_without_an_answer():
-    """No sidecar answers: the sweep raises, and the disruption pass that
-    asked fails; nothing is searched on the host instead."""
+    """No sidecar answers: the sweep returns None with one fallback
+    counted, as the reference's does, and multi-node consolidation takes
+    the host binary search instead. Over chip_smoke's consolidation
+    scenario (every node a candidate) the fleet ends as the in-process
+    sweep's run ends, every pod bound, no reconcile error."""
     import socket
 
     from karpenter_core_tpu_torch.metrics import wiring as m
     from karpenter_core_tpu_torch.solver import remote
 
-    op = port_fleet(2)
+    ns = chip_smoke.port_classes()
+    options = Options(solver="tpu", device_scheduler_opts={
+        "device": "cpu", "kernel_backend": "reference"})
+    inproc, run = chip_smoke.consolidation_scenario(ns, options, n=6)
+    run()
+    op, run = chip_smoke.consolidation_scenario(ns, options, n=6)
     cands = candidates_of(op, get_candidates)
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -586,8 +594,16 @@ def test_sidecar_frontier_fails_without_an_answer():
     op.provisioner.solver_client = remote.SolverClient(
         dead, timeout=5, max_retries=0, sleep=lambda s: None)
     fallbacks = m.SOLVER_RPC_FALLBACKS.value({"endpoint": "consolidate"})
-    with pytest.raises(remote.RemoteSolverError) as exc:
-        cons.schedulability_frontier(op.provisioner, op.cluster, cands)
-    assert exc.value.cause == "error"
+    assert cons.schedulability_frontier(op.provisioner, op.cluster,
+                                        cands) is None
     assert m.SOLVER_RPC_FALLBACKS.value(
-        {"endpoint": "consolidate"}) == fallbacks
+        {"endpoint": "consolidate"}) == fallbacks + 1
+    errors0 = sum(m.RECONCILE_ERRORS.values.values())
+    run()
+    assert sum(m.RECONCILE_ERRORS.values.values()) == errors0
+    assert m.SOLVER_RPC_FALLBACKS.value(
+        {"endpoint": "consolidate"}) > fallbacks + 1
+    assert chip_smoke.operator_outcome(op) == chip_smoke.operator_outcome(
+        inproc)
+    assert chip_smoke.operator_outcome(op)[2]  # every pod bound
+    assert len(op.kube.list_nodes()) < 6

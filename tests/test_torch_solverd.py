@@ -12,6 +12,14 @@ child process (``python -m karpenter_core_tpu_torch.solver.service
 fleet member's kill and respawn, and a sticky CUDA error (faked at the
 kernel seam) that must take the crash-only exit and be charged by the
 respawned child's quarantine journal.
+
+The client (``solver/remote.py``) is the reference's: a solve the sidecar
+does not answer with a verified result degrades to the host greedy
+``Scheduler`` over the same inputs, counted in ``SOLVER_RPC_FALLBACKS``.
+The degradation cases hold its answer to the host ``Scheduler``'s, and
+tests/test_solverd.py's own client cases (``TestDegradation``, the 503
+drain and ``TestPoisonQuarantine``'s client cases) run on the port
+(tests/torch_ported.py).
 """
 from __future__ import annotations
 
@@ -32,8 +40,10 @@ from tests.test_solverd import (
     _valid_result_header,
 )
 from tests.test_torch_provisioner import _align_hostnames
+from tests.torch_ported import ported
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
+from karpenter_core_tpu.api.objects import OwnerReference as RefOwnerReference
 from karpenter_core_tpu.chaos import ChaosSchedule, SolverChaos
 from karpenter_core_tpu.cloudprovider.fake import fake_instance_types
 from karpenter_core_tpu.cloudprovider.kwok import KwokCloudProvider as RefKwok
@@ -44,6 +54,8 @@ from karpenter_core_tpu.models.provisioner import (
 )
 from karpenter_core_tpu.operator import Operator as RefOperator
 from karpenter_core_tpu.operator import Options as RefOptions
+from karpenter_core_tpu.solver import fleet as jfleet
+from karpenter_core_tpu.solver import remote as jremote
 from karpenter_core_tpu.solver import service as jservice
 from karpenter_core_tpu.solver import incremental as jincsolve
 from karpenter_core_tpu.solver.gangs import GANG_ANNOTATION
@@ -51,6 +63,9 @@ from karpenter_core_tpu.utils.clock import FakeClock as RefFakeClock
 from karpenter_core_tpu_torch import interop
 from karpenter_core_tpu_torch.api.objects import OwnerReference, Pod
 from karpenter_core_tpu_torch.cloudprovider.kwok import KwokCloudProvider
+from karpenter_core_tpu_torch.controllers.provisioning.scheduling.scheduler import (
+    Scheduler,
+)
 from karpenter_core_tpu_torch.kube.store import KubeStore
 from karpenter_core_tpu_torch.metrics import wiring as m
 from karpenter_core_tpu_torch.models import provisioner as tprov
@@ -74,6 +89,9 @@ from karpenter_core_tpu_torch.utils.clock import FakeClock
 CATALOG = build_catalog(cpu_grid=[1, 2, 4, 8], mem_factors=[2, 4])
 CPU = dict(device="cpu", kernel="reference")
 STICKY = "CUDA error: an illegal memory access was encountered"
+
+# tests/test_solverd.py read onto the port: its client cases run unchanged
+_ref = ported("test_solverd")
 
 
 def pdaemon(**kw):
@@ -347,57 +365,115 @@ def _dead_addr() -> str:
     return addr
 
 
-def test_pods_wait_while_no_sidecar_answers():
-    """With no sidecar answering, the provisioning reconcile fails: its
-    pods stay pending, no node is launched and nothing is solved on the
-    host. Once a sidecar answers, the next passes bind them."""
-    client = remote.SolverClient(
+def _dead_client(rmod, fmod):
+    """A client of ``rmod`` (either package's solver/remote) at an address
+    nothing listens on, its breaker and quarantine out of the way."""
+    return rmod.SolverClient(
         _dead_addr(), timeout=5, max_retries=0, sleep=lambda s: None,
-        breaker=remote.CircuitBreaker(failure_threshold=10_000),
-        quarantine=fleet.PoisonQuarantine(strikes=10_000))
+        breaker=rmod.CircuitBreaker(failure_threshold=10_000),
+        quarantine=fmod.PoisonQuarantine(strikes=10_000))
+
+
+def _placed(op) -> dict:
+    """What an operator's run placed: the pods bound and the instance
+    type of every node."""
+    return {
+        "bound": sorted(p.metadata.name for p in op.kube.list_pods()
+                        if p.node_name),
+        "types": sorted(n.metadata.labels.get(
+            "node.kubernetes.io/instance-type")
+            for n in op.kube.list_nodes()),
+    }
+
+
+def _host_answer(pools, its, pods):
+    """The host greedy Scheduler over the same inputs."""
+    return Scheduler(copy.deepcopy(pools), dict(its)).solve(
+        copy.deepcopy(pods))
+
+
+def test_pods_wait_while_no_sidecar_answers():
+    """With no sidecar answering, the provisioning solve degrades to the
+    host greedy Scheduler, as the JAX operator's does: every pod is bound,
+    no reconcile fails and the fallbacks are counted; both operators
+    place the same pods on the same instance types. Once a sidecar
+    answers, the next pods go through it with no fallback."""
+    def create(op, kube_pods, pool):
+        op.kube.create(pool)
+        for pod in kube_pods:
+            op.kube.create(pod)
+
+    pods = [make_pod(cpu=2.0, name=f"w{i}") for i in range(3)]
+    for pod in pods:
+        pod.metadata.owner_references.append(
+            RefOwnerReference(kind="ReplicaSet", name="rs", uid="rs-uid"))
+    ref_clock = RefFakeClock()
+    ref_kube = RefKubeStore(ref_clock)
+    ref_op = RefOperator(kube=ref_kube, clock=ref_clock,
+                         solver_client=_dead_client(jremote, jfleet),
+                         cloud_provider=RefKwok(ref_kube, CATALOG),
+                         options=RefOptions(solver="tpu",
+                                            solver_mode="sidecar"))
+    create(ref_op, copy.deepcopy(pods), make_nodepool())
+    ref_op.run_until_idle(max_iters=8, disrupt=False)
+
+    client = _dead_client(remote, fleet)
     clock = FakeClock()
     kube = KubeStore(clock)
     op = Operator(kube=kube, clock=clock, solver_client=client,
                   cloud_provider=KwokCloudProvider(
                       kube, interop.from_reference(CATALOG)),
                   options=Options(solver="tpu", solver_mode="sidecar"))
-    op.kube.create(interop.from_reference(make_nodepool()))
-    for i in range(3):
-        op.kube.create(replicated(interop.from_reference(
-            make_pod(cpu=2.0, name=f"w{i}"))))
+    create(op, interop.from_reference(copy.deepcopy(pods)),
+           interop.from_reference(make_nodepool()))
     errors0 = sum(m.RECONCILE_ERRORS.values.values())
     fallbacks = m.SOLVER_RPC_FALLBACKS.value({"endpoint": "solve"})
     op.run_until_idle(max_iters=8, disrupt=False)
-    assert sum(m.RECONCILE_ERRORS.values.values()) > errors0
-    assert not any(p.node_name for p in op.kube.list_pods())
-    assert not op.kube.list_nodes()
+    assert sum(m.RECONCILE_ERRORS.values.values()) == errors0
+    assert m.SOLVER_RPC_FALLBACKS.value({"endpoint": "solve"}) > fallbacks
+    assert _placed(op) == _placed(ref_op)
+    assert len(_placed(op)["bound"]) == 3
     srv, addr = served()
     try:
         client.set_addr(addr)
-        op.clock.step(600.0)  # past the reconcile backoff
+        fallbacks = m.SOLVER_RPC_FALLBACKS.value({"endpoint": "solve"})
+        solves = srv.daemon_.solves
+        for i in range(2):
+            op.kube.create(replicated(interop.from_reference(
+                make_pod(cpu=0.25, name=f"late{i}"))))
         op.run_until_idle(disrupt=False)
         assert all(p.node_name for p in op.kube.list_pods())
-        assert op.kube.list_nodes()
+        assert srv.daemon_.solves > solves
     finally:
         stop(srv)
     assert m.SOLVER_RPC_FALLBACKS.value({"endpoint": "solve"}) == fallbacks
 
 
 def test_quarantined_problem_fails_without_an_rpc():
-    """A problem the client's quarantine holds fails at once, with no RPC
-    and no host solve."""
+    """A problem the client's quarantine holds degrades at once to the
+    host greedy Scheduler, with no RPC: the first solve's failed RPC
+    quarantines it (one strike), the second makes none. Both answers are
+    the host Scheduler's."""
     pools, its, pods = _port_problem(2)
     client = remote.SolverClient(
         _dead_addr(), timeout=5, max_retries=0, sleep=lambda s: None,
         wire_mode="full", quarantine=fleet.PoisonQuarantine(strikes=1))
-    with pytest.raises(remote.RemoteSolverError) as exc:
-        remote.RemoteScheduler(client, pools, its).solve(pods)
-    assert exc.value.cause == "error"
+    host = _host_answer(pools, its, pods)
+    fallbacks = m.SOLVER_RPC_FALLBACKS.value({"endpoint": "solve"})
     failures = m.SOLVER_RPC_FAILURES.value({"cause": "error"})
-    with pytest.raises(remote.RemoteSolverError) as exc:
-        remote.RemoteScheduler(client, pools, its).solve(pods)
-    assert exc.value.cause == "poisoned"
-    assert m.SOLVER_RPC_FAILURES.value({"cause": "error"}) == failures
+    res = remote.RemoteScheduler(client, pools, its).solve(pods)
+    assert res.all_pods_scheduled()
+    assert res.node_count() == host.node_count()
+    assert m.SOLVER_RPC_FAILURES.value({"cause": "error"}) == failures + 1
+    routed = m.SOLVER_QUARANTINE_ROUTED.value({"site": "client"})
+    res = remote.RemoteScheduler(client, pools, its).solve(pods)
+    assert res.all_pods_scheduled()
+    assert res.node_count() == host.node_count()
+    assert m.SOLVER_RPC_FAILURES.value({"cause": "error"}) == failures + 1
+    assert m.SOLVER_QUARANTINE_ROUTED.value(
+        {"site": "client"}) == routed + 1
+    assert m.SOLVER_RPC_FALLBACKS.value(
+        {"endpoint": "solve"}) == fallbacks + 2
     assert client.quarantine.size() == 1
 
 
@@ -534,8 +610,10 @@ def test_corrupt_wire_is_corrupt(name):
 @pytest.mark.parametrize("damage,cause", [("content", "corrupt"),
                                           ("truncated", "decode")])
 def test_damaged_wire_degrades_to_greedy(damage, cause):
-    """A damaged result wire fails the solve with its cause counted; the
-    port re-solves nothing on the host (no greedy fallback)."""
+    """A damaged result wire degrades the solve to the host greedy
+    Scheduler with its cause counted (tests/test_solverd.py
+    TestCorruptWire's two wire cases): the answer is the host
+    Scheduler's, and damaged content charges the breaker."""
     wire = _valid_result_header(*_solve_problem())
     if damage == "content":
         wire["claims"][0]["pod_uids"] = 12345
@@ -551,20 +629,23 @@ def test_damaged_wire_degrades_to_greedy(damage, cause):
             sleep=lambda s: None)
         failures = m.SOLVER_RPC_FAILURES.value({"cause": cause})
         fallbacks = m.SOLVER_RPC_FALLBACKS.value({"endpoint": "solve"})
-        with pytest.raises(remote.RemoteSolverError) as exc:
-            remote.RemoteScheduler(client, pools, its).solve(pods)
-        assert exc.value.cause == cause
+        res = remote.RemoteScheduler(client, pools, its).solve(pods)
+        assert res.all_pods_scheduled()
+        assert res.node_count() == _host_answer(
+            pools, its, pods).node_count()
         assert m.SOLVER_RPC_FAILURES.value({"cause": cause}) == failures + 1
         assert m.SOLVER_RPC_FALLBACKS.value(
-            {"endpoint": "solve"}) == fallbacks
+            {"endpoint": "solve"}) == fallbacks + 1
+        if damage == "content":
+            assert client.breaker.failures == 1
     finally:
         stop(srv)
 
 
 def test_bad_result_rejected_and_degraded():
     """The client's verifier catches a sidecar result that drops a pod:
-    that solve fails (nothing is re-solved on the host), and the next one
-    is answered by the sidecar."""
+    that solve degrades to the host greedy Scheduler (every pod lands, one
+    fallback), and the next one is answered by the sidecar."""
     chaos = SolverChaos(ChaosSchedule(
         script={"solverd.solve": ["bad_result"]}))
     srv, addr = served(pdaemon(chaos=chaos))
@@ -574,34 +655,53 @@ def test_bad_result_rejected_and_degraded():
         rs = remote.RemoteScheduler(client, pools, its)
         key = {"reason": "conservation", "path": "sidecar"}
         rejected = m.SOLVER_RESULT_REJECTED.value(key)
-        with pytest.raises(remote.RemoteSolverError) as exc:
-            rs.solve(pods)
-        assert exc.value.cause == "rejected"
+        fallbacks = m.SOLVER_RPC_FALLBACKS.value({"endpoint": "solve"})
+        res = rs.solve(pods)
+        assert res.all_pods_scheduled()
+        assert res.node_count() == _host_answer(
+            pools, its, pods).node_count()
         assert chaos.injected.get("bad_result") == 1
         assert m.SOLVER_RESULT_REJECTED.value(key) == rejected + 1
+        assert m.SOLVER_RPC_FALLBACKS.value(
+            {"endpoint": "solve"}) == fallbacks + 1
         assert rs.solve(pods).all_pods_scheduled()
         assert m.SOLVER_RESULT_REJECTED.value(key) == rejected + 1
+        assert m.SOLVER_RPC_FALLBACKS.value(
+            {"endpoint": "solve"}) == fallbacks + 1
     finally:
         stop(srv)
 
 
+# tests/test_solverd.py's client cases, on the port's client
+
+
+class TestDegradation:
+    _cases = _ref.TestDegradation
+    test_dead_sidecar_degrades_to_greedy = (
+        _cases.test_dead_sidecar_degrades_to_greedy)
+    test_hung_sidecar_times_out_to_greedy = (
+        _cases.test_hung_sidecar_times_out_to_greedy)
+    test_half_open_probe_failure_reopens = (
+        _cases.test_half_open_probe_failure_reopens)
+
+
+class TestPoisonQuarantineClient:
+    _cases = _ref.TestPoisonQuarantine
+    test_client_mirrors_gateway_422 = _cases.test_client_mirrors_gateway_422
+    test_client_quarantines_repeated_timeouts = (
+        _cases.test_client_quarantines_repeated_timeouts)
+
+
 class TestDrainContract:
     def test_client_treats_503_as_degrade_not_fault(self):
-        """A draining sidecar fails the solve without charging the
-        breaker: a drain is an answer from a live process."""
-        srv = _fixed_server(503, b'{"error": "draining"}')
-        try:
-            pools, its, pods = _port_problem()
-            client = _no_quarantine_client(
-                f"127.0.0.1:{srv.server_address[1]}", timeout=5,
-                max_retries=2, sleep=lambda s: None)
-            with pytest.raises(remote.RemoteSolverError) as exc:
-                remote.RemoteScheduler(client, pools, its).solve(pods)
-            assert exc.value.cause == "drain"
-            assert client.breaker.failures == 0
-            assert client.breaker.state == remote.STATE_CLOSED
-        finally:
-            stop(srv)
+        """tests/test_solverd.py's case on the port: a draining sidecar's
+        solve degrades to greedy without charging the breaker (a drain is
+        an answer from a live process), and the fallback is counted."""
+        fallbacks = m.SOLVER_RPC_FALLBACKS.value({"endpoint": "solve"})
+        _ref.TestDrainContract.test_client_treats_503_as_degrade_not_fault(
+            self)
+        assert m.SOLVER_RPC_FALLBACKS.value(
+            {"endpoint": "solve"}) == fallbacks + 1
 
     def test_drain_endpoint_and_healthz(self):
         daemon = pdaemon()
@@ -915,7 +1015,8 @@ class TestFleetRouter:
     def test_member_kill_respawn_costs_one_reupload_not_greedy(
             self, monkeypatch):
         """A real CPU child dies and respawns: the next solve pays one
-        segment re-upload, no greedy fallback, the breaker closed."""
+        segment re-upload and no full wire; greedy fallbacks and the
+        breaker stay untouched."""
         pools, its = interop.from_reference(
             ([make_nodepool()], {"default": list(build_catalog(
                 cpu_grid=[1, 2, 4], mem_factors=[2]))}))
@@ -943,6 +1044,8 @@ class TestFleetRouter:
             assert member.breaker.state == remote.STATE_CLOSED
             assert after.get((("kind", "segment"),), 0) > before.get(
                 (("kind", "segment"),), 0)
+            assert after.get((("kind", "full"),), 0) == before.get(
+                (("kind", "full"),), 0)
             assert member.segcache.instance() not in ("", inst_before)
         finally:
             sup.stop()
@@ -1022,8 +1125,8 @@ raise SystemExit(service.main())
 
 def test_sticky_cuda_error_in_a_child_respawns_it(tmp_path, monkeypatch):
     """End to end with a real child whose kernel seam faults once: the
-    child exits WATCHDOG_EXIT_CODE, the solve in flight fails (no greedy
-    fallback: the reconcile errs and its pods wait), the supervisor
+    child exits WATCHDOG_EXIT_CODE, the solve in flight degrades to the
+    host greedy Scheduler (its answer, one fallback), the supervisor
     respawns the child, whose quarantine journal charges the crash one
     strike, and the respawned child answers the re-solve."""
     journal = str(tmp_path / "poison.json")
@@ -1042,8 +1145,12 @@ def test_sticky_cuda_error_in_a_child_respawns_it(tmp_path, monkeypatch):
                                      sleep=lambda s: None)
         crash_before = m.SOLVERD_RESTARTS.value({"cause": "crash"})
         fallbacks = m.SOLVER_RPC_FALLBACKS.value({"endpoint": "solve"})
-        with pytest.raises(remote.RemoteSolverError):
-            remote.RemoteScheduler(client, pools, its).solve(pods)
+        res = remote.RemoteScheduler(client, pools, its).solve(pods)
+        assert res.all_pods_scheduled()
+        assert res.node_count() == _host_answer(
+            pools, its, pods).node_count()
+        assert m.SOLVER_RPC_FALLBACKS.value(
+            {"endpoint": "solve"}) == fallbacks + 1
         assert sup.proc.wait(timeout=30) == WATCHDOG_EXIT_CODE
         assert _wait_respawn(sup, client)
         assert m.SOLVERD_RESTARTS.value(
@@ -1060,6 +1167,6 @@ def test_sticky_cuda_error_in_a_child_respawns_it(tmp_path, monkeypatch):
         assert remote.RemoteScheduler(client, pools, its).solve(
             pods).all_pods_scheduled()
         assert m.SOLVER_RPC_FALLBACKS.value(
-            {"endpoint": "solve"}) == fallbacks
+            {"endpoint": "solve"}) == fallbacks + 1
     finally:
         sup.stop()

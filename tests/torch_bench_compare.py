@@ -25,18 +25,14 @@ ADDED_ALL = {"answers", "expected", "correct", "readings", "config_wall_s"}
 # keys the port adds to one config
 ADDED = {
     "shape_churn": {"nodes_by_round"},
-    "cfg7_fleet": {"refused_solves", "shed_refused"},
     "cfg10_batch": {"nodes"},
     "cfg11_gangs": {"nodes"},
     "cfg14_twin": {"rpc_failures"},
-    "cfg16_elastic": {"failed_solves"},
     "cfg18_topoaware": {"phases"},
 }
-# bench.py's keys the port drops: the reference's greedy shed answer (the
-# port's client refuses instead) and cfg17's speed verdicts (the plain
-# scan is the kernel's oracle, not a speed baseline)
+# bench.py's keys the port drops: cfg17's speed verdicts (the plain scan
+# is the kernel's oracle, not a speed baseline)
 REMOVED = {
-    "cfg7_fleet": {"shed_parity_ok"},
     "cfg17_pallas": {"speedup_vs_xla", "primary_p50_target_ok",
                      "topology_halved_ok", "speedup_note"},
 }
