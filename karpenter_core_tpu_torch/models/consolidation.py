@@ -43,6 +43,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from karpenter_core_tpu_torch import tracing
 from karpenter_core_tpu_torch.controllers.provisioning.scheduling.topology import (
     Topology,
     has_topology_constraints,
@@ -293,36 +294,43 @@ def sweep_problem(
 ):
     """The sweep's prepared problem: (scheduler, prep, class steps,
     kind_batch [P, N], count_batch [P, Jp]), or None when the cluster is
-    wider than ``max_slots``."""
+    wider than ``max_slots``. Spans: ``sweep.problem`` over
+    ``sweep.scheduler``, ``prepare`` and ``sweep.batches``."""
     all_pods = list(base_pods)
     for pods in candidate_pods:
         all_pods.extend(pods)
 
-    # candidate slots first so prefix p masks slots [0, p)
-    sched = DeviceScheduler(
-        nodepools,
-        instance_types,
-        existing_nodes=cand_nodes + keep_nodes,
-        daemonset_pods=daemonset_pods,
-        max_slots=max_slots,
-        devices=1,
-        kernel_backend=kernel_backend,
-        device=device,
-    )
-    # DeviceScheduler sorts existing nodes; force candidate-first order back
-    sched.existing_nodes = cand_nodes + keep_nodes
-    try:
-        prep = sched._prepare(all_pods, max_slots, Topology())
-    except _SlotOverflow:
-        return None  # cluster wider than the slot array: binary search
+    with tracing.span("sweep.problem"):
+        with tracing.span("sweep.scheduler"):
+            # candidate slots first so prefix p masks slots [0, p)
+            sched = DeviceScheduler(
+                nodepools,
+                instance_types,
+                existing_nodes=cand_nodes + keep_nodes,
+                daemonset_pods=daemonset_pods,
+                max_slots=max_slots,
+                devices=1,
+                kernel_backend=kernel_backend,
+                device=device,
+            )
+            # DeviceScheduler sorts existing nodes; force candidate-first
+            # order back
+            sched.existing_nodes = cand_nodes + keep_nodes
+        try:
+            with tracing.span("prepare"):
+                prep = sched._prepare(all_pods, max_slots, Topology())
+        except _SlotOverflow:
+            return None  # cluster wider than the slot array: binary search
 
-    kind_batch, count_batch = prefix_batches(prep, base_pods, candidate_pods)
-    classes = sched._class_steps(prep)
-    Jp = int(classes.count.shape[0])
-    if count_batch.shape[1] < Jp:  # steps pad to a bucketed count
-        count_batch = np.pad(
-            count_batch, ((0, 0), (0, Jp - count_batch.shape[1]))
-        )
+        with tracing.span("sweep.batches"):
+            kind_batch, count_batch = prefix_batches(
+                prep, base_pods, candidate_pods)
+            classes = sched._class_steps(prep)
+            Jp = int(classes.count.shape[0])
+            if count_batch.shape[1] < Jp:  # steps pad to a bucketed count
+                count_batch = np.pad(
+                    count_batch, ((0, 0), (0, Jp - count_batch.shape[1]))
+                )
     return sched, prep, classes, kind_batch, count_batch
 
 
@@ -349,7 +357,27 @@ def frontier_core(
     state, class and static planes go to each device once, each device
     scans its contiguous prefixes (one launch a shard, every shard launched
     before any host read), and the verdicts come back in order on the lead
-    device, the pad rows sliced off."""
+    device, the pad rows sliced off.
+
+    The call is one request: the span ``sweep`` over ``sweep.problem``, one
+    ``sweep.scan`` a shard (with the shard's device seconds, ``device_s``,
+    from a CUDA event pair read after the readback) and
+    ``sweep.readback``."""
+    rid = tracing.new_request()
+    try:
+        with tracing.span("sweep", rid):
+            return _frontier(
+                nodepools, instance_types, cand_nodes, keep_nodes,
+                daemonset_pods, base_pods, candidate_pods, max_slots,
+                devices, device, kernel_backend)
+    finally:
+        # the verdicts' readback waited for every shard's scan
+        tracing.settle(rid)
+
+
+def _frontier(nodepools, instance_types, cand_nodes, keep_nodes,
+              daemonset_pods, base_pods, candidate_pods, max_slots, devices,
+              device, kernel_backend):
     n_dev = pmesh.resolve_devices(devices, device)
     problem = sweep_problem(
         nodepools, instance_types, cand_nodes, keep_nodes, daemonset_pods,
@@ -369,14 +397,20 @@ def frontier_core(
     count_batch = pmesh.pad_rows(count_batch, n_dev)
     planes = pmesh.on_each(
         mesh, (prep.init_state, classes, prep.statics, it_price))
-    verdicts = pmesh.gather_rows(mesh, [
-        _prefix_scan(*planes[k][:3], kind_batch[lo:hi], count_batch[lo:hi],
-                     planes[k][3], E, sched.kernel_backend)
-        for k, (lo, hi, _dev) in enumerate(
-            pmesh.row_shards(len(kind_batch), mesh))
-    ])
-    next_free, unplaced, overflow, price_lb = (
-        x.cpu().numpy()[:P] for x in verdicts)
+    parts = []
+    for k, (lo, hi, dev) in enumerate(
+            pmesh.row_shards(len(kind_batch), mesh)):
+        with tracing.span("sweep.scan") as sp:
+            timer = tracing.DeviceTimer.begin(torch.device(dev), sp)
+            parts.append(_prefix_scan(
+                *planes[k][:3], kind_batch[lo:hi], count_batch[lo:hi],
+                planes[k][3], E, sched.kernel_backend))
+            if timer is not None:
+                timer.stop()
+    verdicts = pmesh.gather_rows(mesh, parts)
+    with tracing.span("sweep.readback"):
+        next_free, unplaced, overflow, price_lb = [
+            x.cpu().numpy()[:P] for x in verdicts]
     # an overflowed prefix silently counted spilled pods as placed — it is
     # NOT schedulable evidence
     return [

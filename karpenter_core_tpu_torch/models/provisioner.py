@@ -95,6 +95,7 @@ from karpenter_core_tpu_torch.controllers.provisioning.scheduling.topology impor
     Topology,
     domain_universe,
 )
+from karpenter_core_tpu_torch import tracing
 from karpenter_core_tpu_torch.ops import cuda_ffd
 from karpenter_core_tpu_torch.ops import gangsched
 from karpenter_core_tpu_torch.ops import masks as mops
@@ -375,6 +376,9 @@ class _KernelRequest:
     relax: tuple = None
     relax_iters: int = 0
     relax_gangs: int = 0
+    # the solve's request id (tracing.new_request), named by the dispatch's
+    # span, under which its device timer is filed until the solve settles
+    request: Optional[int] = None
 
     def shape_key(self) -> tuple:
         """Exact shape identity: requests with equal keys stack into one
@@ -409,13 +413,17 @@ class _KernelRequest:
         )
 
 
+def _lead_device(req: _KernelRequest) -> torch.device:
+    """The device the scheduler prepared the request's planes on."""
+    return (req.relax[0] if req.init_state is None
+            else req.init_state.kind).device
+
+
 def _mesh_of(req: _KernelRequest) -> pmesh.SlotMesh:
     """The request's device mesh: ``req.devices`` devices of its kind, led
     by the device the scheduler prepared its planes on (one device: that
     device alone)."""
-    dev = (req.relax[0] if req.init_state is None
-           else req.init_state.kind).device
-    return pmesh.slot_mesh(req.devices, dev)
+    return pmesh.slot_mesh(req.devices, _lead_device(req))
 
 
 def _run_kernel_solo(req: _KernelRequest):
@@ -423,13 +431,23 @@ def _run_kernel_solo(req: _KernelRequest):
     (host enqueue time on the card — the fetch that follows waits for the
     device). On a mesh everything runs whole on the lead device, where the
     scheduler prepared it (JAX's replicated commit before the Pallas
-    call)."""
+    call). The span ``dispatch`` covers it, and a CUDA event pair its
+    device work."""
     t0 = time.perf_counter()
+    with tracing.span("dispatch", req.request) as sp:
+        timer = tracing.DeviceTimer.begin(_lead_device(req), sp)
+        out = _answer_solo(req)
+        if timer is not None:
+            timer.stop()
+    return (*out, time.perf_counter() - t0)
+
+
+def _answer_solo(req: _KernelRequest):
     if req.kind == "relax":
         nt, ks, changed = relax_ops.relax_choose(
             *req.relax, iters=req.relax_iters, num_gangs=req.relax_gangs
         )
-        return nt, ks, int(changed), time.perf_counter() - t0
+        return nt, ks, int(changed)
     if req.kind == "preempt":
         extra, m_left, evicted = gangsched.preempt_pass(
             req.init_state, req.steps, req.statics,
@@ -439,7 +457,7 @@ def _run_kernel_solo(req: _KernelRequest):
         extra_bc, mleft_bc = aggregate_takes(
             extra, m_left, req.step_class, num_classes=req.num_classes
         )
-        return extra_bc, mleft_bc, evicted, time.perf_counter() - t0
+        return extra_bc, mleft_bc, evicted
     if req.gang_of_step is not None:
         gang_solve = (cuda_ffd.cuda_gang_solve if req.backend == "cuda"
                       else gangsched.gang_solve)
@@ -460,7 +478,7 @@ def _run_kernel_solo(req: _KernelRequest):
     takes_bc, unplaced_bc = aggregate_takes(
         takes, unplaced, req.step_class, num_classes=req.num_classes
     )
-    return state, takes_bc, unplaced_bc, time.perf_counter() - t0
+    return state, takes_bc, unplaced_bc
 
 
 def _drive_solo(gen):
@@ -497,10 +515,26 @@ def _run_kernel_batched(reqs: List[_KernelRequest]):
     replicates the problem axis and splits slots; splitting problems needs
     no exchange inside a scan, and gives the same rows); the preemption
     pass and ``relax_choose`` run whole on the lead device. Returns
-    (per-request (state, takes_bc, unplaced_bc, seconds) list, padded B)."""
-    head = reqs[0]
+    (per-request (state, takes_bc, unplaced_bc, seconds) list, padded B).
+    One ``dispatch`` span names every member's request, and one CUDA
+    event pair times the device work, each member taking a 1/B share."""
     B = len(reqs)
     t0 = time.perf_counter()
+    with tracing.span("dispatch", tuple(
+            r.request for r in reqs if r.request is not None)) as sp:
+        timer = tracing.DeviceTimer.begin(_lead_device(reqs[0]), sp, B)
+        rows, Bp = _answer_batched(reqs)
+        if timer is not None:
+            timer.stop()
+    # each member's kernel share is an equal split of the batched dispatch
+    # (every row does the same padded work)
+    share = (time.perf_counter() - t0) / B
+    return [(*row, share) for row in rows], Bp
+
+
+def _answer_batched(reqs: List[_KernelRequest]):
+    head = reqs[0]
+    B = len(reqs)
     Bp = _bucket(B, lo=_BATCH_PAD_LO)
     reqs_p = list(reqs) + [head] * (Bp - B)
     if head.kind == "relax":
@@ -514,9 +548,8 @@ def _run_kernel_batched(reqs: List[_KernelRequest]):
             *stacked, iters=head.relax_iters, num_gangs=head.relax_gangs
         )
         changed_h = changed_b.cpu().tolist()
-        share = (time.perf_counter() - t0) / B
         return [
-            (nt_b[b], ks_b[b], int(changed_h[b]), share) for b in range(B)
+            (nt_b[b], ks_b[b], int(changed_h[b])) for b in range(B)
         ], Bp
     # the stack is a fresh copy, so the kernel updates it in place
     state = _stack_trees([r.init_state for r in reqs_p])
@@ -535,10 +568,8 @@ def _run_kernel_batched(reqs: List[_KernelRequest]):
         extra_bc, mleft_bc = aggregate_takes_batched(
             extra_b, mleft_b, step_class, num_classes=head.num_classes
         )
-        share = (time.perf_counter() - t0) / B
         return [
-            (extra_bc[b], mleft_bc[b], evicted_b[b], share)
-            for b in range(B)
+            (extra_bc[b], mleft_bc[b], evicted_b[b]) for b in range(B)
         ], Bp
     cuda = head.backend == "cuda"
     mesh = _mesh_of(head)
@@ -558,19 +589,10 @@ def _run_kernel_batched(reqs: List[_KernelRequest]):
     takes_bc, unplaced_bc = aggregate_takes_batched(
         takes_b, unplaced_b, step_class, num_classes=head.num_classes
     )
-    # each member's kernel share is an equal split of the batched dispatch
-    # (every row does the same padded work)
-    share = (time.perf_counter() - t0) / B
-    outs = [
-        (
-            SlotState(*(x[b] for x in state_b)),
-            takes_bc[b],
-            unplaced_bc[b],
-            share,
-        )
+    return [
+        (SlotState(*(x[b] for x in state_b)), takes_bc[b], unplaced_bc[b])
         for b in range(B)
-    ]
-    return outs, Bp
+    ], Bp
 
 
 def _shards(mesh, n_rows, trees):
@@ -862,6 +884,8 @@ class DeviceScheduler:
         self._h2d_bytes = 0
         self._h2d_dev_bytes = 0
         self.last_phase_stats: Dict[str, float] = {}
+        # the request id of the solve in progress (tracing.new_request)
+        self._request: Optional[int] = None
         # host-side result verification (solver/verify.py): an independent
         # O(pods) constraint re-check over the final Results — the trust
         # anchor between the device kernels and NodeClaim creation. A
@@ -943,6 +967,20 @@ class DeviceScheduler:
         return _drive_solo(self._solve_gen(pods))
 
     def _solve_gen(self, pods: List[Pod]):
+        """The solve under one request id: the span ``solve`` and every
+        span of its phases and dispatches carry it. Its dispatches' device
+        seconds are read at its end, every one of them waited for by a
+        host read of its results."""
+        self._request = rid = tracing.new_request()
+        try:
+            with tracing.span("solve", rid):
+                return (yield from self._solve_rounds_gen(pods))
+        finally:
+            device_s = tracing.settle(rid)
+            if device_s is not None:
+                self.last_phase_stats["device_s"] = device_s
+
+    def _solve_rounds_gen(self, pods: List[Pod]):
         # refreshed by _sorted_classes each round; False covers the
         # no-template/no-existing early return, where nothing places and
         # the gang backstop has nothing to strip
@@ -980,6 +1018,10 @@ class DeviceScheduler:
         # THIS solve started, so "budget expired" always leaves the
         # already-computed FFD answer as the serve
         self._solve_t0 = time.perf_counter()
+        # plan_s, prepare_s, decode_s and verify_s are the sums of the
+        # solve's spans of those names; kernel_s is the host wall time of
+        # the dispatches and fetches, and device_s (on the card only) the
+        # device's own time of the dispatches, by CUDA events
         self.last_phase_stats = stats = {
             "plan_s": 0.0, "prepare_s": 0.0, "kernel_s": 0.0,
             "decode_s": 0.0, "fetch_bytes": 0, "h2d_bytes": 0,
@@ -995,6 +1037,7 @@ class DeviceScheduler:
             "solver_mode": self.solver_mode,
             # ... and which kernel backend answered its scan dispatches
             "kernel_backend": self.kernel_backend,
+            "request": self._request,
         }
         if self.solver_mode == "relax":
             stats["relax"] = {}
@@ -1092,22 +1135,23 @@ class DeviceScheduler:
         if self.verify:
             from karpenter_core_tpu_torch.solver import verify as verifymod
 
-            t0 = time.perf_counter()
-            if self._verifier is None:
-                self._verifier = verifymod.ResultVerifier(
-                    self.nodepools,
-                    self.instance_types,
-                    existing_nodes=self.existing_nodes,
-                    daemonset_pods=self.daemonset_pods,
-                    topology=self._topology_context,
-                    unavailable_offerings=self.unavailable_offerings,
-                )
-            else:
-                # a cached scheduler (solverd reuse) swaps contexts per
-                # request; everything else the verifier holds is invariant
-                self._verifier.topology = self._topology_context
-            violations = self._verifier.verify(results, all_pods)
-            stats["verify_s"] = time.perf_counter() - t0
+            with tracing.span("verify", self._request, stats=stats,
+                              key="verify_s"):
+                if self._verifier is None:
+                    self._verifier = verifymod.ResultVerifier(
+                        self.nodepools,
+                        self.instance_types,
+                        existing_nodes=self.existing_nodes,
+                        daemonset_pods=self.daemonset_pods,
+                        topology=self._topology_context,
+                        unavailable_offerings=self.unavailable_offerings,
+                    )
+                else:
+                    # a cached scheduler (solverd reuse) swaps contexts per
+                    # request; everything else the verifier holds is
+                    # invariant
+                    self._verifier.topology = self._topology_context
+                violations = self._verifier.verify(results, all_pods)
             if violations:
                 verifymod.reject(violations, "inproc", self.recorder)
                 return self._verified_fallback(all_pods)
@@ -1151,46 +1195,49 @@ class DeviceScheduler:
             return [], [], [(p, "no nodepool matched pod") for p in pods], {}
 
         stats = self.last_phase_stats
+        rid = self._request
         self._h2d_bytes = 0
         self._h2d_dev_bytes = 0
-        t0 = time.perf_counter()
-        # one Topology per solve round; every pod's groups are (re)built so
-        # relaxed specs take effect (topology.go NewTopology:60-86)
-        ctx = self._topology_context
-        topo = Topology(
-            domains={
-                k: set(v)
-                for k, v in (
-                    ctx.domains if ctx is not None else self.domains_universe
-                ).items()
-            },
-            existing_pods=ctx.existing_pods if ctx is not None else None,
-            excluded_pod_uids=ctx.excluded_pods if ctx is not None else (),
-        )
-        topo.ensure_inverse_initialized()
-        for p in pods:
-            # constraint-free pods build no groups; skipping the call is the
-            # 50k-path win (update() itself is a no-op for them)
-            if p.topology_spread_constraints or p.affinity is not None:
-                topo.update(p)
+        with tracing.span("plan", rid, stats=stats, key="plan_s"):
+            # one Topology per solve round; every pod's groups are
+            # (re)built so relaxed specs take effect (topology.go
+            # NewTopology:60-86)
+            ctx = self._topology_context
+            topo = Topology(
+                domains={
+                    k: set(v)
+                    for k, v in (
+                        ctx.domains if ctx is not None
+                        else self.domains_universe
+                    ).items()
+                },
+                existing_pods=ctx.existing_pods if ctx is not None else None,
+                excluded_pod_uids=(ctx.excluded_pods if ctx is not None
+                                   else ()),
+            )
+            topo.ensure_inverse_initialized()
+            for p in pods:
+                # constraint-free pods build no groups; skipping the call
+                # is the 50k-path win (update() itself is a no-op for them)
+                if p.topology_spread_constraints or p.affinity is not None:
+                    topo.update(p)
 
-        # the topology planner decides which constraint shapes run in-kernel
-        # (device count state) and which fall back to the host algebra
-        classes = self._sorted_classes(pods, topo)
-        plan = topoplan.plan_topology(classes, topo)
-        self._composition_cache: Dict[tuple, tuple] = {}
-        stats["plan_s"] += time.perf_counter() - t0
+            # the topology planner decides which constraint shapes run
+            # in-kernel (device count state) and which fall back to the
+            # host algebra
+            classes = self._sorted_classes(pods, topo)
+            plan = topoplan.plan_topology(classes, topo)
+            self._composition_cache: Dict[tuple, tuple] = {}
 
         from karpenter_core_tpu_torch.metrics import wiring as m
 
-        t0 = time.perf_counter()
         try:
-            with m.SOLVER_PREPARE_DURATION.time():
+            with tracing.span("prepare", rid, stats=stats, key="prepare_s",
+                              histogram=m.SOLVER_PREPARE_DURATION):
                 prep = self._prepare_with_vocab(plan, max_slots, topo)
                 steps = self._class_steps(prep)
         except _SlotOverflow:
             return None
-        stats["prepare_s"] += time.perf_counter() - t0
         stats["h2d_bytes"] += self._h2d_bytes
         stats["h2d_dev_bytes"] += self._h2d_dev_bytes
 
@@ -1230,6 +1277,7 @@ class DeviceScheduler:
                 prep.step_gang if prep.gang_min is not None else None
             ),
             gang_min=prep.gang_min,
+            request=rid,
         )
         prep.init_state = None
         t0 = time.perf_counter()
@@ -1238,7 +1286,8 @@ class DeviceScheduler:
         # to learn how many slots the solve touched — every remaining plane
         # is sliced to that bucketed window before the bulk fetch, so the
         # device->host transfer scales with nodes PACKED, not max_slots
-        head = self._head(state)
+        with tracing.span("fetch", rid):
+            head = self._head(state)
         if bool(head["overflow"]):
             kdt = kernel_share_s + (time.perf_counter() - t0)
             m.SOLVER_KERNEL_DURATION.observe(kdt)
@@ -1271,7 +1320,8 @@ class DeviceScheduler:
                 # the adopted packing may differ from the baseline whose
                 # head was fetched above: the fetch window (and the slot
                 # hint) follow the WINNER's state
-                head = self._head(state)
+                with tracing.span("fetch", rid):
+                    head = self._head(state)
 
         evictions: Dict[str, List[str]] = {}
         # -- preemption pass ------------------------------------------------
@@ -1310,6 +1360,7 @@ class DeviceScheduler:
                     unplaced=u_step,
                     ev=prep.ev,
                     backend=self.kernel_backend,
+                    request=rid,
                 )
                 kernel_share_s += pdt
                 takes_bc = takes_bc + extra_bc
@@ -1358,7 +1409,8 @@ class DeviceScheduler:
             # only the topology-free decode reads class_it host-side
             # (_decode_composition); it rides the single post-scan fetch
             fetch["class_it"] = prep.class_it
-        out = {k: v.cpu().numpy() for k, v in fetch.items()}
+        with tracing.span("fetch", rid):
+            out = {k: v.cpu().numpy() for k, v in fetch.items()}
         kdt = kernel_share_s + (time.perf_counter() - t0)
         m.SOLVER_KERNEL_DURATION.observe(kdt)
         stats["kernel_s"] += kdt
@@ -1384,28 +1436,32 @@ class DeviceScheduler:
             out["zcount"] = np.asarray(out["zcount"])[: sh["Gz"], : sh["V"]]
         else:
             prep.class_it = np.asarray(out["class_it"])[:, : sh["T"]]
-        t0 = time.perf_counter()
-        with m.SOLVER_DECODE_DURATION.time():
+        with tracing.span("decode", rid, stats=stats, key="decode_s",
+                          histogram=m.SOLVER_DECODE_DURATION):
             claims, existing_sims, failed = self._decode(prep, out)
-        stats["decode_s"] += time.perf_counter() - t0
 
-        # ineligible topology classes: host loop over the post-device cluster
-        t0 = time.perf_counter()
-        fallback_pods = [p for cls in plan.fallback_classes for p in cls.pods]
-        if fallback_pods:
-            m.SOLVER_HOST_FALLBACK_PODS.inc(
-                {"cause": "ineligible"}, by=len(fallback_pods)
-            )
-        fallback_requests = {
-            p.uid: resutil.requests_for_pods(p) for p in fallback_pods
-        }
-        for p in by_cpu_and_memory_descending(fallback_pods, fallback_requests):
-            err = self._host_fallback_add(
-                p, claims, existing_sims, topo, fallback_requests[p.uid]
-            )
-            if err is not None:
-                failed.append((p, err))
-        stats["decode_s"] += time.perf_counter() - t0
+            # ineligible topology classes: host loop over the post-device
+            # cluster
+            with tracing.span("decode.replay", rid):
+                fallback_pods = [
+                    p for cls in plan.fallback_classes for p in cls.pods
+                ]
+                if fallback_pods:
+                    m.SOLVER_HOST_FALLBACK_PODS.inc(
+                        {"cause": "ineligible"}, by=len(fallback_pods)
+                    )
+                fallback_requests = {
+                    p.uid: resutil.requests_for_pods(p) for p in fallback_pods
+                }
+                for p in by_cpu_and_memory_descending(
+                    fallback_pods, fallback_requests
+                ):
+                    err = self._host_fallback_add(
+                        p, claims, existing_sims, topo,
+                        fallback_requests[p.uid]
+                    )
+                    if err is not None:
+                        failed.append((p, err))
         return claims, existing_sims, failed, evictions
 
     # ------------------------------------------------------------------
@@ -1520,7 +1576,7 @@ class DeviceScheduler:
             n_slots=prep.n_slots, kind="relax", mode="relax",
             relax=relax_tuple,
             relax_iters=self.relax_iters, relax_gangs=planes["n_gangs"],
-            backend=self.kernel_backend,
+            backend=self.kernel_backend, request=self._request,
         )
         extra += dt
         rstats["template_moves"] = int(changed)
@@ -1549,6 +1605,7 @@ class DeviceScheduler:
             gang_min=prep.gang_min,
             mode="relax",
             backend=self.kernel_backend,
+            request=self._request,
         )
         extra += dt2
         t0 = time.perf_counter()
@@ -1668,6 +1725,8 @@ class DeviceScheduler:
         # direct prepares are not relaxation rounds: don't union a previous
         # solve()'s vocab into this closed world
         self._round_frozen = None
+        # nor part of a solve: the spans below take the caller's request
+        self._request = None
         plan = topoplan.plan_topology(self._sorted_classes(pods, topo), topo)
         return self._prepare_with_vocab(plan, max_slots, topo)
 
@@ -2512,12 +2571,16 @@ class DeviceScheduler:
         if E > N:
             raise _SlotOverflow()
 
-        frozen = self._build_vocab(classes, plan)
+        rid = self._request
+        with tracing.span("prepare.vocab", rid):
+            frozen = self._build_vocab(classes, plan)
         self._round_frozen = frozen
         topoplan.finalize_arrays(plan, frozen, topo)
         resource_names = self._resource_axis(classes)
-        entry, fpid = self._fp_entry(frozen, resource_names)
-        batch = self._class_batch(fpid, frozen, entry, plan, classes, N)
+        with tracing.span("prepare.nodes", rid):
+            entry, fpid = self._fp_entry(frozen, resource_names)
+        with tracing.span("prepare.classes", rid):
+            batch = self._class_batch(fpid, frozen, entry, plan, classes, N)
 
         K, V = frozen.K, frozen.V
         Ghp = _bucket(plan.Gh, lo=1)
@@ -2529,10 +2592,11 @@ class DeviceScheduler:
 
         # per-round existing-node sims (they register with this round's
         # topology); their encoded rows come from the fp entry
-        existing_sims = [
-            ExistingNodeSim(node, topo, self._node_daemon_overhead(node))
-            for node in self.existing_nodes
-        ]
+        with tracing.span("prepare.nodes", rid):
+            existing_sims = [
+                ExistingNodeSim(node, topo, self._node_daemon_overhead(node))
+                for node in self.existing_nodes
+            ]
 
         # topology count state: hostname-group counts seeded per existing
         # slot; positive counts on non-slot hostnames only matter for the
@@ -2580,7 +2644,9 @@ class DeviceScheduler:
             z_rank=self._dev(_pad(plan.z_rank, {0: Gzp, 1: Vp}, RANK_NONE)),
         )
 
-        init_state = self._make_init_state(entry, plan, N, hcount0, Ghp, Gzp)
+        with tracing.span("prepare.state", rid):
+            init_state = self._make_init_state(
+                entry, plan, N, hcount0, Ghp, Gzp)
 
         # level-search iterations: the water level is bounded by seeded
         # topology counts + pods in this solve
@@ -3024,55 +3090,60 @@ class DeviceScheduler:
         # pods (decode sees topology-free pods, but inverse anti-affinity
         # groups from the cluster can still select them by label)
         can_group = not topo.topologies and not topo.inverse_topologies
+        rid = self._request
 
-        for n in sorted(assigned):
-            groups = sorted(assigned[n].items())
-            if n < E:
-                target = prep.existing_sims[n]
-            else:
-                si = int(slot_template[n])
-                template = prep.templates[si]
-                if can_group and self._decode_fresh_vectorized(
-                    prep, si, template, groups, pod_cursor, topo,
-                    claims, divergent,
-                ):
-                    continue
-                target = InFlightNodeClaim(
-                    template,
-                    topo,
-                    self.daemon_overhead[si],
-                    template.instance_type_options,
-                )
-                claims.append(target)
-            for ci, k in groups:
-                cls = prep.classes[ci]
-                start = pod_cursor[ci]
-                pods = cls.pods[start : start + k]
-                pod_cursor[ci] = start + k
-                if not pods:
-                    continue
-                req = resutil.requests_for_pods(pods[0])
-                if can_group and not pods[0].host_ports:
-                    try:
-                        target.add_group(pods, req)
+        with tracing.span("decode.commit", rid) as sp:
+            for n in sorted(assigned):
+                groups = sorted(assigned[n].items())
+                if n < E:
+                    target = prep.existing_sims[n]
+                else:
+                    si = int(slot_template[n])
+                    template = prep.templates[si]
+                    if can_group and self._decode_fresh_vectorized(
+                        prep, si, template, groups, pod_cursor, topo,
+                        claims, divergent,
+                    ):
                         continue
-                    except IncompatibleError:
-                        pass  # re-place pod-by-pod below
-                for p in pods:
-                    try:
-                        target.add(p, req)
-                    except IncompatibleError:
-                        divergent.append(p)
-        if divergent:
-            from karpenter_core_tpu_torch.metrics import wiring as m
+                    target = InFlightNodeClaim(
+                        template,
+                        topo,
+                        self.daemon_overhead[si],
+                        template.instance_type_options,
+                    )
+                    claims.append(target)
+                for ci, k in groups:
+                    cls = prep.classes[ci]
+                    start = pod_cursor[ci]
+                    pods = cls.pods[start : start + k]
+                    pod_cursor[ci] = start + k
+                    if not pods:
+                        continue
+                    req = resutil.requests_for_pods(pods[0])
+                    if can_group and not pods[0].host_ports:
+                        try:
+                            target.add_group(pods, req)
+                            continue
+                        except IncompatibleError:
+                            pass  # re-place pod-by-pod below
+                    for p in pods:
+                        try:
+                            target.add(p, req)
+                        except IncompatibleError:
+                            divergent.append(p)
+            sp.count("fresh_slots", len(claims))
+        with tracing.span("decode.replay", rid):
+            if divergent:
+                from karpenter_core_tpu_torch.metrics import wiring as m
 
-            m.SOLVER_HOST_FALLBACK_PODS.inc(
-                {"cause": "divergent"}, by=len(divergent)
-            )
-        for p in divergent:
-            err = self._host_fallback_add(p, claims, prep.existing_sims, topo)
-            if err is not None:
-                failed.append((p, err))
+                m.SOLVER_HOST_FALLBACK_PODS.inc(
+                    {"cause": "divergent"}, by=len(divergent)
+                )
+            for p in divergent:
+                err = self._host_fallback_add(
+                    p, claims, prep.existing_sims, topo)
+                if err is not None:
+                    failed.append((p, err))
         # drop empty claims (all groups failed), releasing their placeholder
         # hostnames from the shared per-round topology (see below)
         kept = []
@@ -3082,7 +3153,8 @@ class DeviceScheduler:
             else:
                 c.destroy()
         if can_group:
-            kept = self._repack_sparse_claims(kept)
+            with tracing.span("decode.repack", rid):
+                kept = self._repack_sparse_claims(kept)
         return kept, prep.existing_sims, failed
 
     def _repack_sparse_claims(
@@ -3179,9 +3251,19 @@ class DeviceScheduler:
             )
             deferred.extend(pods)
 
-        for n in sorted(assigned):
-            groups = sorted(assigned[n].items())
-            if n < E:
+        rid = self._request
+        with tracing.span("decode.commit", rid) as sp:
+            tested = 0
+            for n in sorted(assigned):
+                groups = sorted(assigned[n].items())
+                if n >= E:
+                    tested += self._commit_fresh_topo(
+                        prep, n, int(slot_template[n]), groups, pod_cursor,
+                        claims, committed, slot_hostnames, defer,
+                        valmask, defines, complement, gt, lt, itmask,
+                        slot_claims,
+                    )
+                    continue
                 target = prep.existing_sims[n]
                 slot_hostnames[n] = target.name
                 for ci, k in groups:
@@ -3195,19 +3277,14 @@ class DeviceScheduler:
                         defer(n, ci, pods)
                         continue
                     try:
-                        target.add_group(pods, resutil.requests_for_pods(pods[0]))
-                        committed.append(
-                            (n, ci, len(pods), target.requirements, target.name)
-                        )
+                        target.add_group(
+                            pods, resutil.requests_for_pods(pods[0]))
+                        committed.append((n, ci, len(pods),
+                                          target.requirements, target.name))
                     except IncompatibleError:
                         defer(n, ci, pods)
-            else:
-                self._commit_fresh_topo(
-                    prep, n, int(slot_template[n]), groups, pod_cursor,
-                    claims, committed, slot_hostnames, defer,
-                    valmask, defines, complement, gt, lt, itmask,
-                    slot_claims,
-                )
+            sp.count("fresh_slots", len(slot_claims))
+            sp.count("types_tested", tested)
 
         # Voluntary densification deferral (the topology twin of
         # _repack_sparse_claims): the class-batched kernel strands sparse
@@ -3217,58 +3294,62 @@ class DeviceScheduler:
         # into the other claims' residual capacity via the host algebra,
         # re-opening an equivalent node only when nothing admits them, so
         # the pass can only densify.
-        if len(slot_claims) >= 2:
-            sizes = sorted(len(c.pods) for c in slot_claims.values())
-            median = sizes[len(sizes) // 2]
-            eligible = sorted(
-                (
-                    (n, c)
-                    for n, c in slot_claims.items()
-                    if len(c.pods) <= int(median * DENSIFY_THRESHOLD)
-                ),
-                key=lambda nc: len(nc[1].pods),
-            )[: int(len(slot_claims) * DENSIFY_CAP)]
-            victims = []
-            pod_budget = DENSIFY_POD_BUDGET
-            for n, c in eligible:
-                if len(c.pods) > pod_budget:
-                    break
-                pod_budget -= len(c.pods)
-                victims.append((n, c))
-            if victims:
+        with tracing.span("decode.densify", rid):
+            if len(slot_claims) >= 2:
+                sizes = sorted(len(c.pods) for c in slot_claims.values())
+                median = sizes[len(sizes) // 2]
+                eligible = sorted(
+                    (
+                        (n, c)
+                        for n, c in slot_claims.items()
+                        if len(c.pods) <= int(median * DENSIFY_THRESHOLD)
+                    ),
+                    key=lambda nc: len(nc[1].pods),
+                )[: int(len(slot_claims) * DENSIFY_CAP)]
+                victims = []
+                pod_budget = DENSIFY_POD_BUDGET
+                for n, c in eligible:
+                    if len(c.pods) > pod_budget:
+                        break
+                    pod_budget -= len(c.pods)
+                    victims.append((n, c))
+                if victims:
+                    from karpenter_core_tpu_torch.metrics import wiring as m
+
+                    densified = sum(len(c.pods) for _, c in victims)
+                    m.SOLVER_HOST_FALLBACK_PODS.inc(
+                        {"cause": "densify"}, by=densified
+                    )
+                for n, claim in victims:
+                    for entry in [e for e in committed if e[0] == n]:
+                        _n, ci, k, _reqs, _hn = entry
+                        self._topo_subtract(
+                            plan, valmask, defines, complement, n, ci, k,
+                            hcount, zcount,
+                        )
+                        committed.remove(entry)
+                    deferred.extend(claim.pods)
+                    claim.pods = []
+                    claim.destroy()
+                    claims.remove(claim)
+                    slot_hostnames.pop(n, None)
+
+        with tracing.span("decode.sync", rid):
+            self._sync_topo_counts(prep, hcount, zcount, slot_hostnames)
+            self._recount_host_only(prep, committed)
+
+        with tracing.span("decode.replay", rid):
+            if len(deferred) > densified:
                 from karpenter_core_tpu_torch.metrics import wiring as m
 
-                densified = sum(len(c.pods) for _, c in victims)
                 m.SOLVER_HOST_FALLBACK_PODS.inc(
-                    {"cause": "densify"}, by=densified
+                    {"cause": "deferred"}, by=len(deferred) - densified
                 )
-            for n, claim in victims:
-                for entry in [e for e in committed if e[0] == n]:
-                    _n, ci, k, _reqs, _hn = entry
-                    self._topo_subtract(
-                        plan, valmask, defines, complement, n, ci, k,
-                        hcount, zcount,
-                    )
-                    committed.remove(entry)
-                deferred.extend(claim.pods)
-                claim.pods = []
-                claim.destroy()
-                claims.remove(claim)
-                slot_hostnames.pop(n, None)
-
-        self._sync_topo_counts(prep, hcount, zcount, slot_hostnames)
-        self._recount_host_only(prep, committed)
-
-        if len(deferred) > densified:
-            from karpenter_core_tpu_torch.metrics import wiring as m
-
-            m.SOLVER_HOST_FALLBACK_PODS.inc(
-                {"cause": "deferred"}, by=len(deferred) - densified
-            )
-        for p in deferred:
-            err = self._host_fallback_add(p, claims, prep.existing_sims, topo)
-            if err is not None:
-                failed.append((p, err))
+            for p in deferred:
+                err = self._host_fallback_add(
+                    p, claims, prep.existing_sims, topo)
+                if err is not None:
+                    failed.append((p, err))
 
         kept = []
         for c in claims:
@@ -3300,7 +3381,8 @@ class DeviceScheduler:
         """Materialize one fresh topology slot from the final device planes:
         float64-refit the take against the slot's final viable instance
         types, rebuild the joined requirements with decode_requirements, and
-        commit in bulk. minValues / hostPort shapes go per-pod instead."""
+        commit in bulk. minValues / hostPort shapes go per-pod instead.
+        Returns the number of instance types the refit tested."""
         template = prep.templates[si]
         T = len(prep.catalog)
         entries: List[Tuple[int, List[Pod]]] = []
@@ -3312,7 +3394,7 @@ class DeviceScheduler:
             if pods:
                 entries.append((ci, pods))
         if not entries:
-            return
+            return 0
         plane_ok = not template.requirements.has_min_values() and all(
             not pods[0].host_ports
             and not prep.classes[ci].requirements.has_min_values()
@@ -3329,15 +3411,14 @@ class DeviceScheduler:
             requests = resutil.merge_repeated(
                 requests, resutil.requests_for_pods(pods[0]), len(pods)
             )
+        viable = np.nonzero(itmask[n, :T])[0]
         opt_idx = [
-            int(t)
-            for t in np.nonzero(itmask[n, :T])[0]
-            if np.all(req_vec <= prep.it_alloc64q[t])
+            int(t) for t in viable if np.all(req_vec <= prep.it_alloc64q[t])
         ]
         if not plane_ok or not opt_idx:
             for ci, pods in entries:
                 defer(n, ci, pods)
-            return
+            return len(viable)
         claim = InFlightNodeClaim(
             template,
             prep.topo,
@@ -3359,6 +3440,7 @@ class DeviceScheduler:
             slot_claims[n] = claim
         for ci, pods in entries:
             committed.append((n, ci, len(pods), reqs, claim.hostname))
+        return len(viable)
 
     @staticmethod
     def _topo_subtract(

@@ -1,0 +1,264 @@
+"""The port's spans (``karpenter_core_tpu_torch/tracing.py``) on the CPU.
+
+* A topology solve and a topology-free solve each give ``solve`` over
+  ``plan``, ``prepare``, ``dispatch``, ``fetch``, ``decode`` and
+  ``verify``, all under the solve's request id (``last_phase_stats
+  ["request"]``); two solves get two ids; each child lies within its
+  parent; ``plan_s``, ``prepare_s``, ``decode_s`` and ``verify_s`` are
+  their spans' durations summed, and ``SOLVER_PREPARE_DURATION`` and
+  ``SOLVER_DECODE_DURATION`` take one observation a round, the span's
+  duration.
+* ``solve_batch``: the batched dispatch's span names every member's id,
+  and each member's spans nest under its own ``solve`` though the
+  members' generators interleave on one thread.
+* ``frontier_core``: ``sweep`` over ``sweep.problem`` over ``prepare``
+  over ``prepare.nodes``, under one id.
+* The log keeps its newest ``CAPACITY`` records; ``karpenter.*`` ranges
+  reach a ``torch.profiler`` trace and no range is entered without one.
+* ``device_s`` is absent on CPU tensors; with a stand-in timer a solve's
+  ``device_s`` is its dispatches' device seconds, a batched dispatch's
+  split over its members, read once the solve or sweep ends, and no
+  timer is left filed under a finished request.
+"""
+import itertools
+import time
+
+import pytest
+import torch
+
+import bench_torch
+import chip_smoke
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+from karpenter_core_tpu_torch import tracing
+from karpenter_core_tpu_torch.cloudprovider.kwok import bench_catalog
+from karpenter_core_tpu_torch.metrics import wiring as m
+from karpenter_core_tpu_torch.models import consolidation as cons
+from karpenter_core_tpu_torch.models import provisioner as prov
+
+PHASES = ("plan", "prepare", "dispatch", "fetch", "decode", "verify")
+STATS = {"plan": "plan_s", "prepare": "prepare_s", "decode": "decode_s",
+         "verify": "verify_s"}
+PROBLEMS = {
+    "topology": lambda: bench_torch._topology_pods(60),
+    "plain": lambda: bench_torch._plain_pods(48),
+}
+
+
+def _scheduler():
+    return prov.DeviceScheduler(
+        [bench_torch._pool()], {"default": list(bench_catalog(24))},
+        max_slots=64, device="cpu", kernel_backend="reference")
+
+
+def _spans_of(rid):
+    return [s for s in tracing.LOG if rid in s.requests]
+
+
+def _within(child, parent):
+    return parent.start <= child.start and child.end <= parent.end
+
+
+@pytest.fixture
+def observed(monkeypatch):
+    """The values each phase histogram observes."""
+    seen = {"prepare": [], "decode": []}
+    for name, hist in (("prepare", m.SOLVER_PREPARE_DURATION),
+                       ("decode", m.SOLVER_DECODE_DURATION)):
+        monkeypatch.setattr(hist, "observe",
+                            lambda v, labels=None, _n=name: seen[_n].append(v))
+    return seen
+
+
+@pytest.mark.parametrize("problem", sorted(PROBLEMS))
+def test_solve_spans_share_one_request(problem, observed):
+    sched = _scheduler()
+    sched.solve(PROBLEMS[problem]())
+    stats = sched.last_phase_stats
+    rid = stats["request"]
+    spans = _spans_of(rid)
+    (root,) = [s for s in spans if s.name == "solve"]
+    assert root.parent is None and root.requests == (rid,)
+    names = {s.name for s in spans if s.parent is root}
+    assert set(PHASES) <= names
+    for s in spans:
+        assert s.requests == (rid,)
+        if s is not root:
+            assert s.parent is not None and _within(s, s.parent), s.name
+    for name, key in STATS.items():
+        assert stats[key] == sum(s.dt for s in spans if s.name == name)
+    assert stats["rounds"] == 1
+    for name in ("prepare", "decode"):
+        assert observed[name] == [s.dt for s in spans if s.name == name]
+    # the children of prepare and decode
+    kids = {s.name for s in spans if s.parent is not None
+            and s.parent.name in ("prepare", "decode")}
+    assert {"prepare.vocab", "prepare.nodes", "prepare.classes",
+            "prepare.state", "decode.commit", "decode.replay"} <= kids
+    assert ({"decode.densify", "decode.sync"} <= kids) == (
+        problem == "topology")
+    assert ("decode.repack" in kids) == (problem == "plain")
+    (commit,) = [s for s in spans if s.name == "decode.commit"]
+    assert commit.counts["fresh_slots"] > 0
+    assert ("types_tested" in commit.counts) == (problem == "topology")
+
+
+def test_two_solves_get_two_ids():
+    sched = _scheduler()
+    pods = bench_torch._plain_pods(16)
+    sched.solve(pods)
+    first = sched.last_phase_stats["request"]
+    sched.solve(pods)
+    second = sched.last_phase_stats["request"]
+    assert first != second
+    assert {s.name for s in _spans_of(first)} == {
+        s.name for s in _spans_of(second)}
+
+
+def test_batched_dispatch_names_every_member():
+    a, b, c = _scheduler(), _scheduler(), _scheduler()
+    pods = bench_torch._plain_pods(32)
+    outcomes, stats = prov.solve_batch([(a, pods), (b, pods), (c, pods)])
+    assert stats["batched_dispatches"] == 1
+    assert all(status == "ok" for status, _ in outcomes)
+    rids = [s.last_phase_stats["request"] for s in (a, b, c)]
+    assert len(set(rids)) == 3
+    (batched,) = [s for s in tracing.LOG if s.name == "dispatch"
+                  and set(rids) <= set(s.requests)]
+    assert batched.requests == tuple(rids) and batched.parent is None
+    for rid in rids:
+        spans = _spans_of(rid)
+        (root,) = [s for s in spans if s.name == "solve"]
+        for s in spans:
+            if s is not root and s is not batched:
+                assert s.requests == (rid,)
+                assert s.parent is not None and _within(s, s.parent)
+                top = s
+                while top.parent is not None:
+                    top = top.parent
+                assert top is root, s.name
+
+
+def test_frontier_spans():
+    inputs = chip_smoke.sweep_inputs(n_nodes=8, n_cand=6, n_types=16)
+    t0 = time.perf_counter()
+    got = cons.frontier_core(max_slots=64, device="cpu",
+                             kernel_backend="reference", **inputs)
+    assert len(got) == 6
+    spans = [s for s in tracing.LOG if s.start >= t0]
+    (root,) = [s for s in spans if s.name == "sweep"]
+    rid = root.request
+    assert rid is not None and root.parent is None
+    assert all(s.requests == (rid,) for s in spans)
+    by = {s.name: s for s in spans}
+    problem = by["sweep.problem"]
+    assert problem.parent is root
+    assert {s.name for s in spans if s.parent is problem} == {
+        "sweep.scheduler", "prepare", "sweep.batches"}
+    nodes = [s for s in spans if s.name == "prepare.nodes"]
+    assert nodes and all(s.parent is by["prepare"] for s in nodes)
+    assert by["prepare"].parent is problem
+    assert by["sweep.scan"].parent is root
+    assert by["sweep.readback"].parent is root
+    for s in spans:
+        if s is not root:
+            assert _within(s, s.parent), s.name
+    # on CPU tensors no scan carries device time
+    assert all(not (s.counts or {}).get("device_s") for s in spans)
+
+
+def test_log_keeps_the_newest_records():
+    assert tracing.CAPACITY >= 65536
+    assert tracing.LOG.maxlen == tracing.CAPACITY
+    rid = tracing.new_request()
+    for _ in range(tracing.CAPACITY + 10):
+        with tracing.span("fill", rid):
+            pass
+    assert len(tracing.LOG) == tracing.CAPACITY
+    assert all(s.name == "fill" for s in tracing.LOG)
+
+
+def test_profiler_ranges_only_under_a_profiler(monkeypatch):
+    sched = _scheduler()
+    pods = bench_torch._topology_pods(30)
+    entered = []
+    real = torch.profiler.record_function
+
+    def counting(name, *args):
+        entered.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    sched.solve(pods)
+    assert entered == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        sched.solve(pods)
+    names = {e.name for e in prof.events()}
+    for name in ("solve",) + PHASES + ("decode.commit", "prepare.nodes"):
+        assert tracing.PREFIX + name in names, name
+    assert set(entered) <= {tracing.PREFIX + s.name for s in tracing.LOG}
+    entered.clear()
+    sched.solve(pods)
+    assert entered == []
+
+
+def test_no_device_time_on_cpu():
+    sched = _scheduler()
+    sched.solve(bench_torch._plain_pods(16))
+    rid = sched.last_phase_stats["request"]
+    assert "device_s" not in sched.last_phase_stats
+    assert all(not s.counts or "device_s" not in s.counts
+               for s in _spans_of(rid))
+
+
+class _FakeTimer(tracing.DeviceTimer):
+    """A DeviceTimer on any device, with fixed device seconds."""
+
+    values = itertools.count(1)
+
+    @classmethod
+    def begin(cls, device, span, members=1):
+        timer = cls(device, span, members)
+        timer.value = 0.001 * next(cls.values)
+        return timer
+
+    def _event(self):
+        return None
+
+    def seconds(self):
+        self.span.counts = dict(self.span.counts or {}, device_s=self.value)
+        return self.value
+
+
+def test_device_time_is_summed_per_solve(monkeypatch):
+    monkeypatch.setattr(tracing, "DeviceTimer", _FakeTimer)
+    sched = _scheduler()
+    sched.solve(bench_torch._plain_pods(32))
+    stats = sched.last_phase_stats
+    dispatches = [s for s in _spans_of(stats["request"])
+                  if s.name == "dispatch"]
+    assert len(dispatches) == stats["rounds"] == 1
+    assert stats["device_s"] == dispatches[0].counts["device_s"] > 0
+
+    a, b = _scheduler(), _scheduler()
+    pods = bench_torch._plain_pods(32)
+    prov.solve_batch([(a, pods), (b, pods)])
+    (batched,) = [s for s in tracing.LOG if s.name == "dispatch"
+                  and len(s.requests) == 2]
+    for sched in (a, b):
+        assert sched.last_phase_stats["device_s"] == pytest.approx(
+            batched.counts["device_s"] / 2, rel=1e-12)
+    assert not tracing._pending
+
+
+def test_sweep_scan_device_time(monkeypatch):
+    monkeypatch.setattr(tracing, "DeviceTimer", _FakeTimer)
+    inputs = chip_smoke.sweep_inputs(n_nodes=8, n_cand=6, n_types=16)
+    t0 = time.perf_counter()
+    cons.frontier_core(max_slots=64, device="cpu",
+                       kernel_backend="reference", **inputs)
+    (scan,) = [s for s in tracing.LOG
+               if s.start >= t0 and s.name == "sweep.scan"]
+    assert scan.counts["device_s"] > 0
+    assert not tracing._pending
