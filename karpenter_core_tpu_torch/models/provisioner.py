@@ -229,6 +229,25 @@ def _pad(a: np.ndarray, targets: dict, fill) -> np.ndarray:
     return np.pad(a, widths, constant_values=fill)
 
 
+def _refit_slot(
+    overhead64q: np.ndarray,
+    class_requests64q: np.ndarray,
+    takes: List[Tuple[int, int]],
+    it_alloc64q: np.ndarray,
+    viable: np.ndarray,
+) -> Tuple[np.ndarray, List[int]]:
+    """One slot's quantized refit: its request vector (the template's
+    overhead plus k of each class's request, for each (class, k) in takes)
+    and the viable types whose allocatable holds it, in ascending order.
+    The quantized vectors are integer-valued float64 far below 2**53, so
+    k * request is exactly the k-fold repeated sum."""
+    req_vec = overhead64q.copy()
+    for ci, k in takes:
+        req_vec += k * class_requests64q[ci]
+    fits = (req_vec[None, :] <= it_alloc64q[viable]).all(axis=1)
+    return req_vec, viable[fits].tolist()
+
+
 class _SlotOverflow(Exception):
     """More slots needed than max_slots — caller doubles and retries."""
 
@@ -3400,21 +3419,20 @@ class DeviceScheduler:
             and not prep.classes[ci].requirements.has_min_values()
             for ci, pods in entries
         )
-        # quantized-integer refit (exact under repeated addition): the same
+        # quantized-integer refit (exact integer arithmetic): the same
         # arithmetic regime as the device kernel, so a slot the kernel packed
         # exactly full is not deferred over a 1e-13 raw-float drift
-        req_vec = prep.tmpl_overhead64q[si].copy()
         requests = dict(self.daemon_overhead[si])
         for ci, pods in entries:
-            for _ in range(len(pods)):
-                req_vec += prep.class_requests64q[ci]
             requests = resutil.merge_repeated(
                 requests, resutil.requests_for_pods(pods[0]), len(pods)
             )
         viable = np.nonzero(itmask[n, :T])[0]
-        opt_idx = [
-            int(t) for t in viable if np.all(req_vec <= prep.it_alloc64q[t])
-        ]
+        _, opt_idx = _refit_slot(
+            prep.tmpl_overhead64q[si], prep.class_requests64q,
+            [(ci, len(pods)) for ci, pods in entries],
+            prep.it_alloc64q, viable,
+        )
         if not plane_ok or not opt_idx:
             for ci, pods in entries:
                 defer(n, ci, pods)

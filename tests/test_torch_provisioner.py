@@ -84,6 +84,20 @@ def topology_problem():
     return pools, its, [], pods, 64
 
 
+def topology_full_problem():
+    """Hostname anti-affinity pods, each opening a fresh slot, then generic
+    pods that fill those slots first-fit: the catalog stops at 2 cpu
+    (1.9 allocatable), so every slot ends with 1.0 + 0.9 cpu, packed exactly
+    full on its largest types, the refit's boundary between keeping a type
+    and deferring the slot."""
+    pods = [
+        make_pod(cpu=1.0, memory_gib=1.0, name=f"a{i}", labels={"app": "a"},
+                 anti_affinity_to={"app": "a"}, affinity_key=L.LABEL_HOSTNAME)
+        for i in range(6)
+    ] + [make_pod(cpu=0.9, memory_gib=0.5, name=f"g{i}") for i in range(6)]
+    return [make_nodepool()], {"default": build_catalog()[:16]}, [], pods, 64
+
+
 def existing_problem():
     """Existing nodes with live capacity, one tainted, plus fresh demand."""
     from karpenter_core_tpu.api.objects import Taint
@@ -152,6 +166,7 @@ def fuzz_problem(seed):
 FIXTURES = {
     **{f"fuzz{s}": (lambda s=s: fuzz_problem(s)) for s in range(14)},
     "topology": topology_problem,
+    "topology_full": topology_full_problem,
     "existing": existing_problem,
     "relax": relax_problem,
     "overflow": overflow_problem,
@@ -201,6 +216,28 @@ def test_result_wire_identical(name):
         assert st_port["rounds"] >= 2
     if name == "overflow":
         assert st_port["slots"] > 8
+
+
+def test_topology_full_sits_on_the_refit_boundary(monkeypatch):
+    """Every fresh slot of the topology_full fixture is refit with a request
+    equal to a kept type's allocatable in cpu, and commits."""
+    from karpenter_core_tpu_torch.models import provisioner as prov
+
+    refits = []
+    refit = prov._refit_slot
+
+    def spy(overhead, class_requests, takes, it_alloc, viable):
+        req_vec, opt_idx = refit(overhead, class_requests, takes, it_alloc,
+                                 viable)
+        refits.append((req_vec, it_alloc[opt_idx]))
+        return req_vec, opt_idx
+
+    monkeypatch.setattr(prov, "_refit_slot", spy)
+    _, _, _, r_port = solve_both(topology_full_problem())
+    assert len(refits) == 6
+    for req_vec, kept in refits:
+        assert len(kept) and (kept[:, 0] == req_vec[0]).any()
+    assert [len(c.pods) for c in r_port.new_node_claims] == [2] * 6
 
 
 def test_warm_resolve_identical():

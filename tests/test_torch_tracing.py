@@ -15,11 +15,14 @@
   over ``prepare.nodes``, under one id.
 * The log keeps its newest ``CAPACITY`` records; ``karpenter.*`` ranges
   reach a ``torch.profiler`` trace and no range is entered without one.
+* ``decode.commit`` counts ``fresh_slots``, the committed fresh topology
+  slots, and ``types_tested``, their viable instance types summed.
 * ``device_s`` is absent on CPU tensors; with a stand-in timer a solve's
   ``device_s`` is its dispatches' device seconds, a batched dispatch's
   split over its members, read once the solve or sweep ends, and no
   timer is left filed under a finished request.
 """
+import inspect
 import itertools
 import time
 
@@ -101,6 +104,32 @@ def test_solve_spans_share_one_request(problem, observed):
     (commit,) = [s for s in spans if s.name == "decode.commit"]
     assert commit.counts["fresh_slots"] > 0
     assert ("types_tested" in commit.counts) == (problem == "topology")
+
+
+def test_types_tested_counts_viable_types_of_fresh_slots(monkeypatch):
+    """On a topology solve ``decode.commit``'s ``types_tested`` is the number
+    of viable instance types summed over the committed fresh slots, and
+    ``fresh_slots`` the number of those slots."""
+    slots = []
+    commit = prov.DeviceScheduler._commit_fresh_topo
+
+    def spy(*args, **kw):
+        a = inspect.signature(commit).bind(*args, **kw).arguments
+        before = len(a["claims"])
+        tested = commit(*args, **kw)
+        viable = int(a["itmask"][a["n"], :len(a["prep"].catalog)].sum())
+        slots.append((viable, len(a["claims"]) > before))
+        assert tested == viable
+        return tested
+
+    monkeypatch.setattr(prov.DeviceScheduler, "_commit_fresh_topo", spy)
+    sched = _scheduler()
+    sched.solve(PROBLEMS["topology"]())
+    rid = sched.last_phase_stats["request"]
+    (span,) = [s for s in _spans_of(rid) if s.name == "decode.commit"]
+    assert slots and all(committed for _, committed in slots)
+    assert span.counts["fresh_slots"] == len(slots)
+    assert span.counts["types_tested"] == sum(v for v, _ in slots) > 0
 
 
 def test_two_solves_get_two_ids():
