@@ -571,10 +571,11 @@ def _answer_batched(reqs: List[_KernelRequest]):
             (nt_b[b], ks_b[b], int(changed_h[b])) for b in range(B)
         ], Bp
     # the stack is a fresh copy, so the kernel updates it in place
-    state = _stack_trees([r.init_state for r in reqs_p])
-    steps = _stack_trees([r.steps for r in reqs_p])
-    statics = _stack_trees([r.statics for r in reqs_p])
-    step_class = torch.stack([r.step_class for r in reqs_p])
+    with tracing.span("dispatch.stack"):
+        state = _stack_trees([r.init_state for r in reqs_p])
+        steps = _stack_trees([r.steps for r in reqs_p])
+        statics = _stack_trees([r.statics for r in reqs_p])
+        step_class = torch.stack([r.step_class for r in reqs_p])
     if head.kind == "preempt":
         extra_b, mleft_b, evicted_b = gangsched.preempt_pass_batched(
             state, steps, statics,
@@ -604,14 +605,17 @@ def _answer_batched(reqs: List[_KernelRequest]):
         scan = cuda_ffd.cuda_ffd_solve_batched if cuda else ffd_solve_batched
         parts = [scan(*shard, level_iters=head.level_iters)
                  for shard in _shards(mesh, Bp, (state, steps, statics))]
-    state_b, takes_b, unplaced_b = pmesh.gather_rows(mesh, parts)
-    takes_bc, unplaced_bc = aggregate_takes_batched(
-        takes_b, unplaced_b, step_class, num_classes=head.num_classes
-    )
-    return [
-        (SlotState(*(x[b] for x in state_b)), takes_bc[b], unplaced_bc[b])
-        for b in range(B)
-    ], Bp
+    with tracing.span("dispatch.gather"):
+        state_b, takes_b, unplaced_b = pmesh.gather_rows(mesh, parts)
+        takes_bc, unplaced_bc = aggregate_takes_batched(
+            takes_b, unplaced_b, step_class, num_classes=head.num_classes
+        )
+        rows = [
+            (SlotState(*(x[b] for x in state_b)), takes_bc[b],
+             unplaced_bc[b])
+            for b in range(B)
+        ]
+    return rows, Bp
 
 
 def _shards(mesh, n_rows, trees):
@@ -647,12 +651,25 @@ def solve_batch(entries):
 
     Returns (outcomes, stats): outcomes aligned with entries; stats counts
     dispatches, batched problems, and batch-axis padding.
+
+    The span ``batch`` covers the call. On exit it names every member's
+    request, as a batched dispatch does, and counts the call's stats and
+    ``solo_retries``, the members re-run solo after a failed batched
+    dispatch.
     """
     if len({id(s) for s, _ in entries}) != len(entries):
         raise ValueError(
             "solve_batch requires a distinct DeviceScheduler per problem"
             " (schedulers are single-solve stateful)"
         )
+    # no request while open, so no member span takes it for a parent
+    with tracing.span("batch", ()) as sp:
+        return _solve_batch(entries, sp)
+
+
+def _solve_batch(entries, sp: tracing.Span):
+    """``solve_batch``'s body; ``sp``, its span, takes the members'
+    requests and the call's counts at the end."""
 
     def _gen_for(scheduler, pods):
         if hasattr(scheduler, "_solve_gen"):
@@ -687,6 +704,9 @@ def solve_batch(entries):
         "padded_rows": 0,
         "padded_total_rows": 0,
     }
+    requests = tuple(r.request for r in pending.values()
+                     if r.request is not None)
+    solo_retries = 0
     sticky = None  # the call's first sticky CUDA error: no launch after it
     while pending:
         groups: Dict[tuple, List[int]] = {}
@@ -728,6 +748,7 @@ def solve_batch(entries):
                         answers[i] = ("error", sticky)
                         continue
                     stats["dispatches"] += 1
+                    solo_retries += 1
                     try:
                         answers[i] = ("ok", _run_kernel_solo(pending[i]))
                     except Exception as e2:
@@ -756,6 +777,8 @@ def solve_batch(entries):
             except Exception as e:
                 outcomes[i] = ("error", e)
         pending = nxt
+    sp.requests = requests
+    sp.counts = dict(stats, solo_retries=solo_retries)
     return outcomes, stats
 
 

@@ -8,12 +8,15 @@
   interpreted on the CPU as tests/test_pallas.py runs it).
 * ``models/provisioner.solve_batch`` on the batches of tests/test_batch.py
   (mixed, topology member and shape split, batch of one, a poisoned
-  member): every member's result wire (``codec.encode_solve_results`` with
-  solve_seconds pinned to 0.0) is byte-identical to the JAX
-  ``solve_batch`` member's, and the batch stats are equal. A batched
-  dispatch that fails re-runs its members solo, unless the error is a
-  sticky CUDA error: that one reaches every member still pending in the
-  call with no further launch (spies count the dispatches).
+  member) and on four tenants of a small diverse mix (generic pods, zone
+  and hostname spread, hostname anti-affinity): every member's result
+  wire (``codec.encode_solve_results`` with solve_seconds pinned to 0.0)
+  is byte-identical to the JAX ``solve_batch`` member's, and the batch
+  stats are equal; a diverse tenant's wire is also its wire solved
+  alone. A batched dispatch that fails re-runs its members solo, unless
+  the error is a sticky CUDA error: that one reaches every member still
+  pending in the call with no further launch (spies count the
+  dispatches).
 * "cuda" and "reference" problems never share a batched dispatch; the
   shape key splits on backend and on device.
 * ``ops/cuda_ffd.cuda_ffd_solve_batched`` takes the plain version for CPU
@@ -29,6 +32,7 @@ import ctypes
 import contextlib
 import copy
 import dataclasses
+import random
 import re
 from pathlib import Path
 
@@ -36,11 +40,13 @@ import numpy as np
 import pytest
 import torch
 
+from tests.helpers import make_nodepool, make_pod
 from tests.test_batch import _catalog, _problem
 from tests.test_torch_ffd import assert_planes_equal, reference_request
 from tests.test_torch_provisioner import _align_hostnames, to_reference
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
+from karpenter_core_tpu.api.labels import LABEL_HOSTNAME
 from karpenter_core_tpu.models import provisioner as jprov
 from karpenter_core_tpu.ops import ffd as jffd
 from karpenter_core_tpu.ops import pallas_ffd
@@ -159,9 +165,35 @@ def test_plain_batched_scan_needs_rows():
 # solve_batch against the JAX package's
 
 
+def _diverse(name, seed, n_pods=24):
+    """One tenant of a small diverse mix: generic pods, zone spread,
+    hostname spread and hostname anti-affinity, a quarter each, sizes
+    drawn from ``seed``."""
+    rng = random.Random(seed)
+    pods = []
+    for i in range(n_pods):
+        cpu = rng.choice([0.1, 0.25, 0.5, 1.0])
+        mem = rng.choice([0.25, 0.5, 1.0, 2.0])
+        kind = ("generic", "zone", "host", "anti")[i % 4]
+        kw = {}
+        if kind == "zone":
+            kw = dict(spread_zone=True, labels={"app": f"{name}-zone"})
+        elif kind == "host":
+            kw = dict(spread_hostname=True, labels={"app": f"{name}-host"})
+        elif kind == "anti":
+            kw = dict(labels={"app": f"{name}-anti"},
+                      anti_affinity_to={"app": f"{name}-anti"},
+                      affinity_key=LABEL_HOSTNAME)
+        pods.append(make_pod(cpu, mem, name=f"{name}-{kind}-{i}", **kw))
+    return make_nodepool(name=name), pods
+
+
 def _members(case):
     if case == "mixed":
         return [(n, *_problem(n, k, c)) for n, k, c in MIXED]
+    if case == "diverse":
+        return [(n, *_diverse(n, seed))
+                for seed, n in enumerate(("da", "db", "dc", "dd"))]
     if case == "split":
         return [("pt", *_problem("pt", 18, spread=True)),
                 ("pp", *_problem("pp", 18))]
@@ -210,7 +242,7 @@ def _assert_same_outcomes(j_out, p_out):
 
 
 @pytest.mark.parametrize("backend", ["reference", "cuda"])
-@pytest.mark.parametrize("case", ["mixed", "split", "one"])
+@pytest.mark.parametrize("case", ["mixed", "split", "one", "diverse"])
 def test_solve_batch_wire_and_stats_identical(case, backend):
     members = _members(case)
     (j_out, j_stats), (p_out, p_stats) = _both(
@@ -223,6 +255,19 @@ def test_solve_batch_wire_and_stats_identical(case, backend):
         assert p_stats["padded_rows"] == 1
     if case == "one":
         assert p_stats["batched_dispatches"] == 0
+
+
+def test_diverse_batch_equals_each_tenant_alone():
+    """Each tenant of the diverse batch gives, on the plain route, the
+    wire of the same tenant solved alone by a scheduler of its own."""
+    members = _members("diverse")
+    outcomes, stats = tprov.solve_batch(_port_entries(members, "reference"))
+    assert stats["batched_problems"] >= 2
+    for (name, pool, pods), (status, res) in zip(members, outcomes):
+        assert status == "ok", res
+        assert res.all_pods_scheduled(), res.pod_errors
+        alone = _port_sched(name, pool).solve(interop.from_reference(pods))
+        assert _wire(to_reference(res)) == _wire(to_reference(alone)), name
 
 
 def test_distinct_scheduler_instances_required():

@@ -10,7 +10,11 @@
   duration.
 * ``solve_batch``: the batched dispatch's span names every member's id,
   and each member's spans nest under its own ``solve`` though the
-  members' generators interleave on one thread.
+  members' generators interleave on one thread. The call's span
+  ``batch`` names them too, encloses their solves and counts the call's
+  stats and ``solo_retries`` (the members re-run solo after a batched
+  dispatch failed, none after a sticky CUDA error); the batched
+  dispatch's ``dispatch.stack`` and ``dispatch.gather`` nest under it.
 * ``frontier_core``: ``sweep`` over ``sweep.problem`` over ``prepare``
   over ``prepare.nodes``, under one id.
 * The log keeps its newest ``CAPACITY`` records; ``karpenter.*`` ranges
@@ -155,17 +159,83 @@ def test_batched_dispatch_names_every_member():
     (batched,) = [s for s in tracing.LOG if s.name == "dispatch"
                   and set(rids) <= set(s.requests)]
     assert batched.requests == tuple(rids) and batched.parent is None
+    # the spans serving all three: the call, the batched dispatch and the
+    # dispatch's own parts
+    (call,) = [s for s in tracing.LOG if s.name == "batch"
+               and set(rids) <= set(s.requests)]
+    shared = {call, batched} | {s for s in tracing.LOG
+                                if s.parent is batched}
     for rid in rids:
         spans = _spans_of(rid)
         (root,) = [s for s in spans if s.name == "solve"]
         for s in spans:
-            if s is not root and s is not batched:
+            if s is not root and s not in shared:
                 assert s.requests == (rid,)
                 assert s.parent is not None and _within(s, s.parent)
                 top = s
                 while top.parent is not None:
                     top = top.parent
                 assert top is root, s.name
+
+
+def _batch_span(rids):
+    (call,) = [s for s in tracing.LOG if s.name == "batch"
+               and set(rids) <= set(s.requests)]
+    return call
+
+
+def test_batch_span_counts_the_call():
+    """``batch`` covers the call, names every member's request and counts
+    what ``solve_batch`` returns, with no solo re-run; the batched
+    dispatch's ``dispatch.stack`` and ``dispatch.gather`` nest under it."""
+    scheds = [_scheduler() for _ in range(3)]
+    wide = prov.DeviceScheduler(
+        [bench_torch._pool()], {"default": list(bench_catalog(24))},
+        max_slots=128, device="cpu", kernel_backend="reference")
+    pods = bench_torch._plain_pods(32)
+    outcomes, stats = prov.solve_batch(
+        [(s, pods) for s in scheds] + [(wide, pods)])
+    assert all(status == "ok" for status, _ in outcomes)
+    assert stats["batched_dispatches"] == 1 and stats["dispatches"] == 2
+    rids = [s.last_phase_stats["request"] for s in scheds + [wide]]
+    call = _batch_span(rids)
+    assert call.requests == tuple(rids) and call.parent is None
+    assert call.counts == dict(stats, solo_retries=0)
+    for rid in rids:
+        (root,) = [s for s in _spans_of(rid) if s.name == "solve"]
+        assert _within(root, call)
+    (batched,) = [s for s in tracing.LOG if s.name == "dispatch"
+                  and len(s.requests) == 3 and set(s.requests) <= set(rids)]
+    parts = [s for s in tracing.LOG if s.parent is batched]
+    assert sorted(s.name for s in parts) == ["dispatch.gather",
+                                             "dispatch.stack"]
+    for s in parts:
+        assert s.requests == batched.requests and _within(s, batched)
+    stack, gather = sorted(parts, key=lambda s: s.start)
+    assert stack.name == "dispatch.stack" and stack.end <= gather.start
+
+
+@pytest.mark.parametrize("error", ["plain", "sticky"])
+def test_batch_span_counts_solo_retries(monkeypatch, error):
+    """A batched dispatch that raises: its members re-run solo and
+    ``solo_retries`` counts them, unless the error is a sticky CUDA error,
+    which re-runs none."""
+    sticky = "CUDA error: an illegal memory access was encountered"
+
+    def broken(*args, **kwargs):
+        raise RuntimeError(sticky if error == "sticky" else "scan failed")
+
+    monkeypatch.setattr(prov, "ffd_solve_batched", broken)
+    scheds = [_scheduler() for _ in range(3)]
+    pods = bench_torch._plain_pods(32)
+    outcomes, stats = prov.solve_batch([(s, pods) for s in scheds])
+    retries = 3 if error == "plain" else 0
+    assert [status for status, _ in outcomes] == (
+        ["ok"] * 3 if error == "plain" else ["error"] * 3)
+    assert stats["batched_dispatches"] == 0
+    assert stats["dispatches"] == 1 + retries
+    call = _batch_span([s.last_phase_stats["request"] for s in scheds])
+    assert call.counts == dict(stats, solo_retries=retries)
 
 
 def test_frontier_spans():
