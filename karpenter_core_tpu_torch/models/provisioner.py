@@ -56,6 +56,7 @@ gather the rows back on the lead device.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -163,6 +164,14 @@ def _neutralize(masks: EntityMasks) -> EntityMasks:
         gt=masks.gt,
         lt=masks.lt,
     )
+
+
+def _label_alias(labels: dict) -> bool:
+    """True when the labels hold both a deprecated key and the key it
+    normalizes to (``Requirement.new``), so ``Requirements.from_labels``
+    intersects their two values into one requirement."""
+    norm = apilabels.NORMALIZED_LABELS
+    return any(norm[k] in labels for k in labels if k in norm)
 
 
 def _tolerates_taints(tolerations, taints) -> bool:
@@ -277,6 +286,8 @@ class _Prepared:
     statics: FFDStatics
     init_state: SlotState
     exist_taint_ok: np.ndarray  # [C, N]
+    # the solve round's sims (_solve_once_gen), which its fetch and decode
+    # read; empty from _prepare, whose sweep never reads them
     existing_sims: List[ExistingNodeSim]
     n_slots: int
     topo: Topology
@@ -912,7 +923,6 @@ class DeviceScheduler:
         # the prior round's vocab (_round_frozen) so spec-shrinking relaxes
         # keep the fingerprint and rebuild only the classes they mutated.
         self._catalog = None
-        self._exist_label_reqs = None
         self._universe = None
         self._base_resources = None
         self._fp_ids: Dict[tuple, int] = {}
@@ -1277,6 +1287,16 @@ class DeviceScheduler:
             with tracing.span("prepare", rid, stats=stats, key="prepare_s",
                               histogram=m.SOLVER_PREPARE_DURATION):
                 prep = self._prepare_with_vocab(plan, max_slots, topo)
+                # the round's existing-node sims, which register their
+                # hostnames with its topology; the fetch and decode read
+                # them, the sweep's prepare (_prepare) builds none
+                with tracing.span("prepare.nodes", rid) as sp:
+                    prep.existing_sims = [
+                        ExistingNodeSim(
+                            node, topo, self._node_daemon_overhead(node))
+                        for node in self.existing_nodes
+                    ]
+                    sp.count("sims", len(prep.existing_sims))
                 steps = self._class_steps(prep)
         except _SlotOverflow:
             return None
@@ -1763,7 +1783,8 @@ class DeviceScheduler:
     ) -> _Prepared:
         """Topology-free prepare entry, outside a solve round (the
         consolidation sweep's, ROADMAP A.6; callers guarantee no
-        topology-coupled pods)."""
+        topology-coupled pods). It builds no existing-node sims: only a
+        solve round's fetch and decode read them."""
         # direct prepares are not relaxation rounds: don't union a previous
         # solve()'s vocab into this closed world
         self._round_frozen = None
@@ -1773,13 +1794,6 @@ class DeviceScheduler:
         return self._prepare_with_vocab(plan, max_slots, topo)
 
     # -- prepared-state construction (cached; see __init__) ---------------
-
-    def _exist_reqs(self) -> List[Requirements]:
-        if self._exist_label_reqs is None:
-            self._exist_label_reqs = [
-                Requirements.from_labels(n.labels) for n in self.existing_nodes
-            ]
-        return self._exist_label_reqs
 
     def _vocab_universe(self):
         """Scheduler-lifetime label universe: (base key->values from
@@ -1799,8 +1813,14 @@ class DeviceScheduler:
 
             for t in self.templates:
                 obs(t.requirements)
-            for r in self._exist_reqs():
-                obs(r)
+            # a node's label is `In {value}` under its normalized key
+            # (Requirements.from_labels), read straight from the labels
+            norm = apilabels.NORMALIZED_LABELS
+            pairs, _, alone = self._node_labels()
+            for key, value in set(pairs):
+                base.setdefault(norm.get(key, key), set()).add(value)
+            for i in alone:
+                obs(Requirements.from_labels(self.existing_nodes[i].labels))
             for it in self._catalog_union():
                 for off in it.offerings:
                     obs(off.requirements)
@@ -1888,12 +1908,15 @@ class DeviceScheduler:
         if key in st:
             st[key] += 1
 
-    def _fp_entry(self, frozen, resource_names: List[str]) -> Tuple[dict, int]:
+    def _fp_entry(self, frozen, resource_names: List[str],
+                  span: Optional[tracing.Span] = None) -> Tuple[dict, int]:
         """Catalog/template/existing-node tensors for one closed world,
         cached per (vocab fingerprint, resource axis, existing-node set).
         Nothing here depends on the pod mix: steady-state solves and every
         relaxation round reuse both the host planes and the
-        device-resident copies (zero re-encode, zero re-transfer)."""
+        device-resident copies (zero re-encode, zero re-transfer). A build
+        counts its existing-node rows on ``span``: ``rows_bulk`` from the
+        bulk label pass, ``rows_per_node`` encoded one node at a time."""
         fp = (
             frozen.fingerprint(),
             tuple(resource_names),
@@ -1967,23 +1990,28 @@ class DeviceScheduler:
             )
             return raw / quant
 
+        # the two roundings, elementwise over rows or [E, R] matrices alike
+        def _qceil(x: np.ndarray) -> np.ndarray:
+            return np.ceil(x * (1.0 - 1e-12) - 1e-9)
+
+        def _qfloor(x: np.ndarray) -> np.ndarray:
+            return np.floor(x * (1.0 + 1e-12) + 1e-9)
+
         def rvec(rl: dict) -> np.ndarray:
             """Requests-side quantization (ceil)."""
-            x = np.ceil(_qraw(rl) * (1.0 - 1e-12) - 1e-9)
-            return np.minimum(x, _QMAX).astype(np.float32)
+            return np.minimum(_qceil(_qraw(rl)), _QMAX).astype(np.float32)
 
         def rvec_cap(rl: dict) -> np.ndarray:
             """Capacity-side quantization (floor)."""
-            x = np.floor(_qraw(rl) * (1.0 + 1e-12) + 1e-9)
-            return np.minimum(x, _QMAX).astype(np.float32)
+            return np.minimum(_qfloor(_qraw(rl)), _QMAX).astype(np.float32)
 
         def rvec64q(rl: dict) -> np.ndarray:
             """Requests-side quantization, float64 (ceil, unclamped)."""
-            return np.ceil(_qraw(rl) * (1.0 - 1e-12) - 1e-9)
+            return _qceil(_qraw(rl))
 
         def rvec64q_cap(rl: dict) -> np.ndarray:
             """Capacity-side quantization, float64 (floor, unclamped)."""
-            return np.floor(_qraw(rl) * (1.0 + 1e-12) + 1e-9)
+            return _qfloor(_qraw(rl))
 
         from karpenter_core_tpu_torch.solver.vocab import encode_requirements_batch
 
@@ -2061,41 +2089,18 @@ class DeviceScheduler:
             [rvec64q(o) for o in self.daemon_overhead]
         ) if S else np.zeros((pad_S, R), dtype=np.float64)
 
-        # existing-node init rows (seeded into slot rows [0, E) each round)
-        exist_masks = (
-            _neutralize(encode_requirements_batch(frozen, self._exist_reqs()))
-            if E
-            else None
-        )
-        ex_valmask = np.ones((E, K, V), dtype=bool)
-        ex_defines = np.zeros((E, K), dtype=bool)
-        ex_complement = np.ones((E, K), dtype=bool)
-        ex_negative = np.ones((E, K), dtype=bool)
-        ex_gt = np.full((E, K), GT_NONE, dtype=np.int32)
-        ex_lt = np.full((E, K), LT_NONE, dtype=np.int32)
-        ex_requests = np.zeros((E, R), dtype=np.float32)
-        ex_capacity = np.zeros((E, R), dtype=np.float32)
-        for ei, node in enumerate(self.existing_nodes):
-            # same arithmetic as ExistingNodeSim: daemon overhead minus the
-            # node's own daemon requests, floored at zero
-            remaining = resutil.subtract(
-                self._node_daemon_overhead(node), node.daemon_requests
-            )
-            for k_ in list(remaining):
-                if remaining[k_] < 0:
-                    remaining[k_] = 0.0
-            ex_requests[ei] = rvec(remaining)
-            ex_capacity[ei] = rvec_cap(node.available)
-            ex_valmask[ei] = exist_masks.mask[ei]
-            ex_defines[ei] = exist_masks.defines[ei]
-            ex_complement[ei] = np.where(
-                exist_masks.defines[ei], ~exist_masks.concrete[ei], True
-            )
-            ex_negative[ei] = np.where(
-                exist_masks.defines[ei], exist_masks.negative[ei], True
-            )
-            ex_gt[ei] = exist_masks.gt[ei]
-            ex_lt[ei] = exist_masks.lt[ei]
+        # existing-node init rows (seeded into slot rows [0, E) each round),
+        # all nodes at once: the requirement planes from the labels, and
+        # one [E, R] matrix each side quantized as rvec / rvec_cap do
+        ex_planes, rows_per_node = self._node_label_planes(frozen)
+        req64, cap64 = self._node_resource_rows(resource_names)
+        ex_requests = np.minimum(_qceil(req64 / quant), _QMAX).astype(
+            np.float32)
+        ex_capacity = np.minimum(_qfloor(cap64 / quant), _QMAX).astype(
+            np.float32)
+        if span is not None:
+            span.count("rows_bulk", E - rows_per_node)
+            span.count("rows_per_node", rows_per_node)
 
         # -- shape bucketing (the JAX package's padded shapes) -------------
         # Padded entities are inert by construction: keys/values pad to the
@@ -2151,9 +2156,7 @@ class DeviceScheduler:
             K=K, V=V, R=R, T=T, S=S, E=E, pad_T=pad_T, pad_S=pad_S,
             Kp=Kp, Vp=Vp, Tp=Tp, Sp=Sp, Rp=Rp,
             well_known=well_known,
-            ex_valmask=ex_valmask, ex_defines=ex_defines,
-            ex_complement=ex_complement, ex_negative=ex_negative,
-            ex_gt=ex_gt, ex_lt=ex_lt,
+            **ex_planes,
             ex_requests=ex_requests, ex_capacity=ex_capacity,
             it_price=it_price,
             tmpl_price=tmpl_price,
@@ -2210,6 +2213,105 @@ class DeviceScheduler:
             }
         self._fp_cache[fpid] = e
         return e, fpid
+
+    def _node_labels(self) -> Tuple[list, List[int], List[int]]:
+        """The existing nodes' labels as one flat list of (key, value)
+        pairs, node after node, with each node's count of pairs. A node
+        holding a key beside its deprecated alias (``_label_alias``) adds
+        no pairs; the third list holds those nodes' indices."""
+        dicts = [n.labels for n in self.existing_nodes]
+        alone = []
+        if not apilabels.NORMALIZED_LABELS.keys().isdisjoint(
+                itertools.chain.from_iterable(dicts)):
+            alone = [i for i, d in enumerate(dicts) if _label_alias(d)]
+            for i in alone:
+                dicts[i] = {}
+        pairs = list(itertools.chain.from_iterable(map(dict.items, dicts)))
+        return pairs, list(map(len, dicts)), alone
+
+    def _node_label_planes(self, frozen) -> Tuple[dict, int]:
+        """The existing nodes' requirement planes (``ex_valmask``,
+        ``ex_defines``, ``ex_complement``, ``ex_negative``, ``ex_gt``,
+        ``ex_lt``), as ``_neutralize(encode_requirements_batch(...))`` of
+        ``Requirements.from_labels`` gives them, built for all nodes at
+        once. A label is `In {value}` under its normalized key, so a node
+        defines exactly its labels' keys, concretely, not negatively and
+        with no Gt/Lt bound, and its value row holds the value's id alone:
+        every label maps to its (key id, value id) through one table, and
+        array writes fill the planes. A node holding a key beside its
+        deprecated alias, or a value outside the vocab, is encoded alone.
+        Returns the planes and the count of nodes encoded alone."""
+        from karpenter_core_tpu_torch.solver.vocab import encode_requirements_batch
+
+        nodes = self.existing_nodes
+        E, K, V = len(nodes), frozen.K, frozen.V
+        pairs, counts, alone = self._node_labels()
+        # (label key, value) -> key id * V + value id, a key under its
+        # deprecated aliases too (Requirement.new normalizes them)
+        norm = apilabels.NORMALIZED_LABELS
+        raw_keys: Dict[str, List[str]] = {
+            k: [k] for k in frozen.key_names if k not in norm}
+        for old, new in norm.items():
+            if new in raw_keys:
+                raw_keys[new].append(old)
+        code = {}
+        for kid, key in enumerate(frozen.key_names):
+            for vid, value in enumerate(frozen.value_names[kid]):
+                for raw in raw_keys.get(key, ()):
+                    code[raw, value] = kid * V + vid
+        c = np.fromiter(map(code.get, pairs, itertools.repeat(-1)),
+                        dtype=np.intp, count=len(pairs))
+        r = np.repeat(np.arange(E, dtype=np.intp), counts)
+        missing = c < 0
+        if missing.any():
+            alone = sorted(set(alone) | set(r[missing].tolist()))
+            keep = ~np.isin(r, alone)
+            r, c = r[keep], c[keep]
+        k, v = np.divmod(c, V)
+        defines = np.zeros((E, K), dtype=bool)
+        defines[r, k] = True
+        valmask = np.ones((E, K, V), dtype=bool)
+        valmask[r, k] = False
+        valmask[r, k, v] = True
+        planes = dict(
+            ex_valmask=valmask,
+            ex_defines=defines,
+            ex_complement=~defines,
+            ex_negative=~defines,
+            ex_gt=np.full((E, K), GT_NONE, dtype=np.int32),
+            ex_lt=np.full((E, K), LT_NONE, dtype=np.int32),
+        )
+        if alone:
+            m = _neutralize(encode_requirements_batch(
+                frozen, [Requirements.from_labels(nodes[i].labels)
+                         for i in alone]))
+            a = np.array(alone, dtype=np.intp)
+            planes["ex_valmask"][a] = m.mask
+            planes["ex_defines"][a] = m.defines
+            planes["ex_complement"][a] = np.where(m.defines, ~m.concrete, True)
+            planes["ex_negative"][a] = np.where(m.defines, m.negative, True)
+            planes["ex_gt"][a] = m.gt
+            planes["ex_lt"][a] = m.lt
+        return planes, len(alone)
+
+    def _node_resource_rows(
+        self, resource_names: List[str]
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """[E, R] float64 matrices over the resource axis: each node's daemon
+        overhead less its own daemon requests, floored at zero
+        (ExistingNodeSim's arithmetic), and its available resources."""
+        req, cap = [], []  # flat, row after row
+        for node in self.existing_nodes:
+            over = self._node_daemon_overhead(node)
+            own = node.daemon_requests
+            req += [over[n] - own.get(n, 0.0) if n in over else 0.0
+                    for n in resource_names]
+            avail = node.available
+            cap += [avail.get(n, 0.0) for n in resource_names]
+        shape = (len(self.existing_nodes), len(resource_names))
+        req64 = np.array(req, dtype=np.float64).reshape(shape)
+        req64[req64 < 0] = 0.0
+        return req64, np.array(cap, dtype=np.float64).reshape(shape)
 
     def _plan_digest(self, plan: topoplan.TopoPlan) -> bytes:
         """Content digest of the lowered topology plan — everything the
@@ -2619,8 +2721,8 @@ class DeviceScheduler:
         self._round_frozen = frozen
         topoplan.finalize_arrays(plan, frozen, topo)
         resource_names = self._resource_axis(classes)
-        with tracing.span("prepare.nodes", rid):
-            entry, fpid = self._fp_entry(frozen, resource_names)
+        with tracing.span("prepare.nodes", rid) as sp:
+            entry, fpid = self._fp_entry(frozen, resource_names, sp)
         with tracing.span("prepare.classes", rid):
             batch = self._class_batch(fpid, frozen, entry, plan, classes, N)
 
@@ -2631,14 +2733,6 @@ class DeviceScheduler:
         self._pad_shapes = dict(
             K=K, V=V, T=entry["pad_T"], Gh=plan.Gh, Gz=plan.Gz
         )
-
-        # per-round existing-node sims (they register with this round's
-        # topology); their encoded rows come from the fp entry
-        with tracing.span("prepare.nodes", rid):
-            existing_sims = [
-                ExistingNodeSim(node, topo, self._node_daemon_overhead(node))
-                for node in self.existing_nodes
-            ]
 
         # topology count state: hostname-group counts seeded per existing
         # slot; positive counts on non-slot hostnames only matter for the
@@ -2718,7 +2812,7 @@ class DeviceScheduler:
             statics=statics,
             init_state=init_state,
             exist_taint_ok=batch["exist_taint_ok"],
-            existing_sims=existing_sims,
+            existing_sims=[],
             n_slots=N,
             topo=topo,
             plan=plan,

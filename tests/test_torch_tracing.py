@@ -21,6 +21,11 @@
   reach a ``torch.profiler`` trace and no range is entered without one.
 * ``decode.commit`` counts ``fresh_slots``, the committed fresh topology
   slots, and ``types_tested``, their viable instance types summed.
+* The first ``prepare.nodes`` of a prepare counts the existing-node rows
+  it built: ``rows_bulk`` from the labels in bulk, ``rows_per_node`` for
+  nodes holding a key beside its deprecated alias. A solve's second
+  ``prepare.nodes`` counts the ``sims`` it built, one a node; a sweep's
+  decision builds none and has no second span.
 * ``device_s`` is absent on CPU tensors; with a stand-in timer a solve's
   ``device_s`` is its dispatches' device seconds, a batched dispatch's
   split over its members, read once the solve or sweep ends, and no
@@ -264,6 +269,46 @@ def test_frontier_spans():
             assert _within(s, s.parent), s.name
     # on CPU tensors no scan carries device time
     assert all(not (s.counts or {}).get("device_s") for s in spans)
+
+
+def _node_spans(t0):
+    return [s for s in tracing.LOG
+            if s.start >= t0 and s.name == "prepare.nodes"]
+
+
+def test_sweep_counts_bulk_rows_and_no_sims():
+    inputs = chip_smoke.sweep_inputs(n_nodes=8, n_cand=6, n_types=16)
+    E = len(inputs["cand_nodes"]) + len(inputs["keep_nodes"])
+    t0 = time.perf_counter()
+    cons.frontier_core(max_slots=64, device="cpu",
+                       kernel_backend="reference", **inputs)
+    (rows,) = _node_spans(t0)
+    assert rows.counts == {"rows_bulk": E, "rows_per_node": 0}
+    assert rows.counts.get("sims", 0) == 0
+
+
+@pytest.mark.parametrize("alias", [False, True])
+def test_solve_counts_rows_and_sims(alias):
+    """A solve over existing nodes counts its rows, then one sim a node; a
+    node holding a key beside its deprecated alias counts as a row built
+    alone."""
+    inputs = chip_smoke.sweep_inputs(n_nodes=5, n_cand=2, n_types=16)
+    nodes = inputs["cand_nodes"] + inputs["keep_nodes"]
+    if alias:
+        zone = "topology.kubernetes.io/zone"
+        nodes[1].labels["failure-domain.beta.kubernetes.io/zone"] = (
+            nodes[1].labels[zone])
+    sched = prov.DeviceScheduler(
+        inputs["nodepools"], inputs["instance_types"], existing_nodes=nodes,
+        max_slots=64, device="cpu", kernel_backend="reference")
+    t0 = time.perf_counter()
+    sched.solve(bench_torch._plain_pods(12))
+    rows, sims = _node_spans(t0)
+    assert rows.start < sims.start
+    assert rows.counts == {"rows_bulk": len(nodes) - alias,
+                           "rows_per_node": int(alias)}
+    assert sims.counts == {"sims": len(nodes)}
+    assert rows.parent is sims.parent and rows.parent.name == "prepare"
 
 
 def test_log_keeps_the_newest_records():
