@@ -208,15 +208,15 @@ on failure:
    exit code. Spawn-to-ready times, members' device memory and the RPC
    against the in-process wall are printed; every member stops.
 
-15. the port's bench: ``python3 bench_torch.py`` in a child process under
-   ``BENCH_FAST=1`` (bench.py's fast sizes: the primary at 50,000 pods x
-   800 types, the small cfg10-cfg18), its last line parsed: the device
-   block must name the card (``platform`` gpu, nvidia-smi's name), every
-   config must be ``correct`` (the JAX package's answers at these sizes),
-   every ``phases`` block of the kernel's backend must say ``cuda``, every
-   kernel-driven config must count kernel launches, and the exit code
-   must be 0 (1 only with ``budget_ok`` false: the primary's p50 over
-   bench.py's 1-s budget, a speed verdict, not an answer).
+15. the port's answer check: ``python3 bench_torch.py`` in a child process
+   under ``BENCH_FAST=1`` (bench.py's fast sizes: the primary at 50,000
+   pods x 800 types, the small cfg10-cfg18), its last line parsed: the
+   device block must name the card (``platform`` gpu, nvidia-smi's name),
+   every config must be ``correct`` (the JAX package's answers at these
+   sizes), every ``phases`` block must say ``cuda`` (``reference`` on
+   cfg17's plain side, which launches nothing), every kernel-driven config
+   must count kernel launches, and the exit code must be 0. Then cfg7
+   (``bench_fleet``), which BENCH_FAST's set leaves out, in this process.
 16. a real device fault, in child processes (``fault_phase``): (a) the
    binary (``python -m karpenter_core_tpu_torch.main --solver tpu``, in
    process, on cuda) over the HTTP apiserver with plain_5k_400's first
@@ -237,7 +237,7 @@ It prints a sha256 digest of the sources it runs (``source_digest``), a
 ``{"kernels": [...]}`` line, the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. The problems are
 built from fixed recipes (no randomness), the bench's shared with
-``bench_torch.py``. ``fleet_expected.py``
+``bench_torch.py``, the answer check. ``fleet_expected.py``
 computes ``FLEET_EXPECTED_NODES``, ``SWEEP_EXPECTED``,
 ``OPERATOR_EXPECTED``, ``GANGS_EXPECTED``, ``GANG_TENANTS_EXPECTED``,
 ``TOPO_EXPECTED``, ``RELAX_EXPECTED``, ``HTTP_EXPECTED`` and
@@ -255,7 +255,7 @@ import subprocess
 import sys
 import time
 
-# the bench's recipes, one copy for the port's bench and this smoke
+# the bench's recipes, one copy for the port's answer check and this smoke
 from bench_torch import (  # noqa: F401
     _gang_tier_pods,
     _plain_pods,
@@ -274,7 +274,7 @@ EXPECTED_NODES = {"plain_50k_800": 444, "plain_5k_400": 171,
 
 
 def source_digest():
-    """(sha256 hex, file count) over this script, the port's bench
+    """(sha256 hex, file count) over this script, the port's answer check
     (``bench_torch.py``) and the port package's Python and CUDA sources, in
     path order; computable without a card:
     ``python3 -c 'import chip_smoke; print(chip_smoke.source_digest())'``."""
@@ -702,12 +702,6 @@ def _idle_share(fn, cpu=True):
     not overlap). None when the profiler recorded no device time.
     ``cpu=False`` traces the device only: a long host-bound run (the twin)
     spends most of a CPU trace recording its host ops."""
-    return traced_idle(fn, cpu)[0]
-
-
-def traced_idle(fn, cpu=True):
-    """(``_idle_share``, the scan kernel's launches in the trace) over one
-    profiled run of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -726,8 +720,7 @@ def traced_idle(fn, cpu=True):
                 getattr(evt, "self_cuda_time_total", 0.0))
         for evt in events
     )
-    scans = sum(evt.count for evt in events if "k_ffd_scan" in evt.key)
-    return (1.0 - busy_us / wall_us if busy_us else None), scans
+    return 1.0 - busy_us / wall_us if busy_us else None
 
 
 def _canonical(res):
@@ -4514,10 +4507,10 @@ def bench_child():
 
 
 def bench_phase(card_name):
-    """Phase 15: the port's bench (``bench_torch.py``) under BENCH_FAST=1
-    in a child process on the card, its last JSON line held to the card,
-    the JAX package's answers and the kernel; then cfg7 (``bench_fleet``),
-    which BENCH_FAST's set leaves out."""
+    """Phase 15: the port's answer check (``bench_torch.py``) under
+    BENCH_FAST=1 in a child process on the card, its last JSON line held
+    to the card, the JAX package's answers and the kernel; then cfg7
+    (``bench_fleet``), which BENCH_FAST's set leaves out."""
     proc, line, wall = bench_child()
     if line is None:
         raise AssertionError(f"bench_torch.py printed no JSON line (rc"
@@ -4531,30 +4524,25 @@ def bench_phase(card_name):
 def bench_fleet():
     """15b: ``bench_torch.py``'s cfg7_fleet judged in this process on the
     card, at bench.py's sizes (8 tenants of 1,000 pods over 200 types on
-    one in-process sidecar) with one timed round: each tenant's node count
-    the JAX package's, the shed solves degraded to greedy and counted
+    one in-process sidecar): each tenant's node count the JAX package's,
+    the shed solves degraded to greedy and counted
     (``greedy_fallbacks``), the forced shed's greedy answer the host
     Scheduler's (``shed_parity_ok``), no verifier rejection."""
     import bench_torch
 
-    out = bench_torch._judged(
-        "cfg7_fleet", lambda: bench_torch._fleet_bench(repeats=1))
+    out = bench_torch._judged("cfg7_fleet", bench_torch._fleet_bench)
     if not out["correct"] or not out["shed_parity_ok"]:
         raise AssertionError(f"bench cfg7_fleet: correct {out['correct']},"
                              f" shed_parity_ok {out['shed_parity_ok']},"
                              f" answers {out['answers']}, expected"
                              f" {out['expected']}")
     row = {k: out[k] for k in ("correct", "shed_parity_ok",
-                               "greedy_fallbacks", "shed_total",
-                               "aggregate_pods_per_sec", "device_p50_s",
-                               "config_wall_s")}
+                               "greedy_fallbacks", "shed_total", "answers")}
     row["readings"] = out.get("readings")
-    print(f"bench cfg7_fleet [8 tenants x 1000 pods, one timed round]:"
-          f" correct, each tenant's node count the JAX package's;"
+    print(f"bench cfg7_fleet [8 tenants x 1000 pods]: correct, node counts"
+          f" {json.dumps(out['answers'])} (the JAX package's);"
           f" {out['shed_total']} sheds, greedy_fallbacks"
-          f" {out['greedy_fallbacks']}, shed_parity_ok true;"
-          f" {out['aggregate_pods_per_sec']} pods/s;"
-          f" {out['config_wall_s']} s", flush=True)
+          f" {out['greedy_fallbacks']}, shed_parity_ok true", flush=True)
     return row
 
 
@@ -4592,23 +4580,19 @@ def hold_bench_line(line, rc, card_name, wall, stderr=""):
     if missing:
         raise AssertionError(f"bench_torch.py: no kernel launches counted"
                              f" for {missing}")
-    want_rc = 0 if line["budget_ok"] else 1
-    if rc != want_rc:
-        raise AssertionError(f"bench_torch.py exited {rc}, expected"
-                             f" {want_rc}: {stderr[-2000:]}")
-    primary = line["detail"]["primary"]
-    out = dict(wall_s=wall, rc=rc, build_s=line["build_s"],
-               configs=list(line["detail"]), budget_ok=line["budget_ok"],
-               primary_p50_s=primary["p50_solve_s"],
-               primary_launches=primary["phases"]["kernel_launches"],
+    if rc != 0:
+        raise AssertionError(f"bench_torch.py exited {rc}, expected 0:"
+                             f" {stderr[-2000:]}")
+    out = dict(wall_s=wall, rc=rc, configs=list(line["detail"]),
+               primary_launches=line["detail"]["primary"]["phases"][
+                   "kernel_launches"],
                launches=sum(launches.values()),
                source_digest=line["source_digest"])
     print(f"bench [BENCH_FAST=1]: {len(line['detail'])} configs correct on"
           f" {dev['name']} ({dev['power_limit_w']} W); kernel_backend cuda"
           f" on {sum(1 for v in backends.values() if v == 'cuda')} phases"
-          f" blocks; kernel launches {json.dumps(launches)}; primary p50"
-          f" {primary['p50_solve_s']} s (budget_ok {line['budget_ok']});"
-          f" rc {rc}; {wall:.1f} s", flush=True)
+          f" blocks; kernel launches {json.dumps(launches)}; rc {rc};"
+          f" {wall:.1f} s", flush=True)
     return out
 
 

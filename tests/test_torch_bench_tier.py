@@ -1,10 +1,11 @@
-"""The port's bench (``bench_torch.py``) against bench.py, on the CPU: the
-solverd tier configs and the probes in child processes.
+"""The port's answer check (``bench_torch.py``) against bench.py, on the
+CPU: the solverd tier configs and the probes in child processes.
 
 Each case calls one of bench.py's config functions and bench_torch's
-counterpart with the same small arguments (bench.py's BENCH_FAST sizes
-where the config has them), JAX on the CPU and the port with
-``device="cpu"``, and holds the port's answers and key set to bench.py's
+counterpart on the same small problem (bench.py's BENCH_FAST sizes where
+the config has them; the ``repeats`` of bench.py's timed loops go to
+bench.py alone), JAX on the CPU and the port with ``device="cpu"``, and
+holds the port's answers and verdict to bench.py's answers
 (``tests/torch_bench_compare.hold``). The solve configs are in
 tests/test_torch_bench.py.
 """
@@ -25,8 +26,8 @@ from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_sidecar_matches_bench():
-    args = dict(n_pods=64, n_types=40, repeats=1)
-    ref = bench._sidecar_bench(**args)
+    args = dict(n_pods=64, n_types=40)
+    ref = bench._sidecar_bench(**args, repeats=1)
     port = judged("cfg5_sidecar", lambda: bench_torch._sidecar_bench(**args))
     hold("cfg5_sidecar", ref, port)
 
@@ -34,8 +35,8 @@ def test_sidecar_matches_bench():
 def test_fleet_matches_bench():
     """Solo node counts equal; the forced shed degrades to the host greedy
     Scheduler's answer on both."""
-    args = dict(n_tenants=3, n_pods=48, n_types=40, repeats=1)
-    ref = bench._fleet_bench(**args)
+    args = dict(n_tenants=3, n_pods=48, n_types=40)
+    ref = bench._fleet_bench(**args, repeats=1)
     port = judged("cfg7_fleet", lambda: bench_torch._fleet_bench(**args))
     hold("cfg7_fleet", ref, port)
     assert ref["shed_parity_ok"] is True
@@ -43,12 +44,13 @@ def test_fleet_matches_bench():
 
 
 def test_batch_matches_bench():
-    args = dict(n_tenants=4, n_pods=24, n_types=12, repeats=2)
-    ref = bench._batch_bench(**args)
+    args = dict(n_tenants=4, n_pods=24, n_types=12)
+    ref = bench._batch_bench(**args, repeats=2)
     port = judged("cfg10_batch", lambda: bench_torch._batch_bench(**args))
     hold("cfg10_batch", ref, port, extra={
         "nodes": [fleet_expected.bench_batch_nodes(24, 12)]})
-    assert port["backend"] == "cpu" and port["batched"]["solves"] == 8
+    # one solve a tenant in each phase
+    assert port["backend"] == "cpu" and port["batched"]["solves"] == 4
 
 
 def test_delta_matches_bench():
@@ -109,6 +111,5 @@ def test_restart_probe_answers_the_primary(monkeypatch):
     port = judged("restart", bench_torch._run_restart_probe)
     assert "error" not in port, port
     assert port["answers"] == {"nodes": ref["nodes"]}
-    assert set(port) == {"prewarm_s", "restart_cold_s", "load_s", "nodes",
-                         "answers", "expected", "correct", "config_wall_s"}
+    assert set(port) == {"nodes", "answers", "expected", "correct"}
     assert port["correct"] is True
