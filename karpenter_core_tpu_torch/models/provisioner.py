@@ -938,9 +938,10 @@ class DeviceScheduler:
         self.last_phase_stats: Dict[str, float] = {}
         # the request id of the solve in progress (tracing.new_request)
         self._request: Optional[int] = None
-        # host-side result verification (solver/verify.py): an independent
-        # O(pods) constraint re-check over the final Results — the trust
-        # anchor between the device kernels and NodeClaim creation. A
+        # host-side result verification (models/verify_pass.py over the
+        # verbatim solver/verify.py): an independent O(pods) constraint
+        # re-check over the final Results — the trust anchor between the
+        # device kernels and NodeClaim creation. A
         # rejected result degrades THIS solve to the greedy host path
         # (metrics + Warning event via the recorder when one is wired).
         self.verify = verify
@@ -1185,12 +1186,13 @@ class DeviceScheduler:
             if whole:
                 m.SOLVER_GANG_UNSCHEDULABLE.inc(by=whole)
         if self.verify:
+            from karpenter_core_tpu_torch.models.verify_pass import VerifyPass
             from karpenter_core_tpu_torch.solver import verify as verifymod
 
             with tracing.span("verify", self._request, stats=stats,
-                              key="verify_s"):
+                              key="verify_s") as sp:
                 if self._verifier is None:
-                    self._verifier = verifymod.ResultVerifier(
+                    self._verifier = VerifyPass(
                         self.nodepools,
                         self.instance_types,
                         existing_nodes=self.existing_nodes,
@@ -1204,6 +1206,8 @@ class DeviceScheduler:
                     # invariant
                     self._verifier.topology = self._topology_context
                 violations = self._verifier.verify(results, all_pods)
+                for key, n in self._verifier.take_counts().items():
+                    sp.count(key, n)
             if violations:
                 verifymod.reject(violations, "inproc", self.recorder)
                 return self._verified_fallback(all_pods)

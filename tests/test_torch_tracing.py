@@ -26,6 +26,10 @@
   nodes holding a key beside its deprecated alias. A solve's second
   ``prepare.nodes`` counts the ``sims`` it built, one a node; a sweep's
   decision builds none and has no second span.
+* A solve's ``verify`` span counts the port's verify pass:
+  ``spread_constraints`` and ``label_sets``, both 0 on a topology-free
+  solve. The scheduler verifies through the pass; the sidecar client,
+  a verbatim copy, through the verbatim ``ResultVerifier``.
 * ``device_s`` is absent on CPU tensors; with a stand-in timer a solve's
   ``device_s`` is its dispatches' device seconds, a batched dispatch's
   split over its members, read once the solve or sweep ends, and no
@@ -309,6 +313,69 @@ def test_solve_counts_rows_and_sims(alias):
                            "rows_per_node": int(alias)}
     assert sims.counts == {"sims": len(nodes)}
     assert rows.parent is sims.parent and rows.parent.name == "prepare"
+
+
+# the topology problem's 60 pods (bench_torch._topology_pods): ten zone
+# spread and ten hostname spread cohorts, one hard constraint each; label
+# sets {} and anti-0..9 of the pods without spread constraints, and the
+# twenty cohorts' own
+VERIFY_COUNTS = {"topology": {"spread_constraints": 20, "label_sets": 31},
+                 "plain": {"spread_constraints": 0, "label_sets": 0}}
+
+
+@pytest.mark.parametrize("problem", sorted(PROBLEMS))
+def test_verify_span_counts_the_pass(problem):
+    """A solve's ``verify`` span counts ``spread_constraints``, the distinct
+    hard spread constraints its pass tallied, and ``label_sets``, the
+    distinct label sets whose selector matches it computed: none on a
+    topology-free solve. ``verify_s`` is still the span's duration, and the
+    scheduler verifies through the port's pass."""
+    from karpenter_core_tpu_torch.models.verify_pass import VerifyPass
+
+    sched = _scheduler()
+    pods = PROBLEMS[problem]()
+    result = sched.solve(pods)
+    assert not result.pod_errors
+    stats = sched.last_phase_stats
+    (span,) = [s for s in _spans_of(stats["request"]) if s.name == "verify"]
+    assert span.counts == VERIFY_COUNTS[problem]
+    assert stats["verify_s"] == span.dt > 0
+    assert type(sched._verifier) is VerifyPass
+    # a second solve counts its own call
+    sched.solve(PROBLEMS[problem]())
+    (again,) = [s for s in _spans_of(sched.last_phase_stats["request"])
+                if s.name == "verify"]
+    assert again.counts == VERIFY_COUNTS[problem]
+
+
+def test_sidecar_client_keeps_the_verbatim_verifier(monkeypatch):
+    """The sidecar client (``solver/remote.py``, a verbatim copy) verifies
+    its answers with the verbatim ``ResultVerifier``."""
+    from karpenter_core_tpu_torch.solver import remote, service
+    from karpenter_core_tpu_torch.solver import verify as verifymod
+
+    used = []
+    plain = verifymod.ResultVerifier.verify
+
+    def spy(self, results, pods):
+        used.append(type(self))
+        return plain(self, results, pods)
+
+    monkeypatch.setattr(verifymod.ResultVerifier, "verify", spy)
+    srv = service.serve(0, daemon=service.SolverDaemon(
+        device="cpu", kernel="reference"))
+    try:
+        client = remote.SolverClient(
+            f"127.0.0.1:{srv.server_address[1]}", timeout=120)
+        result = remote.RemoteScheduler(
+            client, [bench_torch._pool()],
+            {"default": list(bench_catalog(24))}).solve(
+                bench_torch._topology_pods(24))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert result.new_node_claims and not result.pod_errors
+    assert used == [verifymod.ResultVerifier]
 
 
 def test_log_keeps_the_newest_records():
